@@ -1,0 +1,714 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA engine (``zeebe_tpu_torch``).
+
+Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc``, holds
+each against its plain PyTorch version on the card at the main path's
+shapes, checks the whole drive loop on the card bit-equal to the same loop
+on the CPU, then drives config 1 (the order-process: start → service task
+"payment-service" → end, synthetic instant workers) at the benchmark's
+accelerator width through the package's own entry points, and shows from
+the launch counters that the run went through every kernel.
+
+    python3 chip_smoke.py                     # the full check, one CUDA card
+    python3 chip_smoke.py --profile --out F   # + one wave under torch.profiler,
+                                              #   every number written to F (JSON)
+
+Every phase passes or the script exits non-zero. The last line of standard
+output is ``{"ok": true, "device": {...}}``; before it come the card's name
+and power limit as nvidia-smi reports them and a ``{"kernels": [...]}``
+line. Without a CUDA device, or without the package beside it, the script
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+# H100 SXM device memory rate (NVIDIA data sheet); the bound of a kernel
+# that moves bytes and does no arithmetic to speak of is bytes over this
+HBM_BYTES_PER_S = 3.35e12
+
+# config 1 at the benchmark's accelerator settings
+WAVE = 1 << 14
+INSTANCES = 1 << 20
+CAP_FACTOR = 4
+TRANSITIONS_PER_INSTANCE = 20
+REBUILD_EVERY = 3
+# the device functions of zeebe_tpu_torch/csrc, as the profiler names them
+OUR_KERNELS = ("gather_rows_kernel", "set_claim_kernel", "set_write_kernel",
+               "accumulate_kernel", "hash_lookup_kernel")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        )
+        return res.stdout.strip().splitlines()[0] if res.stdout.strip() else (
+            f"nvidia-smi printed nothing (rc={res.returncode})"
+        )
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median CUDA-event time of one call of ``fn``, in milliseconds."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |difference| between two lists of tensors, compared as the
+    integers of their bit patterns (floats through their int32 view): 0.0
+    means bit-identical."""
+    import torch
+
+    worst = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype differ: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        if d.numel():
+            worst = max(worst, int(d.max()))
+    return float(worst)
+
+
+# ---------------------------------------------------------------------------
+# config 1
+# ---------------------------------------------------------------------------
+
+
+def config1_graph(device):
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+    from zeebe_tpu_torch.models.transform.transformer import transform_model
+    from zeebe_tpu_torch.tpu import graph as graph_mod
+
+    model = (
+        Bpmn.create_process("order-process")
+        .start_event("start")
+        .service_task("collect-money", type="payment-service")
+        .end_event("end")
+        .done()
+    )
+    workflows = transform_model(model)
+    for wf in workflows:
+        wf.key = 9
+        wf.version = 1
+    graph, meta = graph_mod.compile_graph(workflows, device=device)
+    for name in ("orderId", "orderValue", "paid"):
+        meta.varspace.column(name)
+    import dataclasses
+
+    graph = dataclasses.replace(graph, num_vars=max(graph.num_vars, 8))
+    return graph, meta
+
+
+def config1_state(meta, capacity, num_vars, device):
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    state = state_mod.make_state(
+        capacity=capacity, num_vars=num_vars, job_capacity=capacity,
+        join_capacity=capacity, sub_capacity=8, device=device,
+    )
+    # one worker subscription for "payment-service" with unbounded credit
+    state.sub_key[0] = 1
+    state.sub_type[0] = meta.interns.intern("payment-service")
+    state.sub_worker[0] = meta.interns.intern("bench-worker")
+    state.sub_credits[0] = 2**31 - 1
+    state.sub_timeout[0] = 300_000
+    state.sub_valid[0] = True
+    return state
+
+
+def config1_creates(meta, wave, num_vars, device):
+    """A wave of CREATE commands with payload {orderId, orderValue}."""
+    import torch
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.tpu import batch as rb
+    from zeebe_tpu_torch.tpu.conditions import VT_NUM
+
+    b = rb.empty(wave, num_vars, device=device)
+    oid = meta.varspace.column("orderId")
+    oval = meta.varspace.column("orderValue")
+    b.valid.fill_(True)
+    b.rtype.fill_(int(RecordType.COMMAND))
+    b.vtype.fill_(int(ValueType.WORKFLOW_INSTANCE))
+    b.intent.fill_(int(WI.CREATE))
+    b.wf.fill_(0)
+    b.v_vt[:, oid] = VT_NUM
+    b.v_vt[:, oval] = VT_NUM
+    b.v_num[:, oid] = torch.arange(wave, dtype=torch.float32, device=b.device)
+    b.v_num[:, oval] = 99.0
+    return b
+
+
+def config1_setup(wave, device):
+    """Graph, meta, state, queue and a CREATE wave for config 1."""
+    from zeebe_tpu_torch.tpu import drive
+
+    graph, meta = config1_graph(device)
+    num_vars = graph.num_vars
+    state = config1_state(meta, CAP_FACTOR * wave, num_vars, device)
+    queue = drive.make_queue(4 * wave * max(2, graph.emit_width), num_vars,
+                             device=device)
+    return graph, state, queue, config1_creates(meta, wave, num_vars, device)
+
+
+def drive_config1(waves, wave, device, timed_from=1):
+    """Config 1 through the package's entry points: compile the graph, make
+    the state and queue, then per wave enqueue CREATEs and drive to
+    quiescence with synthetic workers; rebuild the lookup state after the
+    first wave and every REBUILD_EVERY waves after it. Returns (state,
+    totals over all waves, seconds of the waves from ``timed_from`` on)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import drive, state as state_mod
+
+    graph, state, queue, creates = config1_setup(wave, device)
+    totals = {"processed": 0, "emitted": 0, "completed_roots": 0, "rounds": 0}
+    t0 = None
+    for i in range(waves):
+        if i == timed_from:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        queue = drive.enqueue(queue, creates)
+        state, queue, t = drive.run_to_quiescence(
+            graph, state, queue, 0, wave, synthetic_workers=True,
+        )
+        for k in totals:
+            totals[k] += t[k]
+        if i % REBUILD_EVERY == 0:
+            state = state_mod.rebuild_lookup_state(state)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0 if t0 is not None else 0.0
+    return state, totals, elapsed
+
+
+def profile_config1(wave, warm_waves=2):
+    """One config-1 wave at full width under torch.profiler, after
+    ``warm_waves`` unprofiled ones: wall time, summed device kernel time,
+    the device's idle share and the kernels that take the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeebe_tpu_torch.tpu import drive, state as state_mod
+
+    graph, state, queue, creates = config1_setup(wave, "cuda")
+    for _ in range(warm_waves):
+        queue = drive.enqueue(queue, creates)
+        state, queue, _t = drive.run_to_quiescence(graph, state, queue, 0, wave,
+                                                   synthetic_workers=True)
+        state = state_mod.rebuild_lookup_state(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        queue = drive.enqueue(queue, creates)
+        state, queue, totals = drive.run_to_quiescence(graph, state, queue, 0, wave,
+                                                       synthetic_workers=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # device-side events only: an operator's device time is also its kernels'
+    events = [e for e in prof.key_averages()
+              if dev_us(e) > 0 and e.device_type != torch.autograd.DeviceType.CPU]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:15]
+    top += [e for e in events if e not in top and e.key.split("(")[0] in OUR_KERNELS]
+    return {
+        "wave": wave, "rounds": totals["rounds"], "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "device_launches": sum(e.count for e in events),
+        "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version at main-path shapes
+# ---------------------------------------------------------------------------
+
+
+def check_gather(dev, gen):
+    """The phase-B/C state gather of one round (N = M = 2^16, B = 2^14,
+    V = 8) plus the emission-take tables, with adversarial slots."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    n = m = CAP_FACTOR * WAVE
+    b = WAVE
+    v = 8
+
+    def ri(shape, dtype=torch.int32):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    ei_i32 = ri((n, 6))
+    ei_i64 = torch.randint(-2**62, 2**62, (n, 3), generator=gen).to(dev)
+    ei_pay = ri((n, 3 * v))
+    job_i32 = ri((m, 6))
+    job_i64 = torch.randint(-2**62, 2**62, (m, 4), generator=gen).to(dev)
+    job_pay = ri((m, 3 * v))
+    # f32 table of raw bit patterns: NaNs with payloads, infinities, -0.0
+    f32 = ri((2 * b, v)).view(torch.float32)
+    f32[0, 0] = float("nan")
+    i8 = torch.randint(-128, 127, (2 * b, v), generator=gen, dtype=torch.int8).to(dev)
+    flags = (torch.rand((2 * b,), generator=gen) < 0.5).to(dev)
+    tables = [ei_i32, ei_i64, ei_pay, job_i32, job_i64, job_pay,
+              ei_i64[:, 0], f32, i8, flags]
+
+    def slots(k, t):
+        # in range, plus duplicates, -1, -t-3, t, t+7
+        s = torch.randint(0, t, (k,), generator=gen, dtype=torch.int32)
+        s[: k // 8] = s[0]
+        s[1::97] = -1
+        s[2::101] = -t - 3
+        s[3::103] = t
+        s[4::107] = t + 7
+        return s.to(dev)
+
+    gops = [
+        ops.GatherOp(0, slots(3 * b, n)), ops.GatherOp(0, slots(b, n)),
+        ops.GatherOp(1, slots(b, n)), ops.GatherOp(2, slots(b, n)),
+        ops.GatherOp(2, slots(b, n)), ops.GatherOp(3, slots(b, m)),
+        ops.GatherOp(4, slots(b, m)), ops.GatherOp(5, slots(b, m)),
+        ops.GatherOp(6, slots(3 * b, n)), ops.GatherOp(7, slots(2 * b, 2 * b)),
+        ops.GatherOp(8, slots(2 * b, 2 * b)), ops.GatherOp(9, slots(2 * b, 2 * b)),
+    ]
+    got = ops.fused_gather_rows(tables, gops)
+    want = ops.fused_gather_rows_reference(tables, gops)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"gather_rows differs from its plain version: {err}")
+    nbytes = 0
+    for op in gops:
+        t = tables[op.table]
+        row = t.element_size() * (t.shape[1] if t.dim() == 2 else 1)
+        nbytes += op.slots.numel() * (4 + 2 * row)  # slot, row read, row written
+    idx64 = [
+        ops._wrap_slots(op.slots, tables[op.table].shape[0])
+        .clamp(0, tables[op.table].shape[0] - 1) for op in gops
+    ]
+    return {
+        "name": "fused_gather_rows", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "zeebe_tpu/tpu/pallas_ops.py:789",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.fused_gather_rows(tables, gops)),
+        "plain_ms": time_ms(lambda: ops.fused_gather_rows_reference(tables, gops)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # yardstick: one index_select per op on pre-clamped int64 slots
+        "library_ms": time_ms(lambda: [
+            tables[op.table].index_select(0, ix) for op, ix in zip(gops, idx64)
+        ]),
+        "shape": f"{len(gops)} ops, B={b}, N=M={n}, V={v}",
+    }
+
+
+def check_commit(dev, gen):
+    """An element-instance-group commit (N = 2^16, B = 2^14, V = 8) with
+    duplicate slots, masked lanes, add/max, 1D tables and the sentinel T."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    n = CAP_FACTOR * WAVE
+    b = WAVE
+    v = 8
+
+    def ri(shape, lo=-1000, hi=1000):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32).to(dev)
+
+    base = [ri((n, 6)), torch.randint(-2**40, 2**40, (n, 3), generator=gen).to(dev),
+            ri((n, 3 * v)), ri((n,)), ri((8 * n,))]
+
+    def tables_copy():
+        return [base[0].clone(), base[1].clone().view(torch.int32),
+                base[2].clone(), base[3].clone(), base[4].clone()]
+
+    def slots(t, k=b):
+        s = torch.randint(0, t, (k,), generator=gen, dtype=torch.int32)
+        s[: k // 4] = torch.randint(0, 64, (k // 4,), generator=gen,
+                                    dtype=torch.int32)  # heavy duplicates
+        s[5::89] = t          # the sentinel slot: dropped
+        s[6::97] = -1         # wraps to the last row
+        s[7::101] = -t - 2    # still out of range after one wrap: dropped
+        return s.to(dev)
+
+    def active(p=0.7):
+        return (torch.rand((b,), generator=gen) < p).to(dev)
+
+    def mask(k):
+        return (torch.rand((b, k), generator=gen) < 0.5).to(dev)
+
+    cops = [
+        ops.TableOp(0, "add", slots(n), active(), ri((b, 6)), mask(6)),
+        ops.TableOp(0, "set", slots(n), active(), ri((b, 6)), mask(6)),
+        ops.TableOp(2, "set", slots(n), active(), ri((b, 3 * v))),
+        ops.TableOp(0, "set", slots(n), active(), ri((b, 6))),
+        ops.TableOp(1, "set", slots(n), active(), ri((b, 6)), mask(6)),
+        ops.TableOp(3, "set", slots(n), active(), ri((b,))),
+        ops.TableOp(3, "add", slots(n), active(), ri((b,))),
+        ops.TableOp(0, "max", slots(n), active(), ri((b, 6))),
+        ops.TableOp(4, "set", slots(8 * n), active(), ri((b,))),
+        ops.TableOp(2, "set", slots(n), active(), ri((b, 3 * v))),
+    ]
+    got = ops.fused_table_commit(tables_copy(), cops)
+    want = ops.fused_table_commit_reference(tables_copy(), cops)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"table_commit differs from its plain version: {err}")
+    nbytes = 0
+    for op in cops:
+        k = op.vals.shape[1] if op.vals.dim() == 2 else 1
+        nbytes += b * (4 + 1 + 4 * k + (k if op.mask is not None else 0))
+        lanes = int((op.active[:, None] & (op.mask if op.mask is not None
+                                          else torch.ones_like(op.vals, dtype=torch.bool)
+                                          .reshape(b, k))).sum())
+        nbytes += lanes * 4 * (2 if op.kind != "set" else 1)  # RMW for add/max
+    work = tables_copy()
+    return {
+        "name": "fused_table_commit", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/table_commit.cu",
+        "replaces": "zeebe_tpu/tpu/pallas_ops.py:567",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.fused_table_commit(work, cops)),
+        "plain_ms": time_ms(lambda: ops.fused_table_commit_reference(work, cops)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call orders duplicate writes
+        "shape": f"{len(cops)} ops, B={b}, N={n}, V={v}",
+    }
+
+
+def check_lookup(dev, gen):
+    """The element-instance map (T = 2^19 buckets for N = 2^16) probed with
+    3B = 3·2^14 keys: hits, misses, tombstones, invalid keys."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap, ops
+
+    n = CAP_FACTOR * WAVE
+    b = WAVE
+    t = 1
+    while t < 8 * n:
+        t *= 2
+    keys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 1
+    table, ok = hashmap.insert(
+        hashmap.make(t, device=dev), keys, torch.arange(n, dtype=torch.int32, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev),
+    )
+    assert bool(ok.all())
+    dead = (torch.rand((n,), generator=gen) < 0.2).to(dev)
+    table = hashmap.delete(table, keys, dead)
+    pick = torch.randint(0, n, (3 * b,), generator=gen).to(dev)
+    q = keys[pick]
+    q[::3] += 2**33          # absent keys ≥ 2^32
+    q[1::7] = -1             # the EMPTY sentinel as a key
+    valid = (torch.rand((3 * b,), generator=gen) < 0.5).to(dev)
+    strided = torch.stack([q, q], dim=1)[:, 0]  # a strided key column
+    got = list(ops.lookup(table, strided, valid))
+    want = list(ops.lookup_reference(table, q, valid))
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"hash_lookup differs from its plain version: {err}")
+    nv = int(valid.sum())
+    nbytes = 3 * b * (8 + 1 + 1 + 4) + nv * 12  # ≥ one bucket per valid key
+    return {
+        "name": "lookup", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/hash_lookup.cu",
+        "replaces": "zeebe_tpu/tpu/pallas_ops.py:972",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.lookup(table, q, valid)),
+        "plain_ms": time_ms(lambda: ops.lookup_reference(table, q, valid)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call probes an open-addressing map
+        "shape": f"{3 * b} keys ({nv} valid), T={t}",
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the whole path on the card against the same path on the CPU
+# ---------------------------------------------------------------------------
+
+
+def parity(wave=1024, waves=3):
+    import numpy as np
+
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        st, totals, _ = drive_config1(waves, wave, device)
+        results[device] = (state_mod.state_to_numpy(st), totals)
+    (a, ta), (c, tc) = results["cuda"], results["cpu"]
+    if ta != tc:
+        raise AssertionError(f"totals differ: cuda {ta} cpu {tc}")
+    bad = [k for k in a if a[k].dtype != c[k].dtype or a[k].shape != c[k].shape
+           or not np.array_equal(a[k], c[k])]
+    if bad:
+        raise AssertionError(f"state differs between cuda and cpu: {bad}")
+    if ta["processed"] != TRANSITIONS_PER_INSTANCE * wave * waves:
+        raise AssertionError(f"processed {ta['processed']} != 20 x {wave * waves}")
+    return ta
+
+
+def mixed_case(rng, capacity, size, num_vars=8):
+    """numpy arrays of a state with live process/task instances and jobs in
+    every job state, and a batch mixing job commands (stale keys, bad
+    retries, several commands on one job), job events, timer commands,
+    CREATEs and workflow-instance events, with NaN payload bits: the paths
+    of the step that config 1's happy path never takes."""
+    import numpy as np
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import JobIntent, TimerIntent
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.tpu import batch as rb, state as state_mod
+
+    st = state_mod.state_to_numpy(
+        state_mod.make_state(capacity=capacity, num_vars=num_vars, device="cpu"))
+    n = capacity // 8
+    proc = 10 * np.arange(n, dtype=np.int64) + 1
+    task, jobk = proc + 5, 5 * np.arange(n, dtype=np.int64) + 2
+    st["ei_i32"][0:2 * n:2] = [0, int(WI.ELEMENT_ACTIVATED), 0, -1, 1, -1]
+    st["ei_i32"][1:2 * n:2] = [3, int(WI.ELEMENT_ACTIVATED), 0, 0, 0, -1]
+    st["ei_i32"][1:2 * n:2, 3] = np.arange(0, 2 * n, 2)
+    st["ei_i64"][0:2 * n:2] = np.stack([proc, proc, np.full(n, -1)], axis=1)
+    st["ei_i64"][1:2 * n:2] = np.stack([task, proc, jobk], axis=1)
+    jstates = np.array([int(JobIntent.CREATED), int(JobIntent.ACTIVATED),
+                        int(JobIntent.FAILED), int(JobIntent.TIMED_OUT)])
+    st["job_i32"][:n] = np.stack([jstates[np.arange(n) % 4], np.full(n, 3), np.zeros(n),
+                                  1 + np.arange(n) % 2, np.arange(n) % 3,
+                                  np.full(n, 7)], axis=1)
+    st["job_i64"][:n] = np.stack([jobk, proc, task, 1000 + np.arange(n)], axis=1)
+    st["ei_pay"][:] = rng.integers(-2**31, 2**31 - 1, size=st["ei_pay"].shape)
+    st["job_pay"][:] = rng.integers(-2**31, 2**31 - 1, size=st["job_pay"].shape)
+    st["sub_key"][:3], st["sub_type"][:3] = [11, 12, 13], [1, 2, 1]
+    st["sub_credits"][:3], st["sub_timeout"][:3] = [5, 3, 1000], [300, 400, 500]
+    st["sub_valid"][:3] = [True, True, False]
+    st["next_wf_key"] = np.array(20 * n + 1, np.int64)
+    st["next_job_key"] = np.array(10 * n + 2, np.int64)
+    st = state_mod.state_to_numpy(
+        state_mod.rebuild_lookup_state(state_mod.state_from_numpy(st, device="cpu")))
+
+    b = size
+    cols = rb.batch_to_numpy(rb.empty(b, num_vars, device="cpu"))
+    kind = rng.integers(0, 6, size=b)  # job cmd, job event, timer cmd, CREATE, WI event x2
+    pick = rng.integers(0, n, size=b)
+    cols["valid"] = rng.random(b) < 0.9
+    cols["rtype"][:] = np.where(np.isin(kind, [1, 4, 5]), int(RecordType.EVENT),
+                                int(RecordType.COMMAND))
+    cols["vtype"][:] = np.select([kind <= 1, kind == 2],
+                                 [int(ValueType.JOB), int(ValueType.TIMER)],
+                                 int(ValueType.WORKFLOW_INSTANCE))
+    cols["intent"][:] = np.select(
+        [kind <= 1, kind == 2, kind == 3],
+        [rng.choice([int(i) for i in JobIntent], size=b),
+         rng.choice([int(TimerIntent.CREATE), int(TimerIntent.TRIGGER),
+                     int(TimerIntent.CANCEL)], size=b), int(WI.CREATE)],
+        rng.integers(0, 17, size=b))
+    cols["key"][:] = np.select(
+        [rng.random(b) < 0.2, kind <= 2, kind >= 4],
+        [5 * rng.integers(10**6, 2 * 10**6, size=b) + 2, jobk[pick],
+         np.where(rng.random(b) < 0.5, proc[pick], task[pick])], -1)
+    cols["key"][:8] = jobk[0]
+    cols["elem"][:] = np.where(kind >= 4, rng.integers(-1, 5, size=b), 3)
+    cols["wf"][:] = np.where(rng.random(b) < 0.95, 0, -1)
+    cols["instance_key"][:] = proc[pick]
+    cols["scope_key"][:] = np.where(rng.random(b) < 0.7, proc[pick], -1)
+    cols["aux_key"][:] = np.where(rng.random(b) < 0.9, task[pick], -1)
+    cols["type_id"][:] = rng.integers(0, 3, size=b)
+    cols["retries"][:] = rng.integers(-1, 3, size=b)
+    cols["deadline"][:] = rng.integers(0, 10**6, size=b)
+    cols["worker"][:] = rng.integers(0, 30, size=b)
+    cols["req"][:] = np.where(rng.random(b) < 0.5, rng.integers(0, 10**9, size=b), -1)
+    cols["req_stream"][:] = rng.choice([11, 12, 13, 99, -1], size=b)
+    cols["v_vt"][:] = rng.integers(0, 6, size=(b, num_vars))
+    cols["v_num"].view(np.int32)[:] = rng.integers(-2**31, 2**31 - 1, size=(b, num_vars))
+    cols["v_str"][:] = rng.integers(0, 50, size=(b, num_vars))
+    return st, cols
+
+
+def parity_mixed(capacity=8192, size=4096, seed=7):
+    """One step of the mixed batch on the card and on the CPU (B > 2048:
+    the large-batch branches): state, emissions and stats bit-equal."""
+    import numpy as np
+
+    from zeebe_tpu_torch.tpu import batch as rb, kernel, state as state_mod
+
+    st, cols = mixed_case(np.random.default_rng(seed), capacity, size)
+    out = {}
+    for device in ("cuda", "cpu"):
+        graph, _meta = config1_graph(device)
+        s, e, stats = kernel.step_kernel(
+            graph, state_mod.state_from_numpy(st, device=device),
+            rb.batch_from_numpy(cols, device=device), 5_000, synthetic_workers=True)
+        out[device] = ({**state_mod.state_to_numpy(s), **{
+            "emit." + k: v for k, v in rb.batch_to_numpy(e).items()}},
+            {k: int(v) for k, v in stats.items()})
+    (a, sa), (c, sc) = out["cuda"], out["cpu"]
+    bad = [k for k in a if a[k].dtype != c[k].dtype or a[k].shape != c[k].shape
+           or not np.array_equal(np.atleast_1d(a[k]).view(np.uint8),
+                                 np.atleast_1d(c[k]).view(np.uint8))]
+    if bad or sa != sc:
+        raise AssertionError(f"mixed step differs between cuda and cpu: {bad} {sa} {sc}")
+    return sa
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write every measured number here (JSON)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one full-width wave (torch.profiler)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        from zeebe_tpu_torch import _build
+        from zeebe_tpu_torch.tpu import ops
+    except ImportError as e:
+        print(f"chip_smoke: the zeebe_tpu_torch package is missing: {e}",
+              file=sys.stderr)
+        return 2
+
+    report = {}
+    smi = smi_line()
+    log(f"[0] card: {smi}")
+    log(f"    torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[1] kernels built in {build_s:.2f} s (nvcc wall {_build.last_build_seconds:.2f} s)")
+    for name, out in _build.ptxas_reports.items():
+        for line in out.splitlines():
+            if "registers" in line or "error" in line.lower():
+                log(f"    {name}: {line.strip()}")
+    report["build_seconds"] = build_s
+
+    gen = torch.Generator().manual_seed(1234)
+    kernels = []
+    for check in (check_gather, check_commit, check_lookup):
+        row = check("cuda", gen)
+        kernels.append(row)
+        log(f"[2] {row['name']}: bit-equal to plain ({row['shape']}); "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']}, bound {row['bound_ms']:.4f} ms")
+
+    t0 = time.perf_counter()
+    ptot = parity()
+    log(f"[3] 3 waves x 1024 at capacity 4096: cuda == cpu, bit-equal state "
+        f"and totals {ptot} ({time.perf_counter() - t0:.1f} s)")
+    report["parity_totals"] = ptot
+    mstats = parity_mixed()
+    log(f"[3] one mixed step (job commands/events, timer commands, WI events), "
+        f"B=4096 at capacity 8192: cuda == cpu, bit-equal state, emissions "
+        f"and stats {mstats}")
+
+    waves = INSTANCES // WAVE
+    ops.reset_launches()
+    state, totals, elapsed = drive_config1(waves, WAVE, "cuda")
+    launches = dict(ops.LAUNCHES)
+    instances = waves * WAVE
+    timed = (waves - 1) * WAVE * TRANSITIONS_PER_INSTANCE
+    if totals["completed_roots"] != instances:
+        raise AssertionError(f"completed {totals['completed_roots']} != {instances}")
+    if totals["processed"] != TRANSITIONS_PER_INSTANCE * instances:
+        raise AssertionError(f"processed {totals['processed']} != 20 x {instances}")
+    zero = [k for k, c in launches.items() if c <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: {zero}")
+    rate = timed / elapsed if elapsed > 0 else float("nan")
+    log(f"[4] config 1: {instances} instances, wave {WAVE}, capacity "
+        f"{CAP_FACTOR * WAVE}: processed {totals['processed']}, completed "
+        f"{totals['completed_roots']}, rounds {totals['rounds']}, no overflow; "
+        f"{rate:.1f} transitions/s over the {waves - 1} waves after the first "
+        f"({elapsed:.3f} s); launches {launches}")
+    report.update(config1={
+        "waves": waves, "wave": WAVE, "instances": instances,
+        "totals": totals, "timed_seconds": elapsed,
+        "timed_transitions": timed, "transitions_per_sec": rate,
+        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+    })
+    if args.profile:
+        prof = profile_config1(WAVE)
+        report["profile"] = prof
+        log(f"[p] one wave of {WAVE}: {prof['rounds']} rounds, wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
+            f"(idle share {prof['device_idle_share']:.3f}), "
+            f"{prof['device_launches']} device ops")
+        for row in prof["top"]:
+            log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    report["kernels"] = kernels
+    report["card"] = smi
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except Exception:  # any phase failure: report it and exit non-zero
+        traceback.print_exc()
+        sys.exit(1)

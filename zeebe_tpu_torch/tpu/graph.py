@@ -1,0 +1,491 @@
+"""Compiled workflow graphs: ExecutableWorkflow set → device tensor tables.
+
+PyTorch counterpart of ``zeebe_tpu.tpu.graph``, the deploy-time "BPMN
+compiler": the per-element binding lifecycle-state → BpmnStep of the
+reference (``broker-core/.../workflow/model/ExecutableFlowElement.java:44``)
+becomes a dense ``step_table[workflow, element, intent]`` tensor plus flat
+adjacency/attribute tables. The tables are built in numpy exactly as the
+JAX package builds them and uploaded once to the chosen device.
+
+Workflows whose features the device cannot execute raise DeviceIneligible
+(``check_device_compatible`` names the reason).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping as TMapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from zeebe_tpu_torch.device import DeviceLike, resolve
+from zeebe_tpu_torch.models.bpmn.model import ElementType, Mapping
+from zeebe_tpu_torch.models.el.ast import compile_json_path
+from zeebe_tpu_torch.models.transform.executable import ExecutableWorkflow
+from zeebe_tpu_torch.tpu.conditions import DeviceIneligible, ProgramPool
+from zeebe_tpu_torch.tpu.intern import InternTable
+
+NUM_WI_INTENTS = 17  # includes the BOUNDARY_EVENT_OCCURRED extension
+
+_DEVICE_ELEMENT_TYPES = {
+    ElementType.PROCESS,
+    ElementType.START_EVENT,
+    ElementType.END_EVENT,
+    ElementType.SERVICE_TASK,
+    ElementType.EXCLUSIVE_GATEWAY,
+    ElementType.PARALLEL_GATEWAY,
+    ElementType.SEQUENCE_FLOW,
+    ElementType.SUB_PROCESS,
+    ElementType.INTERMEDIATE_CATCH_EVENT,
+    ElementType.RECEIVE_TASK,
+    ElementType.BOUNDARY_EVENT,
+}
+
+# device multi-instance: cardinality-based fan-out through the emission
+# slots; larger cardinalities run on the host oracle
+MAX_DEVICE_MI_CARDINALITY = 16
+
+
+def _device_boundary_reason(el) -> Optional[str]:
+    """None when el's attached boundary events can run on device."""
+    if not el.boundary_events:
+        return None
+    if el.element_type not in (ElementType.SERVICE_TASK, ElementType.RECEIVE_TASK):
+        return (
+            f"boundary events on {el.element_type.name} ({el.id}) — "
+            "host-only (contained-instance termination)"
+        )
+    return None
+
+
+def _device_mi_reason(el) -> Optional[str]:
+    """None when el's multi-instance shape can run on device."""
+    if not el.is_multi_instance:
+        return None
+    if el.mi_input_collection or el.mi_output_collection:
+        return (
+            f"collection-driven multi-instance ({el.id}) — host-only "
+            "(collections have no device column form)"
+        )
+    card = el.mi_cardinality or 0
+    if not (0 < card <= MAX_DEVICE_MI_CARDINALITY):
+        return (
+            f"multi-instance cardinality {card} ({el.id}) exceeds the "
+            f"device fan-out budget ({MAX_DEVICE_MI_CARDINALITY})"
+        )
+    return None
+
+
+class VarSpace:
+    """Payload variable name → device column."""
+
+    def __init__(self, names: Sequence[str] = ()):
+        self._cols: Dict[str, int] = {}
+        for name in names:
+            self.column(name)
+
+    def column(self, name: str) -> int:
+        col = self._cols.get(name)
+        if col is None:
+            col = len(self._cols)
+            self._cols[name] = col
+        return col
+
+    def lookup(self, name: str) -> Optional[int]:
+        return self._cols.get(name)
+
+    @property
+    def names(self) -> List[str]:
+        return list(self._cols)
+
+    def __len__(self) -> int:
+        return len(self._cols)
+
+
+# elem_meta column layout (keep in sync with the stack in compile_graph)
+(EM_TYPE, EM_FIRST_OUT, EM_FLOW_TGT, EM_START_EV, EM_OUT_COUNT,
+ EM_DEFAULT_FLOW, EM_JOIN_NIN, EM_JOIN_POS, EM_JOB_TYPE, EM_JOB_RETRIES,
+ EM_OUT_BEHAVIOR, EM_MSG_NAME, EM_CORR_VAR, EM_BD_COUNT, EM_MI_CARD,
+ EM_IN_MAP_N, EM_IN_ROOT, EM_OUT_MAP_N, EM_OUT_ROOT) = range(19)
+
+DATA_FIELDS = (
+    "step_table", "elem_type", "first_out_flow", "flow_target", "start_event",
+    "elem_meta",
+    "out_flows", "out_count", "cond_flows", "cond_prog", "default_flow",
+    "join_nin", "join_pos", "job_type", "job_retries",
+    "in_map_src", "in_map_dst", "in_map_n", "in_root",
+    "out_map_src", "out_map_dst", "out_map_n", "out_root", "out_behavior",
+    "timer_dur", "msg_name", "corr_var",
+    "bd_elem", "bd_timer", "bd_msg", "bd_corr", "bd_interrupt", "bd_count",
+    "bd_is_boundary", "bd_host_interrupt", "mi_cardinality",
+    "progs", "lit_nums",
+)
+STATIC_FIELDS = (
+    "num_vars", "emit_width", "max_join_in", "has_conditions",
+    "has_parallel_joins", "has_timers", "has_mappings", "has_messages",
+    "has_boundaries", "has_multi_instance", "mi_loop_var",
+)
+# the feature gates step_kernel specializes on
+FEATURE_GATES = (
+    "has_conditions", "has_parallel_joins", "has_timers", "has_mappings",
+    "has_messages", "has_boundaries", "has_multi_instance",
+)
+
+
+@dataclasses.dataclass
+class DeviceGraph:
+    # all [W, E] int32 unless noted
+    step_table: torch.Tensor  # [W, E, NUM_WI_INTENTS]
+    elem_type: torch.Tensor
+    # the hot-path per-element scalars packed into ONE [W, E, EM_COLS] table
+    elem_meta: torch.Tensor
+    first_out_flow: torch.Tensor       # outgoing[0] element idx, -1 none
+    flow_target: torch.Tensor          # sequence flow → target element idx
+    start_event: torch.Tensor          # container → its start event idx
+    out_flows: torch.Tensor            # [W, E, F] parallel fork fan-out, -1 pad
+    out_count: torch.Tensor
+    cond_flows: torch.Tensor           # [W, E, F] conditioned flows, in order
+    cond_prog: torch.Tensor            # [W, E, F] program ids, -1 pad
+    default_flow: torch.Tensor
+    join_nin: torch.Tensor             # gateway: len(incoming)
+    join_pos: torch.Tensor             # flow: its index in target.incoming
+    job_type: torch.Tensor             # interned job type id
+    job_retries: torch.Tensor
+    in_map_src: torch.Tensor           # [W, E, K] source var column, -1 pad
+    in_map_dst: torch.Tensor           # [W, E, K] target var column
+    in_map_n: torch.Tensor
+    in_root: torch.Tensor              # bool: lone "$→$" mapping
+    out_map_src: torch.Tensor
+    out_map_dst: torch.Tensor
+    out_map_n: torch.Tensor
+    out_root: torch.Tensor
+    out_behavior: torch.Tensor
+    timer_dur: torch.Tensor            # int64, -1 = no timer
+    msg_name: torch.Tensor             # interned message name, 0 = none
+    corr_var: torch.Tensor             # correlation-key payload column, -1 none
+    bd_elem: torch.Tensor              # [W, E, BD] boundary element idx, -1 pad
+    bd_timer: torch.Tensor             # [W, E, BD] int64 duration, -1 = message
+    bd_msg: torch.Tensor               # [W, E, BD] interned message name
+    bd_corr: torch.Tensor              # [W, E, BD] correlation payload column
+    bd_interrupt: torch.Tensor         # [W, E, BD] bool
+    bd_count: torch.Tensor             # [W, E]
+    bd_is_boundary: torch.Tensor       # [W, E] bool: element IS a boundary event
+    bd_host_interrupt: torch.Tensor    # [W, E] bool: boundary elem interrupts
+    mi_cardinality: torch.Tensor       # [W, E] int32, 0 = not multi-instance
+    progs: torch.Tensor                # [P, L, 6] predicate programs
+    lit_nums: torch.Tensor             # [Q] float32
+    # static meta
+    num_vars: int
+    emit_width: int                    # max emissions per record (≥2)
+    max_join_in: int
+    # deploy-time kernel specialization: features absent from the whole
+    # deployed set are compiled out of the step entirely
+    has_conditions: bool = True
+    has_parallel_joins: bool = True
+    has_timers: bool = True
+    has_mappings: bool = True
+    has_messages: bool = False
+    has_boundaries: bool = False
+    has_multi_instance: bool = False
+    mi_loop_var: int = -1  # payload column of loopCounter, -1 when no MI
+
+    def gates_on(self) -> List[str]:
+        """The feature gates this graph switches on."""
+        return [g for g in FEATURE_GATES if getattr(self, g)]
+
+
+@dataclasses.dataclass
+class GraphMeta:
+    """Host-side companions of a DeviceGraph."""
+
+    workflows: List[ExecutableWorkflow]
+    slot_by_key: Dict[int, int]
+    interns: InternTable
+    varspace: VarSpace
+    # per workflow slot: element idx → id and id → idx
+    elem_ids: List[List[str]]
+    elem_idx: List[Dict[str, int]]
+
+    def slot(self, workflow_key: int) -> int:
+        return self.slot_by_key.get(workflow_key, -1)
+
+    def element_id(self, wf_slot: int, elem: int) -> str:
+        if 0 <= wf_slot < len(self.elem_ids) and 0 <= elem < len(self.elem_ids[wf_slot]):
+            return self.elem_ids[wf_slot][elem]
+        return ""
+
+
+def _flat_var(varspace: VarSpace, path: str, what: str) -> int:
+    steps = compile_json_path(path)
+    if len(steps) != 1 or not isinstance(steps[0], str):
+        raise DeviceIneligible(f"non-flat JSONPath in {what}: {path}")
+    return varspace.column(steps[0])
+
+
+def _compile_mappings(
+    varspace: VarSpace, mappings: List[Mapping], what: str
+) -> Tuple[List[int], List[int], bool]:
+    if len(mappings) == 1 and mappings[0].source == "$" and mappings[0].target == "$":
+        return [], [], True
+    srcs, dsts = [], []
+    for m in mappings:
+        if m.source == "$" or m.target == "$":
+            raise DeviceIneligible(f"root mapping mixed with others in {what}")
+        srcs.append(_flat_var(varspace, m.source, what))
+        dsts.append(_flat_var(varspace, m.target, what))
+    return srcs, dsts, False
+
+
+def check_device_compatible(workflow: ExecutableWorkflow) -> Optional[str]:
+    """None when the workflow can run on device; else the reason."""
+    varspace, interns = VarSpace(), InternTable()
+    pool = ProgramPool(varspace=varspace, interns=interns)
+    try:
+        for el in workflow.elements:
+            if el.element_type not in _DEVICE_ELEMENT_TYPES:
+                return f"element type {el.element_type.name} ({el.id})"
+            if el.message_name:
+                _flat_var(
+                    varspace, el.correlation_key_path,
+                    f"correlation key of {el.id}",
+                )
+            reason = _device_mi_reason(el)
+            if reason:
+                return reason
+            reason = _device_boundary_reason(el)
+            if reason:
+                return reason
+            for boundary in el.boundary_events:
+                if boundary.message_name:
+                    _flat_var(
+                        varspace, boundary.correlation_key_path,
+                        f"correlation key of {boundary.id}",
+                    )
+            _compile_mappings(varspace, el.input_mappings, f"input mapping of {el.id}")
+            _compile_mappings(varspace, el.output_mappings, f"output mapping of {el.id}")
+            if el.condition is not None:
+                pool.compile(el.condition)
+    except DeviceIneligible as e:
+        return str(e)
+    return None
+
+
+def compile_graph(
+    workflows: List[ExecutableWorkflow],
+    interns: Optional[InternTable] = None,
+    extra_variables: Sequence[str] = (),
+    device: DeviceLike = None,
+) -> Tuple[DeviceGraph, GraphMeta]:
+    """Compile a deployed workflow set into one device graph on ``device``
+    (the CUDA card unless ``device="cpu"`` is asked for)."""
+    dev = resolve(device)
+    interns = interns if interns is not None else InternTable()
+    varspace = VarSpace(extra_variables)
+    pool = ProgramPool(varspace=varspace, interns=interns)
+
+    def _pad(n: int, mult: int) -> int:
+        return ((max(n, 1) + mult - 1) // mult) * mult
+
+    # coarse padding, as the JAX package pads (shared table shapes keep
+    # snapshots and graphs interchangeable between the two engines)
+    num_wf = _pad(len(workflows), 4)
+    num_elems = _pad(max((len(w.elements) for w in workflows), default=1), 16)
+    fan = 2
+    join_in = 2
+    num_maps = 2
+    max_bd = 1
+    for w in workflows:
+        for el in w.elements:
+            fan = max(fan, len(el.outgoing), len(el.outgoing_with_condition))
+            if el.is_multi_instance and not _device_mi_reason(el):
+                fan = max(fan, int(el.mi_cardinality or 0))
+            join_in = max(join_in, len(el.incoming))
+            num_maps = max(num_maps, len(el.input_mappings), len(el.output_mappings))
+            max_bd = max(max_bd, len(el.boundary_events))
+
+    shape = (num_wf, num_elems)
+    step_table = np.zeros(shape + (NUM_WI_INTENTS,), np.int32)
+    elem_type = np.zeros(shape, np.int32)
+    first_out_flow = np.full(shape, -1, np.int32)
+    flow_target = np.full(shape, -1, np.int32)
+    start_event = np.full(shape, -1, np.int32)
+    out_flows = np.full(shape + (fan,), -1, np.int32)
+    out_count = np.zeros(shape, np.int32)
+    cond_flows = np.full(shape + (fan,), -1, np.int32)
+    cond_prog = np.full(shape + (fan,), -1, np.int32)
+    default_flow = np.full(shape, -1, np.int32)
+    join_nin = np.zeros(shape, np.int32)
+    join_pos = np.full(shape, -1, np.int32)
+    job_type = np.zeros(shape, np.int32)
+    job_retries = np.zeros(shape, np.int32)
+    in_map_src = np.full(shape + (num_maps,), -1, np.int32)
+    in_map_dst = np.full(shape + (num_maps,), -1, np.int32)
+    in_map_n = np.zeros(shape, np.int32)
+    in_root = np.zeros(shape, bool)
+    out_map_src = np.full(shape + (num_maps,), -1, np.int32)
+    out_map_dst = np.full(shape + (num_maps,), -1, np.int32)
+    out_map_n = np.zeros(shape, np.int32)
+    out_root = np.zeros(shape, bool)
+    out_behavior = np.zeros(shape, np.int32)
+    timer_dur = np.full(shape, -1, np.int64)
+    msg_name = np.zeros(shape, np.int32)
+    corr_var = np.full(shape, -1, np.int32)
+    bd_elem = np.full(shape + (max_bd,), -1, np.int32)
+    bd_timer = np.full(shape + (max_bd,), -1, np.int64)
+    bd_msg = np.zeros(shape + (max_bd,), np.int32)
+    bd_corr = np.full(shape + (max_bd,), -1, np.int32)
+    bd_interrupt = np.zeros(shape + (max_bd,), bool)
+    bd_count = np.zeros(shape, np.int32)
+    bd_is_boundary = np.zeros(shape, bool)
+    bd_host_interrupt = np.zeros(shape, bool)
+    mi_cardinality = np.zeros(shape, np.int32)
+
+    slot_by_key: Dict[int, int] = {}
+    elem_ids: List[List[str]] = []
+    elem_idx: List[Dict[str, int]] = []
+
+    for w, wf in enumerate(workflows):
+        slot_by_key[wf.key] = w
+        elem_ids.append([el.id for el in wf.elements])
+        elem_idx.append({el.id: el.index for el in wf.elements})
+        for el in wf.elements:
+            e = el.index
+            elem_type[w, e] = int(el.element_type)
+            for intent, step in el.steps.items():
+                step_table[w, e, int(intent)] = int(step)
+            if el.outgoing:
+                first_out_flow[w, e] = el.outgoing[0].index
+                out_count[w, e] = len(el.outgoing)
+                for i, f in enumerate(el.outgoing):
+                    out_flows[w, e, i] = f.index
+            if el.target is not None:
+                flow_target[w, e] = el.target.index
+                join_pos[w, e] = [f.index for f in el.target.incoming].index(e)
+            if el.start_event is not None:
+                start_event[w, e] = el.start_event.index
+            if el.incoming:
+                join_nin[w, e] = len(el.incoming)
+            for i, f in enumerate(el.outgoing_with_condition):
+                cond_flows[w, e, i] = f.index
+                cond_prog[w, e, i] = pool.compile(f.condition)
+            if el.default_flow is not None:
+                default_flow[w, e] = el.default_flow.index
+            if el.job_type:
+                job_type[w, e] = interns.intern(el.job_type)
+                job_retries[w, e] = el.job_retries
+            srcs, dsts, root = _compile_mappings(
+                varspace, el.input_mappings, f"input mapping of {el.id}"
+            )
+            in_map_n[w, e] = len(srcs)
+            in_root[w, e] = root
+            for i, (s, d) in enumerate(zip(srcs, dsts)):
+                in_map_src[w, e, i] = s
+                in_map_dst[w, e, i] = d
+            srcs, dsts, root = _compile_mappings(
+                varspace, el.output_mappings, f"output mapping of {el.id}"
+            )
+            out_map_n[w, e] = len(srcs)
+            out_root[w, e] = root
+            for i, (s, d) in enumerate(zip(srcs, dsts)):
+                out_map_src[w, e, i] = s
+                out_map_dst[w, e, i] = d
+            out_behavior[w, e] = int(el.output_behavior)
+            if el.timer_duration_ms is not None:
+                timer_dur[w, e] = int(el.timer_duration_ms)
+            if el.message_name:
+                msg_name[w, e] = interns.intern(el.message_name)
+                corr_var[w, e] = _flat_var(
+                    varspace, el.correlation_key_path,
+                    f"correlation key of {el.id}",
+                )
+            if el.element_type == ElementType.BOUNDARY_EVENT:
+                bd_is_boundary[w, e] = True
+                bd_host_interrupt[w, e] = bool(el.cancel_activity)
+            bd_count[w, e] = len(el.boundary_events)
+            for i, boundary in enumerate(el.boundary_events):
+                bd_elem[w, e, i] = boundary.index
+                if boundary.timer_duration_ms is not None:
+                    bd_timer[w, e, i] = int(boundary.timer_duration_ms)
+                if boundary.message_name:
+                    bd_msg[w, e, i] = interns.intern(boundary.message_name)
+                    bd_corr[w, e, i] = _flat_var(
+                        varspace, boundary.correlation_key_path,
+                        f"correlation key of {boundary.id}",
+                    )
+                bd_interrupt[w, e, i] = bool(boundary.cancel_activity)
+            if el.is_multi_instance and not _device_mi_reason(el):
+                mi_cardinality[w, e] = int(el.mi_cardinality or 0)
+                varspace.column("loopCounter")
+
+    progs, lit_nums = pool.arrays()
+    emit_width = max(2, int(out_count.max()) if workflows else 2)
+    if (msg_name > 0).any() or (bd_msg > 0).any():
+        # a CORRELATE arrival emits CORRELATED + ELEMENT_COMPLETING + CLOSE
+        emit_width = max(emit_width, 3)
+    if (bd_count > 0).any():
+        emit_width = max(emit_width, 3 * int(bd_count.max()) + 2)
+    if (mi_cardinality > 0).any():
+        emit_width = max(emit_width, int(mi_cardinality.max()))
+
+    elem_meta = np.stack(
+        [np.asarray(a, np.int32) for a in (
+            elem_type, first_out_flow, flow_target, start_event, out_count,
+            default_flow, join_nin, join_pos, job_type, job_retries,
+            out_behavior, msg_name, corr_var, bd_count, mi_cardinality,
+            in_map_n, in_root, out_map_n, out_root,
+        )], axis=-1,
+    )
+    local = locals()
+    arrays = {name: local[name] for name in DATA_FIELDS}
+    statics = dict(
+        num_vars=max(len(varspace), 1),
+        emit_width=emit_width,
+        max_join_in=join_in,
+        has_conditions=bool((cond_prog >= 0).any()),
+        has_parallel_joins=bool((join_nin >= 2).any()),
+        has_timers=bool((timer_dur >= 0).any() or (bd_timer >= 0).any()),
+        has_mappings=bool(
+            (in_map_n > 0).any() or (out_map_n > 0).any()
+            or in_root.any() or out_root.any()
+        ),
+        has_messages=bool((msg_name > 0).any() or (bd_msg > 0).any()),
+        has_boundaries=bool((bd_count > 0).any()),
+        has_multi_instance=bool((mi_cardinality > 0).any()),
+        mi_loop_var=(
+            varspace.lookup("loopCounter") if (mi_cardinality > 0).any()
+            else -1
+        ),
+    )
+    graph = graph_from_numpy({**arrays, **statics}, device=dev)
+    meta = GraphMeta(
+        workflows=list(workflows),
+        slot_by_key=slot_by_key,
+        interns=interns,
+        varspace=varspace,
+        elem_ids=elem_ids,
+        elem_idx=elem_idx,
+    )
+    return graph, meta
+
+
+def graph_from_numpy(fields: TMapping[str, Any], device: DeviceLike = None) -> DeviceGraph:
+    """A DeviceGraph from arrays keyed by field name (the JAX package's
+    ``DeviceGraph`` leaves after ``jax.device_get``) plus its static
+    fields. Dtypes carry over as they are."""
+    dev = resolve(device)
+    data = {
+        name: torch.from_numpy(np.array(fields[name])).to(dev)
+        for name in DATA_FIELDS
+    }
+    statics = {name: fields[name] for name in STATIC_FIELDS if name in fields}
+    return DeviceGraph(**data, **statics)
+
+
+def graph_to_numpy(graph: DeviceGraph) -> Dict[str, Any]:
+    """Inverse of ``graph_from_numpy``: numpy leaves plus static fields."""
+    out: Dict[str, Any] = {
+        name: getattr(graph, name).cpu().numpy() for name in DATA_FIELDS
+    }
+    out.update({name: getattr(graph, name) for name in STATIC_FIELDS})
+    return out

@@ -1,0 +1,386 @@
+"""The step kernel's table primitives: CUDA kernels and their plain versions.
+
+Counterpart of ``zeebe_tpu.tpu.pallas_ops`` for the three primitives the
+main path runs (the order-process graph, every feature gate off):
+
+- ``fused_gather_rows``  ↔ ``pallas_ops.fused_gather_rows`` (csrc/gather_rows.cu)
+- ``fused_table_commit`` ↔ ``pallas_ops.fused_table_commit`` (csrc/table_commit.cu)
+- ``lookup``             ↔ ``pallas_ops.lookup`` (csrc/hash_lookup.cu)
+
+Dispatch is by the tensors' device and nothing else: CPU tensors take the
+plain PyTorch version beside each kernel (``*_reference``); CUDA tensors
+launch the hand-written kernel, or the call raises. There is no fallback
+from a CUDA tensor to the plain version. ``LAUNCHES`` counts kernel
+launches per wrapper (one per wrapper call that reaches the GPU).
+
+Semantics kept from the JAX package (the XLA fallbacks its CPU tests pin):
+- gathers wrap a negative slot once, then clamp into [0, T-1];
+- scatters wrap a negative slot once and DROP a slot still outside
+  [0, T) — the kernel parks inactive records on the sentinel slot T;
+- a ``set`` is last-writer-wins in batch order, per row or, with a lane
+  mask, per (row, lane); ``add``/``max`` commute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from zeebe_tpu_torch import _build
+from zeebe_tpu_torch.tpu import hashmap
+from zeebe_tpu_torch.tpu.hashmap import HashTable
+
+# kernel launches per wrapper; chip_smoke.py zeroes these before driving
+# the main path and reads them after
+LAUNCHES: Dict[str, int] = {
+    "fused_gather_rows": 0, "fused_table_commit": 0, "lookup": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(tensors: Sequence[torch.Tensor], what: str) -> bool:
+    """True when every tensor is on a CUDA device, False when every one is
+    on the CPU; a mix raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"{what}: tensors on mixed or unsupported devices {kinds}")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(source: str, name: str, argtypes: tuple):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (built on first
+    use), typed: pointers and the stream as c_void_p, never a 32-bit int."""
+    fn = getattr(_build.library(source), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _wrap_slots(slots: torch.Tensor, rows: int) -> torch.Tensor:
+    """int64 slots with one wrap of negatives (XLA index normalization)."""
+    s = slots.to(torch.int64)
+    return torch.where(s < 0, s + rows, s)
+
+
+# ---------------------------------------------------------------------------
+# fused gather
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GatherOp:
+    """One row (2D table) or element (1D table) read inside a fused gather."""
+
+    table: int
+    slots: torch.Tensor
+
+
+def fused_gather_rows_reference(
+    tables: Sequence[torch.Tensor], ops: Sequence[GatherOp]
+) -> List[torch.Tensor]:
+    """Plain version: ``tables[op.table][op.slots]`` per op, slots wrapped
+    once and clamped as XLA's gather does."""
+    out = []
+    for op in ops:
+        t = tables[op.table]
+        idx = _wrap_slots(op.slots, t.shape[0]).clamp(0, t.shape[0] - 1)
+        out.append(t.index_select(0, idx))
+    return out
+
+
+class _GatherDesc(ctypes.Structure):
+    _fields_ = [
+        ("table", ctypes.c_void_p), ("row_stride", ctypes.c_int64),
+        ("row_bytes", ctypes.c_int64), ("rows", ctypes.c_int64),
+        ("slots", ctypes.c_void_p), ("n", ctypes.c_int64),
+        ("out", ctypes.c_void_p),
+    ]
+
+
+_MAX_GATHER_OPS = 32
+
+
+def _gather_cuda(tables, ops) -> List[torch.Tensor]:
+    if len(ops) > _MAX_GATHER_OPS:
+        raise ValueError(f"fused_gather_rows: at most {_MAX_GATHER_OPS} ops")
+    fn = _entry("gather_rows", "zb_gather_rows",
+                (ctypes.POINTER(_GatherDesc), ctypes.c_int, ctypes.c_int64,
+                 ctypes.c_void_p))
+    descs = (_GatherDesc * len(ops))()
+    keep = []
+    outs = []
+    max_units = 0
+    for j, op in enumerate(ops):
+        t = tables[op.table]
+        if t.dim() not in (1, 2) or t.shape[0] == 0:
+            raise ValueError("fused_gather_rows: tables must be non-empty 1D/2D")
+        if t.dim() == 2 and t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError("fused_gather_rows: 2D rows must be contiguous")
+        slots = op.slots.to(torch.int32).contiguous()
+        keep.append(slots)
+        n = slots.shape[0]
+        es = t.element_size()
+        row_bytes = es * (t.shape[1] if t.dim() == 2 else 1)
+        out = torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        outs.append(out)
+        descs[j] = _GatherDesc(
+            t.data_ptr(), es * t.stride(0), row_bytes, t.shape[0],
+            slots.data_ptr(), n, out.data_ptr(),
+        )
+        max_units = max(max_units, n * row_bytes)
+    if max_units > 0:
+        _build.check(fn(descs, len(ops), max_units, _stream()),
+                     "fused_gather_rows")
+        LAUNCHES["fused_gather_rows"] += 1
+    return outs
+
+
+def fused_gather_rows(
+    tables: Sequence[torch.Tensor], ops: Sequence[GatherOp]
+) -> List[torch.Tensor]:
+    """``[tables[op.table][op.slots] for op in ops]`` — one kernel launch
+    for all ops on CUDA tensors. Tables may be of any dtype, 1D or 2D, and
+    1D tables may be strided views (a column of a wider table); results are
+    bit-exact copies of the rows."""
+    ops = list(ops)
+    if not ops:
+        return []
+    used = [tables[op.table] for op in ops] + [op.slots for op in ops]
+    if _on_cuda(used, "fused_gather_rows"):
+        return _gather_cuda(tables, ops)
+    return fused_gather_rows_reference(tables, ops)
+
+
+# ---------------------------------------------------------------------------
+# fused table commit
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TableOp:
+    """One masked table write inside a fused commit.
+
+    ``table`` indexes into the commit's table list. 2D [T, K] tables take
+    ``vals`` [B, K] (+ optional ``mask`` [B, K]); 1D [T] tables (free
+    rings, direct-mapped indexes) take ``vals`` [B] and no mask. ``kind``:
+    "set" (last writer in batch order wins), "add", "max" (commute).
+    """
+
+    table: int
+    kind: str
+    slots: torch.Tensor
+    active: torch.Tensor
+    vals: torch.Tensor
+    mask: Optional[torch.Tensor] = None
+
+
+def _last_active(keys: torch.Tensor, live: torch.Tensor, size: int) -> torch.Tensor:
+    """[n] bool: the highest-index live entry per key in [0, size)."""
+    n = keys.shape[0]
+    rank = torch.arange(n, dtype=torch.int64, device=keys.device)
+    best = torch.full((size + 1,), -1, dtype=torch.int64, device=keys.device)
+    best.scatter_reduce_(0, torch.where(live, keys, size), torch.where(live, rank, -1),
+                         reduce="amax", include_self=True)
+    return live & (best[torch.where(live, keys, size)] == rank)
+
+
+def _kind(tbl: torch.Tensor, op: TableOp) -> str:
+    """The op's effective kind: the JAX chain routes a 1D table's op to a
+    lane accumulate for "add" and to a lane SET for anything else."""
+    if op.kind not in _KINDS:
+        raise ValueError(f"fused_table_commit: unknown op kind {op.kind!r}")
+    if tbl.dim() == 1 and op.kind != "add":
+        return "set"
+    return op.kind
+
+
+def _apply_op_reference(tbl: torch.Tensor, op: TableOp) -> None:
+    """One TableOp, in place, with the XLA op chain's semantics."""
+    rows = tbl.shape[0]
+    kind = _kind(tbl, op)
+    s = _wrap_slots(op.slots, rows)
+    keep = op.active.to(torch.bool) & (s >= 0) & (s < rows)
+    vals = op.vals.to(tbl.dtype)
+    if tbl.dim() == 1:
+        if kind == "add":
+            tbl.index_put_((s[keep],), vals[keep], accumulate=True)
+        else:
+            win = _last_active(s, keep, rows)
+            tbl[s[win]] = vals[win]
+        return
+    k = tbl.shape[1]
+    if kind in ("add", "max"):
+        # "max" merges whole rows: the JAX chain ignores a lane mask there
+        if op.mask is not None and kind == "add":
+            vals = torch.where(op.mask.to(torch.bool), vals, 0)
+        if kind == "add":
+            tbl.index_put_((s[keep],), vals[keep], accumulate=True)
+        else:
+            idx = s[keep][:, None].expand(-1, k)
+            tbl.scatter_reduce_(0, idx, vals[keep], reduce="amax")
+        return
+    if op.mask is None:
+        win = _last_active(s, keep, rows)
+        tbl[s[win]] = vals[win]
+        return
+    # lane-masked set: last writer per (row, lane)
+    lane = torch.arange(k, dtype=torch.int64, device=tbl.device)
+    cell = (s[:, None] * k + lane[None, :]).reshape(-1)
+    live = (keep[:, None] & op.mask.to(torch.bool)).reshape(-1)
+    win = _last_active(cell, live, rows * k)
+    tbl.view(-1)[cell[win]] = vals.reshape(-1)[win]
+
+
+def fused_table_commit_reference(
+    tables: Sequence[torch.Tensor], ops: Sequence[TableOp]
+) -> List[torch.Tensor]:
+    """Plain version: the ops applied in list order, in place. Duplicate
+    slots are resolved explicitly (PyTorch's ``index_put_`` gives no order
+    among duplicates)."""
+    for op in ops:
+        _apply_op_reference(tables[op.table], op)
+    return list(tables)
+
+
+class _CommitDesc(ctypes.Structure):
+    _fields_ = [
+        ("table", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+        ("active", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p), ("rows", ctypes.c_int64),
+        ("width", ctypes.c_int64), ("n", ctypes.c_int64),
+        ("kind", ctypes.c_int64), ("epoch", ctypes.c_uint64),
+    ]
+
+
+_KINDS = {"set": 0, "add": 1, "max": 2}
+# per-device claim scratch for "set" ops: [words] int64, and the last epoch
+# handed out (see csrc/table_commit.cu); zeroed only when (re)allocated or
+# when the 32-bit epoch space wraps
+_claims: Dict[torch.device, list] = {}
+
+
+def _claim_scratch(device: torch.device, words: int, epochs: int):
+    entry = _claims.get(device)
+    if entry is None or entry[0].numel() < words:
+        entry = [torch.zeros(max(words, 1), dtype=torch.int64, device=device), 0]
+        _claims[device] = entry
+    if entry[1] + epochs >= 2**32 - 1:
+        entry[0].zero_()
+        entry[1] = 0
+    first = entry[1] + 1
+    entry[1] += epochs
+    return entry[0], first
+
+
+def _commit_cuda(tables, ops) -> List[torch.Tensor]:
+    fn = _entry("table_commit", "zb_table_commit",
+                (ctypes.POINTER(_CommitDesc), ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p))
+    for t in tables:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() not in (1, 2):
+            raise ValueError(
+                "fused_table_commit: tables must be contiguous int32 1D/2D "
+                "(int64 tables enter as .view(torch.int32) planes)"
+            )
+    kinds = [_kind(tables[op.table], op) for op in ops]
+    sets = [op for op, kind in zip(ops, kinds) if kind == "set"]
+    words = max(
+        (tables[op.table].numel() if op.mask is not None else tables[op.table].shape[0]
+         for op in sets), default=1,
+    )
+    device = tables[ops[0].table].device
+    scratch, epoch = _claim_scratch(device, words, len(sets))
+    descs = (_CommitDesc * len(ops))()
+    keep = []
+    for k, (op, kind) in enumerate(zip(ops, kinds)):
+        t = tables[op.table]
+        width = t.shape[1] if t.dim() == 2 else 1
+        n = op.slots.shape[0]
+        slots = op.slots.to(torch.int32).contiguous()
+        active = op.active.to(torch.bool).contiguous()
+        vals = op.vals.to(torch.int32).reshape(n, width).contiguous()
+        mask = None
+        if op.mask is not None and kind != "max":  # max merges whole rows
+            mask = op.mask.to(torch.bool).reshape(n, width).contiguous()
+        keep += [slots, active, vals, mask]
+        op_epoch = 0
+        if kind == "set":
+            op_epoch = epoch
+            epoch += 1
+        descs[k] = _CommitDesc(
+            t.data_ptr(), slots.data_ptr(), active.data_ptr(), vals.data_ptr(),
+            None if mask is None else mask.data_ptr(), t.shape[0], width, n,
+            _KINDS[kind], op_epoch,
+        )
+    _build.check(fn(descs, len(ops), scratch.data_ptr(), _stream()),
+                 "fused_table_commit")
+    LAUNCHES["fused_table_commit"] += 1
+    return list(tables)
+
+
+def fused_table_commit(
+    tables: Sequence[torch.Tensor], ops: Sequence[TableOp]
+) -> List[torch.Tensor]:
+    """Apply ``ops`` to ``tables`` (all int32; int64 state enters as
+    ``.view(torch.int32)`` planes) in list order, IN PLACE; returns the
+    tables in input order. One kernel-launch call for the whole list on
+    CUDA tensors."""
+    ops = list(ops)
+    if not ops:
+        return list(tables)
+    used = list(tables) + [op.slots for op in ops] + [op.vals for op in ops]
+    if _on_cuda(used, "fused_table_commit"):
+        return _commit_cuda(tables, ops)
+    return fused_table_commit_reference(tables, ops)
+
+
+# ---------------------------------------------------------------------------
+# hash lookup
+# ---------------------------------------------------------------------------
+
+lookup_reference = hashmap.lookup
+
+
+def _lookup_cuda(table: HashTable, keys: torch.Tensor, valid: torch.Tensor):
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn = _entry("hash_lookup", "zb_hash_lookup", (p, p, i64, p, i64, p, i64, p, p, p))
+    if keys.dim() != 1 or keys.dtype != torch.int64:
+        raise ValueError("lookup: keys must be a 1D int64 tensor")
+    tkeys = table.keys.contiguous()
+    tvals = table.vals.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    n = keys.shape[0]
+    found = torch.empty((n,), dtype=torch.bool, device=keys.device)
+    vals = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    _build.check(
+        fn(tkeys.data_ptr(), tvals.data_ptr(), tkeys.shape[0], keys.data_ptr(),
+           keys.stride(0), valid.data_ptr(), n, found.data_ptr(),
+           vals.data_ptr(), _stream()),
+        "lookup",
+    )
+    LAUNCHES["lookup"] += 1
+    return found, vals
+
+
+def lookup(table: HashTable, keys: torch.Tensor, valid: torch.Tensor):
+    """Batched probe; (found [B] bool, vals [B] int32, -1 where not found),
+    identical to ``hashmap.lookup``."""
+    if _on_cuda([table.keys, table.vals, keys, valid], "lookup"):
+        return _lookup_cuda(table, keys, valid)
+    return lookup_reference(table, keys, valid)
