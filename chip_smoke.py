@@ -2,16 +2,19 @@
 """Chip smoke for the PyTorch/CUDA engine (``zeebe_tpu_torch``).
 
 Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card at the main path's
-shapes, checks the whole drive loop on the card bit-equal to the same loop
-on the CPU, then drives config 1 (the order-process: start → service task
-"payment-service" → end, synthetic instant workers) at the benchmark's
-accelerator width through the package's own entry points, and shows from
-the launch counters that the run went through every kernel.
+each against its plain PyTorch version on the card at the main paths'
+shapes (phase 2), checks the drive loop on the card bit-equal to the same
+loop on the CPU (phase 3), then drives, at the benchmark's accelerator
+width and through the package's own entry points, config 1 (the
+order-process: start → service task "payment-service" → end; phase 4) and
+config 3 (parallel fork/join: start → fork → two service tasks → join →
+end; phase 5), both with synthetic instant workers, and shows from the
+launch counters that each run went through every kernel of its path.
 
     python3 chip_smoke.py                     # the full check, one CUDA card
-    python3 chip_smoke.py --profile --out F   # + one wave under torch.profiler,
-                                              #   every number written to F (JSON)
+    python3 chip_smoke.py --profile --out F   # + one wave of each config under
+                                              #   torch.profiler, every number
+                                              #   written to F (JSON)
 
 Every phase passes or the script exits non-zero. The last line of standard
 output is ``{"ok": true, "device": {...}}``; before it come the card's name
@@ -35,15 +38,20 @@ import traceback
 # that moves bytes and does no arithmetic to speak of is bytes over this
 HBM_BYTES_PER_S = 3.35e12
 
-# config 1 at the benchmark's accelerator settings
+# configs 1 and 3 at the benchmark's accelerator settings (bench.py:2292,
+# run_device_config at bench.py:1372; config 3 runs side_total =
+# total_instances // 4 instances, bench.py:2381)
 WAVE = 1 << 14
 INSTANCES = 1 << 20
+INSTANCES_C3 = 1 << 18
 CAP_FACTOR = 4
 TRANSITIONS_PER_INSTANCE = 20
+TRANSITIONS_PER_INSTANCE_C3 = 36
 REBUILD_EVERY = 3
 # the device functions of zeebe_tpu_torch/csrc, as the profiler names them
 OUR_KERNELS = ("gather_rows_kernel", "set_claim_kernel", "set_write_kernel",
-               "accumulate_kernel", "hash_lookup_kernel")
+               "accumulate_kernel", "hash_lookup_kernel", "hash_insert_kernel",
+               "hash_delete_kernel")
 
 
 def log(msg: str) -> None:
@@ -102,23 +110,48 @@ def max_abs_err(got, want) -> float:
 
 
 # ---------------------------------------------------------------------------
-# config 1
+# configs 1 and 3
 # ---------------------------------------------------------------------------
 
 
-def config1_graph(device):
+def config1_model():
+    """Config 1 (bench.py:39 ``build_graph``): the order-process."""
     from zeebe_tpu_torch.models.bpmn.builder import Bpmn
-    from zeebe_tpu_torch.models.transform.transformer import transform_model
-    from zeebe_tpu_torch.tpu import graph as graph_mod
 
-    model = (
+    return (
         Bpmn.create_process("order-process")
         .start_event("start")
         .service_task("collect-money", type="payment-service")
         .end_event("end")
         .done()
     )
-    workflows = transform_model(model)
+
+
+def config3_model():
+    """Config 3 (bench.py:72 ``build_graph_forkjoin``): a parallel gateway
+    forks into two service tasks that a second parallel gateway joins."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+    from zeebe_tpu_torch.models.bpmn.model import ParallelGateway
+
+    builder = (
+        Bpmn.create_process("fork-process")
+        .start_event("start")
+        .parallel_gateway("fork")
+    )
+    join = ParallelGateway(id="join")
+    join.scope_id = "fork-process"
+    builder.model.add(join)
+    builder.branch().service_task("task-a", type="payment-service").connect_to("join")
+    builder.branch().service_task("task-b", type="payment-service").connect_to("join")
+    builder.move_to("join").end_event("end")
+    return builder.done()
+
+
+def config_graph(device, model_fn=config1_model):
+    from zeebe_tpu_torch.models.transform.transformer import transform_model
+    from zeebe_tpu_torch.tpu import graph as graph_mod
+
+    workflows = transform_model(model_fn())
     for wf in workflows:
         wf.key = 9
         wf.version = 1
@@ -131,7 +164,7 @@ def config1_graph(device):
     return graph, meta
 
 
-def config1_state(meta, capacity, num_vars, device):
+def config_state(meta, capacity, num_vars, device):
     from zeebe_tpu_torch.tpu import state as state_mod
 
     state = state_mod.make_state(
@@ -148,7 +181,7 @@ def config1_state(meta, capacity, num_vars, device):
     return state
 
 
-def config1_creates(meta, wave, num_vars, device):
+def config_creates(meta, wave, num_vars, device):
     """A wave of CREATE commands with payload {orderId, orderValue}."""
     import torch
 
@@ -172,29 +205,32 @@ def config1_creates(meta, wave, num_vars, device):
     return b
 
 
-def config1_setup(wave, device):
-    """Graph, meta, state, queue and a CREATE wave for config 1."""
+def config_setup(wave, device, model_fn=config1_model):
+    """Graph, meta, state, queue and a CREATE wave for config 1 (or, with
+    ``model_fn=config3_model``, config 3: the same settings)."""
     from zeebe_tpu_torch.tpu import drive
 
-    graph, meta = config1_graph(device)
+    graph, meta = config_graph(device, model_fn)
     num_vars = graph.num_vars
-    state = config1_state(meta, CAP_FACTOR * wave, num_vars, device)
+    state = config_state(meta, CAP_FACTOR * wave, num_vars, device)
     queue = drive.make_queue(4 * wave * max(2, graph.emit_width), num_vars,
                              device=device)
-    return graph, state, queue, config1_creates(meta, wave, num_vars, device)
+    return graph, state, queue, config_creates(meta, wave, num_vars, device)
 
 
-def drive_config1(waves, wave, device, timed_from=1):
-    """Config 1 through the package's entry points: compile the graph, make
-    the state and queue, then per wave enqueue CREATEs and drive to
-    quiescence with synthetic workers; rebuild the lookup state after the
-    first wave and every REBUILD_EVERY waves after it. Returns (state,
-    totals over all waves, seconds of the waves from ``timed_from`` on)."""
+def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
+                 rebuild_every=REBUILD_EVERY):
+    """Config 1 (or 3) through the package's entry points: compile the
+    graph, make the state and queue, then per wave enqueue CREATEs and
+    drive to quiescence with synthetic workers; rebuild the lookup state
+    after the first wave and every ``rebuild_every`` waves after it.
+    Returns (state, totals over all waves, seconds of the waves from
+    ``timed_from`` on)."""
     import torch
 
     from zeebe_tpu_torch.tpu import drive, state as state_mod
 
-    graph, state, queue, creates = config1_setup(wave, device)
+    graph, state, queue, creates = config_setup(wave, device, model_fn)
     totals = {"processed": 0, "emitted": 0, "completed_roots": 0, "rounds": 0}
     t0 = None
     for i in range(waves):
@@ -208,7 +244,7 @@ def drive_config1(waves, wave, device, timed_from=1):
         )
         for k in totals:
             totals[k] += t[k]
-        if i % REBUILD_EVERY == 0:
+        if i % rebuild_every == 0:
             state = state_mod.rebuild_lookup_state(state)
     if device != "cpu":
         torch.cuda.synchronize()
@@ -216,8 +252,8 @@ def drive_config1(waves, wave, device, timed_from=1):
     return state, totals, elapsed
 
 
-def profile_config1(wave, warm_waves=2):
-    """One config-1 wave at full width under torch.profiler, after
+def profile_config(wave, warm_waves=2, model_fn=config1_model):
+    """One config-1 (or 3) wave at full width under torch.profiler, after
     ``warm_waves`` unprofiled ones: wall time, summed device kernel time,
     the device's idle share and the kernels that take the device time."""
     import torch
@@ -225,7 +261,7 @@ def profile_config1(wave, warm_waves=2):
 
     from zeebe_tpu_torch.tpu import drive, state as state_mod
 
-    graph, state, queue, creates = config1_setup(wave, "cuda")
+    graph, state, queue, creates = config_setup(wave, "cuda", model_fn)
     for _ in range(warm_waves):
         queue = drive.enqueue(queue, creates)
         state, queue, _t = drive.run_to_quiescence(graph, state, queue, 0, wave,
@@ -248,7 +284,8 @@ def profile_config1(wave, warm_waves=2):
               if dev_us(e) > 0 and e.device_type != torch.autograd.DeviceType.CPU]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:15]
-    top += [e for e in events if e not in top and e.key.split("(")[0] in OUR_KERNELS]
+    top += [e for e in events
+            if e not in top and any(k in e.key for k in OUR_KERNELS)]
     return {
         "wave": wave, "rounds": totals["rounds"], "wall_ms": wall * 1e3,
         "device_busy_ms": busy_ms,
@@ -465,19 +502,304 @@ def check_lookup(dev, gen):
     }
 
 
+# the masked scatters (one-op commits of csrc/table_commit.cu): per wrapper,
+# its kind, the TPU kernel it replaces and the (table shape, dtype,
+# lane-masked) cases it is checked at; the first case is the one timed.
+# The int64 case goes through lo/hi int32 planes. Shapes are config 3's:
+# J = 2^16 join rows, V = 8 variables, B = 2^14 records.
+_J = CAP_FACTOR * WAVE
+SCATTERS = (
+    ("masked_row_update", "set", ":188",
+     [((_J, 24), "i32", True), ((_J, 4), "i32", False), ((_J, 8), "i32", False)]),
+    ("masked_row_max", "max", ":287", [((_J, 4), "i32", False), ((_J, 8), "i32", False)]),
+    ("masked_lane_update", "set", ":431", [((_J,), "i32", False)]),
+    ("masked_vec64_update", "set", ":497", [((_J,), "i64", False)]),
+    # no path of the port launches these two (the JAX package reaches them
+    # only through its unfused commit chain); checked at the ei_i32 token
+    # accumulate's shape and at the join fan-in's
+    ("masked_row_add", "add", ":337", [((_J, 6), "i32", True)]),
+    ("masked_lane_accum", "add", ":431", [((_J,), "i32", False)]),
+)
+
+
+def _scatter_case(dev, gen, shape, dtype, masked, b=WAVE):
+    """A table and one batch of records with duplicate, wrapping, sentinel
+    and still-out-of-range slots."""
+    import torch
+
+    rows = shape[0]
+    width = shape[1] if len(shape) == 2 else 1
+    lim = 2**40 if dtype == torch.int64 else 2**20
+    table = torch.randint(-lim, lim, shape, generator=gen).to(dtype).to(dev)
+    vals = torch.randint(-lim, lim, (b,) + tuple(shape[1:]), generator=gen).to(dtype).to(dev)
+    s = torch.randint(0, rows, (b,), generator=gen, dtype=torch.int32)
+    s[: b // 4] = torch.randint(0, 64, (b // 4,), generator=gen, dtype=torch.int32)
+    s[5::89] = rows       # the sentinel slot: dropped
+    s[6::97] = -1         # wraps to the last row
+    s[7::101] = -rows - 2  # still out of range after one wrap: dropped
+    active = (torch.rand((b,), generator=gen) < 0.7).to(dev)
+    mask = (torch.rand((b, width), generator=gen) < 0.5).to(dev) if masked else None
+    return table, s.to(dev), active, vals, mask
+
+
+def _written_cells(table, slots, active, mask) -> int:
+    """Distinct table elements a scatter writes (the bound's output count)."""
+    import torch
+
+    rows = table.shape[0]
+    width = table.shape[1] if table.dim() == 2 else 1
+    s = slots.to(torch.int64)
+    s = torch.where(s < 0, s + rows, s)
+    keep = active & (s >= 0) & (s < rows)
+    if mask is None:
+        return int(torch.unique(s[keep]).numel()) * width
+    cells = s[:, None] * width + torch.arange(width, device=s.device)[None, :]
+    return int(torch.unique(cells[keep[:, None] & mask]).numel())
+
+
+def check_scatters(dev, gen):
+    """Each masked-scatter wrapper against its plain version at config 3's
+    shapes (plus the two wrappers no path launches); one row per wrapper."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    out = []
+    for name, kind, line, cases in SCATTERS:
+        fn = getattr(ops, name)
+        err = 0.0
+        for shape, dt, masked in cases:
+            dtype = torch.int64 if dt == "i64" else torch.int32
+            table, slots, active, vals, mask = _scatter_case(dev, gen, shape, dtype, masked)
+            extra = () if mask is None else (mask,)
+            got = fn(table.clone(), slots, active, vals, *extra)
+            want = ops.masked_scatter_reference(table.clone(), kind, slots, active, vals, mask)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([got], [want]))
+        if err != 0.0:
+            raise AssertionError(f"{name} differs from its plain version: {err}")
+        # the timed case: the first
+        shape, dt, masked = cases[0]
+        dtype = torch.int64 if dt == "i64" else torch.int32
+        table, slots, active, vals, mask = _scatter_case(dev, gen, shape, dtype, masked)
+        extra = () if mask is None else (mask,)
+        es = table.element_size()
+        width = table.shape[1] if table.dim() == 2 else 1
+        b = slots.shape[0]
+        cells = _written_cells(table, slots, active, mask)
+        # slots (int32 as the path gives them), flags, values, lane mask in;
+        # each written element out, and read first by a max or an add
+        nbytes = b * (4 + 1 + es * width + (width if mask is not None else 0))
+        nbytes += cells * es * (1 if kind == "set" else 2)
+        work, plain = table.clone(), table.clone()
+        library_ms = None  # no PyTorch call orders duplicate writes (set)
+        if kind != "set":
+            # one PyTorch call on prepared inputs: dropped records parked on
+            # an extra row of a padded copy
+            s = slots.to(torch.int64)
+            s = torch.where(s < 0, s + shape[0], s)
+            idx = torch.where(active & (s >= 0) & (s < shape[0]), s, shape[0])
+            pad = torch.cat([table, table[:1]])
+            v = vals if mask is None else torch.where(mask, vals, 0)
+            if kind == "max":
+                idx2 = idx[:, None].expand(-1, width).contiguous()
+                library_ms = time_ms(lambda: pad.scatter_reduce_(0, idx2, v, reduce="amax"))
+            else:
+                library_ms = time_ms(lambda: pad.index_add_(0, idx, v))
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "zeebe_tpu_torch/csrc/table_commit.cu",
+            "replaces": f"zeebe_tpu/tpu/pallas_ops.py{line}",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fn(work, slots, active, vals, *extra)),
+            "plain_ms": time_ms(lambda: ops.masked_scatter_reference(
+                plain, kind, slots, active, vals, mask)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": "; ".join(
+                f"[{', '.join(map(str, sh))}] {d}{' lane-masked' if m else ''}"
+                for sh, d, m in cases) + f", B={b}",
+        })
+    return out
+
+
+def _join_map(dev, gen, b=WAVE):
+    """Config 3's join map (2^18 buckets) as a wave finds it: half its
+    buckets filled with join-style keys ((scope key << 10) | gateway), a
+    fifth of those deleted again (~40% live, ~10% tombstones). Returns
+    (map, its preloaded keys, ``b`` further keys none of which it holds)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap
+
+    t = 4 * CAP_FACTOR * WAVE  # make_state: _pow2(4 * join_capacity)
+    scope = torch.randperm(1 << 22, generator=gen)[: t // 2 + b].to(torch.int64)
+    keys = (((5 * scope + 1) << 10) | 4).to(dev)
+    pre = keys[: t // 2]
+    table, _ok = hashmap.insert(
+        hashmap.make(t, device=dev), pre,
+        torch.arange(pre.shape[0], dtype=torch.int32, device=dev),
+        torch.ones(pre.shape[0], dtype=torch.bool, device=dev))
+    dead = (torch.rand((pre.shape[0],), generator=gen) < 0.2).to(dev)
+    return hashmap.delete(table, pre, dead), pre, keys[t // 2:]
+
+
+def _copies(table, k):
+    from zeebe_tpu_torch.tpu import hashmap
+
+    return [hashmap.HashTable(table.keys.clone(), table.vals.clone()) for _ in range(k)]
+
+
+def check_insert(dev, gen):
+    """The join map (2^18 buckets) preloaded to ~40% live with tombstones
+    mixed in, taking B = 2^14 new keys; and the rebuild shape, 2^16 keys
+    into a fresh 2^18-bucket map. Bit-equal buckets, values and ``ok``."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap, ops
+
+    b = WAVE
+    base, _pre, keys = _join_map(dev, gen, b)
+    t = base.keys.shape[0]
+    vals = torch.randint(0, CAP_FACTOR * WAVE, (b,), generator=gen, dtype=torch.int32).to(dev)
+    valid = (torch.rand((b,), generator=gen) < 0.9).to(dev)
+    live = int((base.keys >= 0).sum())
+    tomb = int((base.keys == hashmap.TOMBSTONE).sum())
+
+    # the rebuild shape: every element-instance key, three in four live
+    n = CAP_FACTOR * WAVE
+    rkeys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 1
+    rvals = torch.arange(n, dtype=torch.int32, device=dev)
+    rlive = (torch.rand((n,), generator=gen) < 0.75).to(dev)
+    fresh = hashmap.make(t, device=dev)
+
+    err = 0.0
+    placed = []
+    for tbl, k, v, ok_in in ((base, keys, vals, valid), (fresh, rkeys, rvals, rlive)):
+        (got,) = _copies(tbl, 1)
+        got, got_ok = ops.insert(got, k, v, ok_in)
+        want, want_ok = hashmap.insert(tbl, k, v, ok_in)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([got.keys, got.vals, got_ok.to(torch.int32)],
+                                   [want.keys, want.vals, want_ok.to(torch.int32)]))
+        placed.append(int(want_ok.sum()))
+    if err != 0.0:
+        raise AssertionError(f"insert differs from its plain version: {err}")
+    reps = 28  # time_ms's warmup + reps: one fresh table per call
+    nv = int(valid.sum())
+    # flags in and ok out per key; per valid key its key, value and at least
+    # one bucket read; per placed key one bucket (key, value) written
+    nbytes = b * 2 + nv * (8 + 4 + 8) + placed[0] * 12
+    tables = iter(_copies(base, reps))
+    fresh_tables = iter(_copies(fresh, reps))
+    return {
+        "name": "insert", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/hash_update.cu",
+        "replaces": "zeebe_tpu/tpu/pallas_ops.py:1043",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.insert(next(tables), keys, vals, valid)),
+        "plain_ms": time_ms(lambda: hashmap.insert(base, keys, vals, valid)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call inserts into an open-addressing map
+        "rebuild_ms": time_ms(lambda: ops.insert(next(fresh_tables), rkeys, rvals, rlive)),
+        "rebuild_plain_ms": time_ms(lambda: hashmap.insert(fresh, rkeys, rvals, rlive)),
+        "shape": f"{b} keys ({nv} valid) into T={t} with {live} live, {tomb} "
+                 f"tombstones; rebuild: {n} keys ({int(rlive.sum())} live) into a fresh T={t}",
+    }
+
+
+def check_delete(dev, gen):
+    """B = 2^14 keys, half of them present, out of the ~40%-live join map."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap, ops
+
+    b = WAVE
+    base, pre, absent = _join_map(dev, gen, b)
+    t = base.keys.shape[0]
+    pick = torch.randperm(pre.shape[0], generator=gen)[: b // 2].to(dev)
+    keys = torch.cat([pre[pick], absent[: b - b // 2]])
+    valid = (torch.rand((b,), generator=gen) < 0.9).to(dev)
+    (got,) = _copies(base, 1)
+    got = ops.delete(got, keys, valid)
+    want = hashmap.delete(base, keys, valid)
+    torch.cuda.synchronize()
+    err = max_abs_err([got.keys, got.vals], [want.keys, want.vals])
+    if err != 0.0:
+        raise AssertionError(f"delete differs from its plain version: {err}")
+    nv = int(valid.sum())
+    deleted = int((got.keys != base.keys).sum())
+    # flags in; per valid key its key and at least one bucket read; per
+    # deleted key one tombstone written
+    nbytes = b + nv * (8 + 8) + deleted * 8
+    tables = iter(_copies(base, 28))
+    return {
+        "name": "delete", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/hash_update.cu",
+        "replaces": "zeebe_tpu/tpu/pallas_ops.py:1130",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.delete(next(tables), keys, valid)),
+        "plain_ms": time_ms(lambda: hashmap.delete(base, keys, valid)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call deletes from an open-addressing map
+        "shape": f"{b} keys ({nv} valid, {deleted} deleted) out of T={t}",
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the whole path on the card against the same path on the CPU
 # ---------------------------------------------------------------------------
 
 
-def parity(wave=1024, waves=3):
+# the wrappers each main path must launch (the lookup-state rebuild
+# inserts through the insert kernel on both paths)
+CONFIG1_KERNELS = ("fused_gather_rows", "fused_table_commit", "lookup", "insert")
+CONFIG3_KERNELS = CONFIG1_KERNELS + (
+    "masked_row_update", "masked_row_max", "masked_lane_update",
+    "masked_vec64_update", "delete",
+)
+
+
+def drive_path(model_fn, instances, per_instance, path):
+    """One config at the benchmark's width on the card, the launch counters
+    zeroed just before and read just after: every instance completed,
+    ``per_instance`` records processed per instance, no overflow (the drive
+    loop raises on one), and every kernel of ``path`` launched."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    waves = instances // WAVE
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    _state, totals, elapsed = drive_config(waves, WAVE, "cuda", model_fn=model_fn)
+    launches = dict(ops.LAUNCHES)
+    if totals["completed_roots"] != instances:
+        raise AssertionError(f"completed {totals['completed_roots']} != {instances}")
+    if totals["processed"] != per_instance * instances:
+        raise AssertionError(f"processed {totals['processed']} != {per_instance} x {instances}")
+    zero = [k for k in path if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: {zero}")
+    timed = (waves - 1) * WAVE * per_instance
+    return {
+        "waves": waves, "wave": WAVE, "instances": instances,
+        "totals": totals, "timed_seconds": elapsed, "timed_transitions": timed,
+        "transitions_per_sec": timed / elapsed if elapsed > 0 else float("nan"),
+        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def parity(wave=1024, waves=3, model_fn=config1_model,
+           per_instance=TRANSITIONS_PER_INSTANCE, rebuild_every=REBUILD_EVERY):
     import numpy as np
 
     from zeebe_tpu_torch.tpu import state as state_mod
 
     results = {}
     for device in ("cuda", "cpu"):
-        st, totals, _ = drive_config1(waves, wave, device)
+        st, totals, _ = drive_config(waves, wave, device, model_fn=model_fn,
+                                     rebuild_every=rebuild_every)
         results[device] = (state_mod.state_to_numpy(st), totals)
     (a, ta), (c, tc) = results["cuda"], results["cpu"]
     if ta != tc:
@@ -486,8 +808,8 @@ def parity(wave=1024, waves=3):
            or not np.array_equal(a[k], c[k])]
     if bad:
         raise AssertionError(f"state differs between cuda and cpu: {bad}")
-    if ta["processed"] != TRANSITIONS_PER_INSTANCE * wave * waves:
-        raise AssertionError(f"processed {ta['processed']} != 20 x {wave * waves}")
+    if ta["processed"] != per_instance * wave * waves:
+        raise AssertionError(f"processed {ta['processed']} != {per_instance} x {wave * waves}")
     return ta
 
 
@@ -578,7 +900,7 @@ def parity_mixed(capacity=8192, size=4096, seed=7):
     st, cols = mixed_case(np.random.default_rng(seed), capacity, size)
     out = {}
     for device in ("cuda", "cpu"):
-        graph, _meta = config1_graph(device)
+        graph, _meta = config_graph(device)
         s, e, stats = kernel.step_kernel(
             graph, state_mod.state_from_numpy(st, device=device),
             rb.batch_from_numpy(cols, device=device), 5_000, synthetic_workers=True)
@@ -634,59 +956,67 @@ def main(argv) -> int:
 
     gen = torch.Generator().manual_seed(1234)
     kernels = []
-    for check in (check_gather, check_commit, check_lookup):
-        row = check("cuda", gen)
-        kernels.append(row)
-        log(f"[2] {row['name']}: bit-equal to plain ({row['shape']}); "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']}, bound {row['bound_ms']:.4f} ms")
+    for check in (check_gather, check_commit, check_lookup, check_scatters,
+                  check_insert, check_delete):
+        rows = check("cuda", gen)
+        for row in rows if isinstance(rows, list) else [rows]:
+            kernels.append(row)
+            log(f"[2] {row['name']}: bit-equal to plain ({row['shape']}); "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library {row['library_ms']}, bound {row['bound_ms']:.4f} ms")
+            if "rebuild_ms" in row:
+                log(f"    rebuild shape: kernel {row['rebuild_ms']:.4f} ms, "
+                    f"plain {row['rebuild_plain_ms']:.4f} ms")
 
     t0 = time.perf_counter()
     ptot = parity()
-    log(f"[3] 3 waves x 1024 at capacity 4096: cuda == cpu, bit-equal state "
-        f"and totals {ptot} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[3] config 1, 3 waves x 1024 at capacity 4096: cuda == cpu, bit-equal "
+        f"state and totals {ptot} ({time.perf_counter() - t0:.1f} s)")
     report["parity_totals"] = ptot
+    t0 = time.perf_counter()
+    ptot3 = parity(model_fn=config3_model, per_instance=TRANSITIONS_PER_INSTANCE_C3,
+                   rebuild_every=1)
+    log(f"[3] config 3, 3 waves x 1024 at capacity 4096, rebuilt after every "
+        f"wave: cuda == cpu, bit-equal state and totals {ptot3} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["parity_totals_config3"] = ptot3
     mstats = parity_mixed()
     log(f"[3] one mixed step (job commands/events, timer commands, WI events), "
         f"B=4096 at capacity 8192: cuda == cpu, bit-equal state, emissions "
         f"and stats {mstats}")
 
-    waves = INSTANCES // WAVE
-    ops.reset_launches()
-    state, totals, elapsed = drive_config1(waves, WAVE, "cuda")
-    launches = dict(ops.LAUNCHES)
-    instances = waves * WAVE
-    timed = (waves - 1) * WAVE * TRANSITIONS_PER_INSTANCE
-    if totals["completed_roots"] != instances:
-        raise AssertionError(f"completed {totals['completed_roots']} != {instances}")
-    if totals["processed"] != TRANSITIONS_PER_INSTANCE * instances:
-        raise AssertionError(f"processed {totals['processed']} != 20 x {instances}")
-    zero = [k for k, c in launches.items() if c <= 0]
-    if zero:
-        raise AssertionError(f"kernels never launched on the main path: {zero}")
-    rate = timed / elapsed if elapsed > 0 else float("nan")
-    log(f"[4] config 1: {instances} instances, wave {WAVE}, capacity "
-        f"{CAP_FACTOR * WAVE}: processed {totals['processed']}, completed "
-        f"{totals['completed_roots']}, rounds {totals['rounds']}, no overflow; "
-        f"{rate:.1f} transitions/s over the {waves - 1} waves after the first "
-        f"({elapsed:.3f} s); launches {launches}")
-    report.update(config1={
-        "waves": waves, "wave": WAVE, "instances": instances,
-        "totals": totals, "timed_seconds": elapsed,
-        "timed_transitions": timed, "transitions_per_sec": rate,
-        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
-    })
+    by_path = {}
+    for phase, label, model_fn, instances, per_instance, path in (
+        (4, "config1", config1_model, INSTANCES, TRANSITIONS_PER_INSTANCE,
+         CONFIG1_KERNELS),
+        (5, "config3", config3_model, INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3,
+         CONFIG3_KERNELS),
+    ):
+        run = drive_path(model_fn, instances, per_instance, path)
+        report[label] = run
+        by_path[label] = run["launches"]
+        log(f"[{phase}] {label}: {instances} instances, wave {WAVE}, capacity "
+            f"{CAP_FACTOR * WAVE}: processed {run['totals']['processed']}, completed "
+            f"{run['totals']['completed_roots']}, rounds {run['totals']['rounds']}, "
+            f"no overflow; {run['transitions_per_sec']:.1f} transitions/s over the "
+            f"{run['waves'] - 1} waves after the first ({run['timed_seconds']:.3f} s); "
+            f"launches {run['launches']}")
     if args.profile:
-        prof = profile_config1(WAVE)
-        report["profile"] = prof
-        log(f"[p] one wave of {WAVE}: {prof['rounds']} rounds, wall "
-            f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
-            f"(idle share {prof['device_idle_share']:.3f}), "
-            f"{prof['device_launches']} device ops")
-        for row in prof["top"]:
-            log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+        for label, name, model_fn in (("profile", "config 1", config1_model),
+                                      ("profile_config3", "config 3", config3_model)):
+            prof = profile_config(WAVE, model_fn=model_fn)
+            report[label] = prof
+            log(f"[p] {name}, one wave of {WAVE}: {prof['rounds']} "
+                f"rounds, wall {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.1f} ms (idle share "
+                f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops")
+            for row in prof["top"]:
+                log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+    # launches: the sum over the two main-path runs (phases 4 and 5), each
+    # run's own count beside it; the two wrappers no path calls stay at 0
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     report["kernels"] = kernels
     report["card"] = smi
     if args.out:
@@ -694,8 +1024,8 @@ def main(argv) -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}),
           flush=True)

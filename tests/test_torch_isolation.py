@@ -127,5 +127,9 @@ def test_importing_the_package_needs_no_nvcc_or_gpu():
         importlib.import_module(mod)
     assert _build._libs == {}
     assert sorted(os.listdir(os.path.join(PORT, "csrc"))) == [
-        "gather_rows.cu", "hash_lookup.cu", "table_commit.cu",
+        "gather_rows.cu", "hash_lookup.cu", "hash_update.cu", "table_commit.cu",
+        "zb_hash.cuh",
+    ]
+    assert sorted(_build.SOURCES) == [
+        "gather_rows", "hash_lookup", "hash_update", "table_commit",
     ]

@@ -221,7 +221,12 @@ def test_wrappers_take_plain_path_for_cpu_tensors():
     t = torch.arange(12, dtype=torch.int32).reshape(6, 2)
     (rows,) = ops.fused_gather_rows([t], [ops.GatherOp(0, torch.tensor([5, -1, 9], dtype=torch.int32))])
     assert rows.tolist() == [[10, 11], [10, 11], [10, 11]]
-    assert ops.LAUNCHES == {"fused_gather_rows": 0, "fused_table_commit": 0, "lookup": 0}
+    assert ops.LAUNCHES == dict.fromkeys([
+        "fused_gather_rows", "fused_table_commit", "lookup",
+        "masked_row_update", "masked_row_max", "masked_row_add",
+        "masked_lane_update", "masked_lane_accum", "masked_vec64_update",
+        "insert", "delete",
+    ], 0)
     meta = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="mixed"):
         ops.fused_gather_rows([t], [ops.GatherOp(0, meta)])

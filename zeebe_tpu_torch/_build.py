@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers:
 a build takes seconds, not minutes). Libraries go to
 ``build/zeebe_tpu_torch/`` at the root of the checkout, named by a hash of
-their source and flags, so an edited source rebuilds and an unchanged one
-is loaded as it is. All sources compile in parallel, one ``nvcc`` each.
+their source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is loaded as it is.
+All sources compile in parallel, one ``nvcc`` each.
 
 Nothing here runs at import: the first kernel launch builds. Importing
 the package therefore needs neither ``nvcc`` nor a GPU.
@@ -26,7 +27,7 @@ from typing import Dict, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "zeebe_tpu_torch"
-SOURCES = ("gather_rows", "table_commit", "hash_lookup")
+SOURCES = ("gather_rows", "table_commit", "hash_lookup", "hash_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -53,7 +54,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

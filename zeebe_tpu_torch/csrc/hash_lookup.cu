@@ -25,16 +25,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define ZB_MAX_PROBES 32
-#define ZB_EMPTY (-1LL)
-
-__device__ __forceinline__ uint32_t zb_hash(int64_t key, uint32_t mask) {
-  const uint32_t lo = (uint32_t)(uint64_t)key;
-  const uint32_t hi = (uint32_t)((uint64_t)key >> 32);
-  uint32_t h = (lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u);
-  h ^= h >> 15;
-  return h & mask;
-}
+#include "zb_hash.cuh"
 
 __global__ void hash_lookup_kernel(const int64_t* __restrict__ tkeys,
                                    const int32_t* __restrict__ tvals,

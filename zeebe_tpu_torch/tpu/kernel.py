@@ -17,16 +17,19 @@ Phases (as in the JAX kernel):
   D. key assignment (strided counters + prefix sums — KeyGenerator parity)
   E. emissions → compaction; table commits
 
-This slice ports the kernel with every ``graph.has_*`` feature gate off —
-the order-process path (start → service task → end). A graph that turns
-any gate on raises ``NotImplementedError`` naming the gate; no gated
+The port covers the kernel with every ``graph.has_*`` feature gate off —
+the order-process path (start → service task → end) — and with
+``has_parallel_joins`` on (the fork/join path). A graph that turns any
+other gate on raises ``NotImplementedError`` naming the gate; no gated
 branch is half ported. Where a gate being off makes a JAX value constant
 (no timer table lookup ⇒ no timer hit), the constant is used directly.
 
 The table primitives go through ``ops``: one fused gather launch per read
 stage (8 per step), ``ops.lookup`` for index misses (2 per step) and one
 ``ops.fused_table_commit`` per table group (2 per step), which updates the
-element-instance and job tables IN PLACE.
+element-instance and job tables IN PLACE. The join path adds, per step,
+2 lookups, 1 insert and 1 delete on the join map and 9 masked scatters
+into the join tables, all IN PLACE as well.
 """
 
 from __future__ import annotations
@@ -236,7 +239,7 @@ def step_kernel(
     instant COMPLETE command — the worker round trip without leaving the
     device.
     """
-    gates = graph.gates_on()
+    gates = [g for g in graph.gates_on() if g != "has_parallel_joins"]
     if gates:
         raise NotImplementedError(
             "step_kernel: feature gate(s) not ported to the PyTorch engine "
@@ -487,12 +490,79 @@ def step_kernel(
     inmap_ok = m_inmap
     outmap_ok = m_outmap
 
+    # parallel join: composite key (scope_key, gateway element); the join
+    # tables and map are updated IN PLACE (no later read wants their old
+    # values)
+    if graph.has_parallel_joins:
+        m_pmerge = m_step(BS.PARALLEL_MERGE)
+        gw_elem = emeta[:, graph_mod.EM_FLOW_TGT]
+        gw_clip = gw_elem.clamp(0, n_elems - 1)
+        stamp, jmap = state.join_pos_stamp, state.join_map
+        j_cap = state.join_key.shape[0]
+        join_key = torch.where(m_pmerge, (batch.scope_key << 10) | gw_clip.to(_I64), -1)
+        jn_found, _jn_slot = ops.lookup(jmap, join_key, m_pmerge)
+        # leaders: first batch occurrence of each missing join key (sort-dedup)
+        missing = m_pmerge & ~jn_found
+        sort_k = torch.where(missing, join_key, 2**62)
+        sorted_k, order = torch.sort(sort_k, stable=True)
+        first_occ = torch.cat(
+            [torch.ones((1,), dtype=_BOOL, device=dev), sorted_k[1:] != sorted_k[:-1]]
+        )
+        leader = zeros_b()
+        leader[order] = first_occ
+        leader = leader & missing
+        # allocate join slots for leaders
+        join_free = _first_true_indices(state.join_key < 0, b)
+        l_rank = _excl_cumsum(leader)
+        l_slot = join_free[l_rank.clamp(0, b - 1).to(_I64)]
+        join_overflow = torch.any(leader & (l_slot >= j_cap))
+        ops.masked_vec64_update(state.join_key, l_slot, leader, join_key)
+        nin_here = graph.join_nin[wf_c.to(_I64), gw_clip.to(_I64)]
+        ops.masked_lane_update(state.join_nin, l_slot, leader, nin_here)
+        ops.insert(jmap, join_key, l_slot, leader)
+        # re-lookup so every arrival sees its slot
+        jn_found2, jn_slot2 = ops.lookup(jmap, join_key, m_pmerge)
+        arr_slot = jn_slot2.clamp(0, j_cap - 1)
+        arr_idx = arr_slot.to(_I64)
+        my_pos = emeta[:, graph_mod.EM_JOIN_POS]
+        arrival = m_pmerge & jn_found2
+        aw = torch.where(arrival, arr_slot, j_cap)
+        # dynamic column one-hot; arrivals are monotonic so a row MAX
+        # composes concurrent arrivals at the same join slot (the flags stay
+        # int32 until the cleanup below: JAX's bool round trips are exact)
+        f_in = state.join_arrived.shape[1]
+        fcols = torch.arange(f_in, dtype=_I32, device=dev)
+        pos_hot = fcols[None, :] == my_pos.clamp(0, f_in - 1)[:, None]
+        arrived = state.join_arrived.to(_I32)
+        ops.masked_row_max(arrived, arr_slot, arrival, pos_hot.to(_I32))
+        # flow-position-stamped payload merge: higher flow pos wins per variable
+        ops.masked_row_max(stamp, arr_slot, arrival,
+                           torch.where(src_present, my_pos[:, None], -1))
+        win_var = m_pmerge[:, None] & src_present & (
+            stamp[aw.clamp(0, j_cap - 1).to(_I64)] == my_pos[:, None]
+        )
+        win3 = torch.cat([win_var, win_var, win_var], dim=1)
+        b_pay_join = pack_payload(batch.v_vt, batch.v_str, batch.v_num)
+        ops.masked_row_update(state.join_pay, arr_slot, arrival, b_pay_join, win3)
+        # completion: all incoming arrived; completer = last arrival in batch
+        arr_count = torch.sum(arrived != 0, dim=1, dtype=_I32)
+        complete_slot = (state.join_nin > 0) & (arr_count >= state.join_nin)
+        my_complete = m_pmerge & jn_found2 & complete_slot[arr_idx]
+        completer = _last_writer(arr_slot, my_complete, j_cap)
+        # merged payload for the completer
+        mg_vt, mg_sid, mg_num = unpack_payload(state.join_pay[arr_idx])
+        mg_vt = mg_vt.to(torch.int8)
+    else:
+        arr_slot = zeros_b(_I32)  # no joins: every record reads join slot 0
+
     # ---------------- D. key assignment ----------------
     out_count = emeta[:, graph_mod.EM_OUT_COUNT]
     single_key = (
         m_create | m_take | xs_ok | m_actgw | m_startst | m_trigend
         | m_trigstart | m_tcreate
     )
+    if graph.has_parallel_joins:
+        single_key = single_key | completer
     n_wf = torch.where(
         single_key, 1,
         torch.where(
@@ -615,7 +685,6 @@ def step_kernel(
     j_rank = _excl_cumsum(job_ins)
     job_pop_idx = state.free_job_pop + j_rank.to(_I64)
     job_ring_ok = job_pop_idx < state.free_job_push
-    arr_slot = zeros_b(_I32)  # no joins: every record reads join slot 0
     tok_after_sc, nin_rec, ei_pop_slot, job_pop_slot = ops.fused_gather_rows(
         [tokens_after, state.join_nin, state.free_ei, state.free_job],
         [
@@ -690,6 +759,13 @@ def step_kernel(
         valid=True, rtype=RT_EVENT, vtype=VT_WI,
         intent=int(WI.ELEMENT_COMPLETED), key=batch.key, elem=batch.elem,
     )
+    if graph.has_parallel_joins:
+        _put(
+            e0, completer,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.GATEWAY_ACTIVATED), key=key0, elem=gw_elem,
+        )
+        _put_payload(e0, completer, mg_vt, mg_num, mg_sid)
     _put(
         e0, m_timer_step,
         valid=True, rtype=RT_CMD, vtype=VT_TIMER, intent=int(TI.CREATE),
@@ -878,6 +954,8 @@ def step_kernel(
 
     # token counters: one select-by-kind accumulate on the scope row
     tok_m = m_consume | m_psplit
+    if graph.has_parallel_joins:
+        tok_m = tok_m | completer
     tok_v = torch.where(
         m_consume, -1, torch.where(m_psplit, out_count - 1, -(nin_rec - 1))
     )
@@ -1056,6 +1134,20 @@ def step_kernel(
         job_ops,
     )
 
+    # ---------------- join cleanup ----------------
+    join_arrived = state.join_arrived
+    overflow = ei_overflow | job_overflow
+    if graph.has_parallel_joins:
+        ops.masked_vec64_update(state.join_key, arr_slot, completer, full_b(-1, _I64))
+        ops.masked_lane_update(state.join_nin, arr_slot, completer, zeros_b(_I32))
+        ops.masked_row_update(arrived, arr_slot, completer,
+                              torch.zeros((b, f_in), dtype=_I32, device=dev))
+        ops.masked_row_update(stamp, arr_slot, completer,
+                              torch.full((b, stamp.shape[1]), -1, dtype=_I32, device=dev))
+        ops.delete(jmap, join_key, completer)
+        join_arrived = arrived != 0
+        overflow = overflow | join_overflow
+
     # ---------------- output compaction ----------------
     be = b * e_w
     flat_valid = em["valid"].reshape(-1)
@@ -1075,7 +1167,7 @@ def step_kernel(
 
     # the committed tables were updated in place; the rest is carried over
     new_state = dataclasses.replace(
-        state, sub_credits=sub_credits,
+        state, join_arrived=join_arrived, sub_credits=sub_credits,
         free_ei_pop=free_ei_pop_new, free_ei_push=free_ei_push_new,
         free_job_pop=free_job_pop_new, free_job_push=free_job_push_new,
         next_wf_key=next_wf_key, next_job_key=next_job_key,
@@ -1090,7 +1182,7 @@ def step_kernel(
         "completed_roots": torch.sum(
             m_complete_proc & (batch.elem == 0), dtype=_I32
         ),
-        "overflow": ei_overflow | job_overflow,
+        "overflow": overflow,
     }
     return new_state, out, stats
 

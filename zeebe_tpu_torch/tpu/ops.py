@@ -1,17 +1,27 @@
 """The step kernel's table primitives: CUDA kernels and their plain versions.
 
-Counterpart of ``zeebe_tpu.tpu.pallas_ops`` for the three primitives the
-main path runs (the order-process graph, every feature gate off):
+Counterpart of ``zeebe_tpu.tpu.pallas_ops`` for the primitives the ported
+paths run (the order-process graph with every feature gate off, and the
+parallel fork/join graph):
 
 - ``fused_gather_rows``  ↔ ``pallas_ops.fused_gather_rows`` (csrc/gather_rows.cu)
 - ``fused_table_commit`` ↔ ``pallas_ops.fused_table_commit`` (csrc/table_commit.cu)
 - ``lookup``             ↔ ``pallas_ops.lookup`` (csrc/hash_lookup.cu)
+- ``masked_row_update``, ``masked_row_max``, ``masked_row_add``,
+  ``masked_lane_update``, ``masked_lane_accum``, ``masked_vec64_update``
+  ↔ the ``pallas_ops`` functions of the same names: one-op table commits
+  (csrc/table_commit.cu)
+- ``insert``, ``delete`` ↔ ``pallas_ops.insert`` / ``delete``
+  (csrc/hash_update.cu)
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain PyTorch version beside each kernel (``*_reference``); CUDA tensors
 launch the hand-written kernel, or the call raises. There is no fallback
 from a CUDA tensor to the plain version. ``LAUNCHES`` counts kernel
 launches per wrapper (one per wrapper call that reaches the GPU).
+
+Aliasing: unlike their JAX counterparts, every table write here updates
+the caller's tensors IN PLACE on both devices and returns them.
 
 Semantics kept from the JAX package (the XLA fallbacks its CPU tests pin):
 - gathers wrap a negative slot once, then clamp into [0, T-1];
@@ -38,6 +48,9 @@ from zeebe_tpu_torch.tpu.hashmap import HashTable
 # the main path and reads them after
 LAUNCHES: Dict[str, int] = {
     "fused_gather_rows": 0, "fused_table_commit": 0, "lookup": 0,
+    "masked_row_update": 0, "masked_row_max": 0, "masked_row_add": 0,
+    "masked_lane_update": 0, "masked_lane_accum": 0, "masked_vec64_update": 0,
+    "insert": 0, "delete": 0,
 }
 
 
@@ -288,14 +301,14 @@ def _claim_scratch(device: torch.device, words: int, epochs: int):
     return entry[0], first
 
 
-def _commit_cuda(tables, ops) -> List[torch.Tensor]:
+def _commit_cuda(tables, ops, name: str = "fused_table_commit") -> List[torch.Tensor]:
     fn = _entry("table_commit", "zb_table_commit",
                 (ctypes.POINTER(_CommitDesc), ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p))
     for t in tables:
         if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() not in (1, 2):
             raise ValueError(
-                "fused_table_commit: tables must be contiguous int32 1D/2D "
+                f"{name}: tables must be contiguous int32 1D/2D "
                 "(int64 tables enter as .view(torch.int32) planes)"
             )
     kinds = [_kind(tables[op.table], op) for op in ops]
@@ -312,7 +325,10 @@ def _commit_cuda(tables, ops) -> List[torch.Tensor]:
         t = tables[op.table]
         width = t.shape[1] if t.dim() == 2 else 1
         n = op.slots.shape[0]
-        slots = op.slots.to(torch.int32).contiguous()
+        slots = op.slots
+        if slots.dtype != torch.int32:  # out of int32 range is dropped anyway
+            slots = slots.to(torch.int64).clamp(-2**31, 2**31 - 1)
+        slots = slots.to(torch.int32).contiguous()
         active = op.active.to(torch.bool).contiguous()
         vals = op.vals.to(torch.int32).reshape(n, width).contiguous()
         mask = None
@@ -328,9 +344,8 @@ def _commit_cuda(tables, ops) -> List[torch.Tensor]:
             None if mask is None else mask.data_ptr(), t.shape[0], width, n,
             _KINDS[kind], op_epoch,
         )
-    _build.check(fn(descs, len(ops), scratch.data_ptr(), _stream()),
-                 "fused_table_commit")
-    LAUNCHES["fused_table_commit"] += 1
+    _build.check(fn(descs, len(ops), scratch.data_ptr(), _stream()), name)
+    LAUNCHES[name] += 1
     return list(tables)
 
 
@@ -384,3 +399,163 @@ def lookup(table: HashTable, keys: torch.Tensor, valid: torch.Tensor):
     if _on_cuda([table.keys, table.vals, keys, valid], "lookup"):
         return _lookup_cuda(table, keys, valid)
     return lookup_reference(table, keys, valid)
+
+
+# ---------------------------------------------------------------------------
+# masked scatters (one table, one op)
+# ---------------------------------------------------------------------------
+
+
+def masked_scatter_reference(table: torch.Tensor, kind: str, slots: torch.Tensor,
+                             active: torch.Tensor, vals: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of every masked scatter: one ``TableOp`` applied in
+    place with the XLA op chain's semantics (see ``_apply_op_reference``)."""
+    _apply_op_reference(table, TableOp(0, kind, slots, active, vals, mask))
+    return table
+
+
+def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
+    """One masked scatter into one int32 table, in place: a one-op table
+    commit, its launches counted under ``name``."""
+    if _on_cuda([table, slots, active, vals] + ([] if mask is None else [mask]), name):
+        _commit_cuda([table], [TableOp(0, kind, slots, active, vals, mask)], name)
+        return table
+    return masked_scatter_reference(table, kind, slots, active, vals, mask)
+
+
+def masked_row_update(table, slots, active, vals, lane_mask=None) -> torch.Tensor:
+    """[T, K] ``table[slots[i]] = vals[i]`` for active records, in place;
+    with ``lane_mask`` [B, K] only the masked lanes. The last active writer
+    in batch order wins per row (per (row, lane) with a mask)."""
+    return _scatter("masked_row_update", table, "set", slots, active, vals, lane_mask)
+
+
+def masked_row_max(table, slots, active, vals) -> torch.Tensor:
+    """[T, K] ``table[slots[i]] = maximum(table[slots[i]], vals[i])`` for
+    active records, in place (max commutes: batch order does not matter)."""
+    return _scatter("masked_row_max", table, "max", slots, active, vals)
+
+
+def masked_row_add(table, slots, active, vals, lane_mask=None) -> torch.Tensor:
+    """[T, K] ``table[slots[i], lane] += vals[i, lane]`` for active records
+    and masked lanes, in place (integer addition commutes)."""
+    return _scatter("masked_row_add", table, "add", slots, active, vals, lane_mask)
+
+
+def masked_lane_update(table1d, slots, active, vals) -> torch.Tensor:
+    """1D int32 ``table[slots[i]] = vals[i]``, last active writer wins, in place."""
+    return _scatter("masked_lane_update", table1d, "set", slots, active, vals)
+
+
+def masked_lane_accum(table1d, slots, active, deltas) -> torch.Tensor:
+    """1D int32 ``table[slots[i]] += deltas[i]`` for active records, in place."""
+    return _scatter("masked_lane_accum", table1d, "add", slots, active, deltas)
+
+
+def masked_vec64_update(table1d, slots, active, vals64) -> torch.Tensor:
+    """1D int64 ``table[slots[i]] = vals64[i]``, last active writer wins, in
+    place: a row update of the [T, 2] int32 lo/hi planes, as the JAX op
+    does (rows stay whole, so the result is the int64 set's)."""
+    planes = table1d.view(torch.int32).view(table1d.shape[0], 2)
+    v = vals64.to(torch.int64).contiguous().view(torch.int32).view(-1, 2)
+    _scatter("masked_vec64_update", planes, "set", slots, active, v)
+    return table1d
+
+
+# ---------------------------------------------------------------------------
+# hash insert / delete
+# ---------------------------------------------------------------------------
+
+insert_reference = hashmap.insert
+delete_reference = hashmap.delete
+
+# per-device [MAX_PROBES + 1] round counters of the insert kernel (see
+# csrc/hash_update.cu: the kernel zeroes each before its use)
+_insert_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def _table_on_cuda(table: HashTable, what: str):
+    tkeys, tvals = table.keys, table.vals
+    size = tkeys.shape[0]
+    if (tkeys.dtype != torch.int64 or tvals.dtype != torch.int32
+            or not tkeys.is_contiguous() or not tvals.is_contiguous()
+            or tvals.shape[0] != size or size & (size - 1)):
+        raise ValueError(f"{what}: the table must be contiguous int64 keys and "
+                         "int32 vals of one power-of-two size")
+    return tkeys, tvals, size
+
+
+def _insert_cuda(table: HashTable, keys, vals, valid) -> torch.Tensor:
+    tkeys, tvals, size = _table_on_cuda(table, "insert")
+    n = keys.shape[0]
+    if keys.dim() != 1 or vals.shape != (n,) or valid.shape != (n,):
+        raise ValueError("insert: keys, vals and valid must be [B] tensors of one length")
+    ok = torch.zeros((n,), dtype=torch.bool, device=keys.device)
+    if n == 0:
+        return ok
+    if n >= 2**31:
+        raise ValueError("insert: at most 2^31 - 1 keys per call")
+    keys = keys.to(torch.int64).contiguous()
+    vals = vals.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    probe = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    scratch, epoch = _claim_scratch(keys.device, size, hashmap.MAX_PROBES)
+    counters = _insert_counters.get(keys.device)
+    if counters is None:
+        counters = torch.zeros((hashmap.MAX_PROBES + 1,), dtype=torch.int32,
+                               device=keys.device)
+        _insert_counters[keys.device] = counters
+    p = ctypes.c_void_p
+    fn = _entry("hash_update", "zb_hash_insert",
+                (p, p, ctypes.c_int64, p, p, p, ctypes.c_int64, p, p, p,
+                 ctypes.c_uint64, p, p))
+    _build.check(
+        fn(tkeys.data_ptr(), tvals.data_ptr(), size, keys.data_ptr(),
+           vals.data_ptr(), valid.data_ptr(), n, probe.data_ptr(), ok.data_ptr(),
+           scratch.data_ptr(), epoch, counters.data_ptr(), _stream()),
+        "insert",
+    )
+    LAUNCHES["insert"] += 1
+    return ok
+
+
+def insert(table: HashTable, keys: torch.Tensor, vals: torch.Tensor,
+           valid: torch.Tensor):
+    """Batched insert of unique keys, IN PLACE: returns (table, ok [B]
+    bool), the bucket layout of ``hashmap.insert`` (its round-synchronous
+    lowest-rank claims). ``ok`` is False where a key found no free bucket
+    within MAX_PROBES."""
+    if _on_cuda([table.keys, table.vals, keys, vals, valid], "insert"):
+        return table, _insert_cuda(table, keys, vals, valid)
+    new, ok = insert_reference(table, keys, vals, valid)
+    table.keys.copy_(new.keys)
+    table.vals.copy_(new.vals)
+    return table, ok
+
+
+def _delete_cuda(table: HashTable, keys, valid) -> None:
+    tkeys, _tvals, size = _table_on_cuda(table, "delete")
+    n = keys.shape[0]
+    if keys.dim() != 1 or valid.shape != (n,):
+        raise ValueError("delete: keys and valid must be [B] tensors of one length")
+    if n == 0:
+        return
+    keys = keys.to(torch.int64).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    p = ctypes.c_void_p
+    fn = _entry("hash_update", "zb_hash_delete",
+                (p, ctypes.c_int64, p, p, ctypes.c_int64, p))
+    _build.check(fn(tkeys.data_ptr(), size, keys.data_ptr(), valid.data_ptr(), n,
+                    _stream()), "delete")
+    LAUNCHES["delete"] += 1
+
+
+def delete(table: HashTable, keys: torch.Tensor, valid: torch.Tensor) -> HashTable:
+    """Batched delete, IN PLACE: each valid key's bucket becomes a
+    TOMBSTONE, as ``hashmap.delete`` computes; values are untouched."""
+    if _on_cuda([table.keys, table.vals, keys, valid], "delete"):
+        _delete_cuda(table, keys, valid)
+    else:
+        table.keys.copy_(delete_reference(table, keys, valid).keys)
+    return table

@@ -9,8 +9,10 @@ dtypes and shapes, so the arrays of a JAX engine's state (or of its
   counts, packed payload, a direct-mapped key → slot index and a hashmap
   fallback, a free-slot ring
 - jobs: the same layout for the job state machine
-- joins, timers, message subscriptions, stored messages: carried (their
-  kernel paths belong to later feature slices)
+- parallel joins: key, fan-in, arrival flags, merged payload, flow-position
+  stamps and a key → slot hashmap (the fork/join path of the kernel)
+- timers, message subscriptions, stored messages: carried (their kernel
+  paths belong to later feature slices)
 - job worker subscriptions and the strided key counters
 
 Write-path note: the step kernel commits the element-instance group and
@@ -29,7 +31,7 @@ import torch
 
 from zeebe_tpu_torch.device import DeviceLike, resolve
 from zeebe_tpu_torch.engine import keyspace
-from zeebe_tpu_torch.tpu import hashmap
+from zeebe_tpu_torch.tpu import hashmap, ops
 
 # packed column layouts (same as the JAX package)
 EI_ELEM, EI_STATE, EI_WF, EI_SCOPE, EI_TOKENS = 0, 1, 2, 3, 4
@@ -325,6 +327,15 @@ def _scatter_last(size: int, slots: torch.Tensor, active: torch.Tensor,
     return out[:size]
 
 
+def _rebuilt_map(like: hashmap.HashTable, keys: torch.Tensor, vals: torch.Tensor,
+                 live: torch.Tensor) -> hashmap.HashTable:
+    """A fresh map of ``like``'s capacity holding the live entries: the
+    layout of ``hashmap.rebuild_from``, through ``ops.insert`` (the insert
+    kernel on CUDA tensors, with no host sync)."""
+    table = hashmap.make(like.keys.shape[0], device=keys.device)
+    return ops.insert(table, keys, vals, live)[0]
+
+
 def rebuild_lookup_state(state: EngineState) -> EngineState:
     """Recompute the key→slot indexes and fallback hashmaps from live table
     rows, and the free-slot rings. Run at wave boundaries — not per round
@@ -346,12 +357,8 @@ def rebuild_lookup_state(state: EngineState) -> EngineState:
     job_idx = _scatter_last(
         jcap, (state.job_key // 5) & (jcap - 1), job_live, rows_m, -1
     )
-    ei_map, _ = hashmap.rebuild_from(
-        state.ei_map.keys.shape[0], state.ei_key, rows_n, ei_live,
-    )
-    job_map, _ = hashmap.rebuild_from(
-        state.job_map.keys.shape[0], state.job_key, rows_m, job_live,
-    )
+    ei_map = _rebuilt_map(state.ei_map, state.ei_key, rows_n, ei_live)
+    job_map = _rebuilt_map(state.job_map, state.job_key, rows_m, job_live)
     ei_free_mask = ~ei_live
     job_free_mask = ~job_live
     ei_rank = torch.cumsum(ei_free_mask.to(torch.int32), 0, dtype=torch.int32) \
@@ -367,22 +374,14 @@ def rebuild_lookup_state(state: EngineState) -> EngineState:
     def _iota(a):
         return torch.arange(a.shape[0], dtype=torch.int32, device=dev)
 
-    join_map, _ = hashmap.rebuild_from(
-        state.join_map.keys.shape[0], state.join_key,
-        _iota(state.join_key), state.join_key >= 0,
-    )
-    timer_map, _ = hashmap.rebuild_from(
-        state.timer_map.keys.shape[0], state.timer_key,
-        _iota(state.timer_key), state.timer_key >= 0,
-    )
-    msub_map, _ = hashmap.rebuild_from(
-        state.msub_map.keys.shape[0], state.msub_ckey,
-        _iota(state.msub_ckey), state.msub_ckey >= 0,
-    )
-    msg_map, _ = hashmap.rebuild_from(
-        state.msg_map.keys.shape[0], state.msg_ckey,
-        _iota(state.msg_ckey), state.msg_key >= 0,
-    )
+    join_map = _rebuilt_map(state.join_map, state.join_key,
+                            _iota(state.join_key), state.join_key >= 0)
+    timer_map = _rebuilt_map(state.timer_map, state.timer_key,
+                             _iota(state.timer_key), state.timer_key >= 0)
+    msub_map = _rebuilt_map(state.msub_map, state.msub_ckey,
+                            _iota(state.msub_ckey), state.msub_ckey >= 0)
+    msg_map = _rebuilt_map(state.msg_map, state.msg_ckey,
+                           _iota(state.msg_ckey), state.msg_key >= 0)
     return dataclasses.replace(
         state, ei_index=ei_idx, job_index=job_idx,
         ei_map=ei_map, job_map=job_map,
