@@ -10,6 +10,14 @@ order-process: start → service task "payment-service" → end; phase 4) and
 config 3 (parallel fork/join: start → fork → two service tasks → join →
 end; phase 5), both with synthetic instant workers, and shows from the
 launch counters that each run went through every kernel of its path.
+Phase 6 serves both configs through the port's in-process ``Broker`` with
+``CudaPartitionEngine`` — client → log → engine → job pushed to a worker →
+completion → log — at the serving benchmark's sizes: the first engine's
+construction runs the boot self-check (insert, lookup, delete, row update,
+lane update and lane accumulate against their plain versions, bit for
+bit); 6a checks every instance completed device-served with every kernel
+of the path launched, and 6b a credit-drought run's log on the card equal
+to the same run's on the CPU.
 
     python3 chip_smoke.py                     # the full check, one CUDA card
     python3 chip_smoke.py --profile --out F   # + one wave of each config under
@@ -276,12 +284,8 @@ def profile_config(wave, warm_waves=2, model_fn=config1_model):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # device-side events only: an operator's device time is also its kernels'
-    events = [e for e in prof.key_averages()
-              if dev_us(e) > 0 and e.device_type != torch.autograd.DeviceType.CPU]
+    events, dev_us = _device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:15]
     top += [e for e in events
@@ -290,6 +294,56 @@ def profile_config(wave, warm_waves=2, model_fn=config1_model):
         "wave": wave, "rounds": totals["rounds"], "wall_ms": wall * 1e3,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "device_launches": sum(e.count for e in events),
+        "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+def _device_events(prof):
+    """(events with device time, device µs of an event) of a profile."""
+    import torch
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages()
+              if dev_us(e) > 0 and e.device_type != torch.autograd.DeviceType.CPU]
+    return events, dev_us
+
+
+def profile_selfcheck():
+    """The boot self-check run once more under torch.profiler: device µs
+    per launch of each of our kernels it runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeebe_tpu_torch.tpu import ops
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops._selfcheck_on("cuda")
+        torch.cuda.synchronize()
+    events, dev_us = _device_events(prof)
+    return [{"name": e.key[:60], "count": e.count, "device_us": dev_us(e) / e.count}
+            for e in events if any(k in e.key for k in OUR_KERNELS)]
+
+
+def profile_serving(workdir, instances):
+    """Config 1 served through the Broker (``instances`` instances) under
+    torch.profiler: wall time, device busy time and idle share, and the
+    kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _engine, records, wall, _ticks = serve(config1_model, instances, "cuda", workdir)
+    events, dev_us = _device_events(prof)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    top += [e for e in events if e not in top and any(k in e.key for k in OUR_KERNELS)]
+    return {
+        "instances": instances, "records": len(records), "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
         "device_launches": sum(e.count for e in events),
         "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
                 for e in top],
@@ -514,11 +568,14 @@ SCATTERS = (
     ("masked_row_max", "max", ":287", [((_J, 4), "i32", False), ((_J, 8), "i32", False)]),
     ("masked_lane_update", "set", ":431", [((_J,), "i32", False)]),
     ("masked_vec64_update", "set", ":497", [((_J,), "i64", False)]),
-    # no path of the port launches these two (the JAX package reaches them
-    # only through its unfused commit chain); checked at the ei_i32 token
-    # accumulate's shape and at the join fan-in's
+    # no path of the port launches masked_row_add (the JAX package reaches it
+    # only through its unfused commit chain): checked at the ei_i32 token
+    # accumulate's shape. masked_lane_accum runs in the boot self-check
+    # ([2^10] int32, B = 2^8: the timed case), and is also checked at the
+    # join fan-in's shape
     ("masked_row_add", "add", ":337", [((_J, 6), "i32", True)]),
-    ("masked_lane_accum", "add", ":431", [((_J,), "i32", False)]),
+    ("masked_lane_accum", "add", ":431",
+     [((1 << 10,), "i32", False, 1 << 8), ((_J,), "i32", False)]),
 )
 
 
@@ -568,9 +625,10 @@ def check_scatters(dev, gen):
     for name, kind, line, cases in SCATTERS:
         fn = getattr(ops, name)
         err = 0.0
-        for shape, dt, masked in cases:
+        for shape, dt, masked, *batch in cases:
             dtype = torch.int64 if dt == "i64" else torch.int32
-            table, slots, active, vals, mask = _scatter_case(dev, gen, shape, dtype, masked)
+            table, slots, active, vals, mask = _scatter_case(
+                dev, gen, shape, dtype, masked, *batch)
             extra = () if mask is None else (mask,)
             got = fn(table.clone(), slots, active, vals, *extra)
             want = ops.masked_scatter_reference(table.clone(), kind, slots, active, vals, mask)
@@ -579,9 +637,10 @@ def check_scatters(dev, gen):
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version: {err}")
         # the timed case: the first
-        shape, dt, masked = cases[0]
+        shape, dt, masked, *batch = cases[0]
         dtype = torch.int64 if dt == "i64" else torch.int32
-        table, slots, active, vals, mask = _scatter_case(dev, gen, shape, dtype, masked)
+        table, slots, active, vals, mask = _scatter_case(
+            dev, gen, shape, dtype, masked, *batch)
         extra = () if mask is None else (mask,)
         es = table.element_size()
         width = table.shape[1] if table.dim() == 2 else 1
@@ -617,8 +676,8 @@ def check_scatters(dev, gen):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": "; ".join(
-                f"[{', '.join(map(str, sh))}] {d}{' lane-masked' if m else ''}"
-                for sh, d, m in cases) + f", B={b}",
+                f"[{', '.join(map(str, c[0]))}] {c[1]}{' lane-masked' if c[2] else ''}"
+                f", B={c[3] if len(c) > 3 else WAVE}" for c in cases),
         })
     return out
 
@@ -916,6 +975,179 @@ def parity_mixed(capacity=8192, size=4096, seed=7):
     return sa
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serving path — client → Broker log → CudaPartitionEngine →
+# job pushed to a worker → completion → log
+# ---------------------------------------------------------------------------
+
+# the serving benchmark's settings: 2,048 config-1 instances (bench.py:312),
+# engine capacity max(4096, 2 * instances) (bench.py:336), one worker with
+# 256 credits (bench.py:394), num_vars 16 and sub_capacity 16
+# (runtime/config.py:100-102); config 3 at the side-config quarter
+# (bench.py:2381) of the same capacity
+SERVE_CREDITS = 256
+SERVE_CAPACITY = 4096
+SERVE_INSTANCES = 2048
+SERVE_INSTANCES_C3 = SERVE_INSTANCES // 4
+# the wrappers a served wave of each config must launch; the boot
+# self-check's own
+SERVING_KERNELS = {"config1": CONFIG1_KERNELS, "config3": CONFIG3_KERNELS}
+SELFCHECK_KERNELS = ("insert", "lookup", "delete", "masked_row_update",
+                     "masked_lane_update", "masked_lane_accum")
+
+# the log signature of tests/test_tpu_parity.py:36-64
+SIG_TYPES = ("WORKFLOW_INSTANCE", "JOB", "INCIDENT", "TIMER", "MESSAGE",
+             "MESSAGE_SUBSCRIPTION", "WORKFLOW_INSTANCE_SUBSCRIPTION")
+
+
+def record_signature(records):
+    from zeebe_tpu_torch.protocol.enums import ValueType
+
+    types = {int(ValueType[name]) for name in SIG_TYPES}
+    out = []
+    for r in records:
+        if int(r.metadata.value_type) not in types:
+            continue
+        out.append((
+            r.position, int(r.metadata.record_type), int(r.metadata.value_type),
+            int(r.metadata.intent), r.key, r.source_record_position,
+            int(r.metadata.rejection_type), r.metadata.rejection_reason,
+            getattr(r.value, "activity_id", None) or None,
+            dict(getattr(r.value, "payload", {}) or {}),
+            getattr(r.value, "scope_instance_key", None),
+            getattr(r.value, "workflow_instance_key", None),
+            getattr(r.value, "retries", None),
+            getattr(r.value, "worker", None),
+            getattr(r.value, "error_type", None),
+            getattr(r.value, "error_message", None),
+            getattr(getattr(r.value, "headers", None), "activity_instance_key", None),
+        ))
+    return out
+
+
+def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
+          capacity=SERVE_CAPACITY):
+    """Serve ``instances`` instances of one config through the port's
+    in-process Broker on ``device``: deploy through the client, one job
+    worker, a burst of CREATE commands written to the log at once, one
+    drain, then ticks (each drains) until a tick adds no record. Closes the
+    broker and returns its engine, its log, the wall seconds from the first
+    CREATE to the last record, and the number of ticks."""
+    import tempfile
+
+    import torch
+
+    from zeebe_tpu_torch.engine.interpreter import WorkflowRepository
+    from zeebe_tpu_torch.gateway import JobWorker, ZeebeClient
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.protocol.records import WorkflowInstanceRecord
+    from zeebe_tpu_torch.runtime import Broker, ControlledClock
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+    clock = ControlledClock(start_ms=1_000_000)
+    repo = WorkflowRepository()
+    broker = Broker(
+        num_partitions=1, clock=clock,
+        data_dir=tempfile.mkdtemp(prefix="serve-", dir=workdir),
+        engine_factory=lambda pid: CudaPartitionEngine(
+            pid, 1, repository=repo, clock=clock, capacity=capacity,
+            num_vars=16, sub_capacity=16, device=device,
+        ),
+    )
+    engine = broker.partitions[0].engine
+    model = model_fn()
+    ZeebeClient(broker).deploy_model(model)
+    JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
+              credits=credits)
+    process_id = model.processes[0].id
+    log_ = broker.partitions[0].log
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(instances):
+        broker.write_command(0, WorkflowInstanceRecord(
+            bpmn_process_id=process_id, payload={"orderId": i, "orderValue": 99},
+        ), WI.CREATE)
+    broker.run_until_idle()
+    ticks = 0
+    while True:
+        before = log_.next_position
+        broker.tick()
+        broker.run_until_idle()
+        ticks += 1
+        if log_.next_position == before:
+            break
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    records = broker.records(0)
+    broker.close()
+    return engine, records, wall, ticks
+
+
+def serve_checked(label, model_fn, instances, per_instance, workdir):
+    """Phase 6a for one config on the card, the launch counters zeroed
+    just before and read just after."""
+    import torch
+
+    from zeebe_tpu_torch.protocol.enums import ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.tpu import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    engine, records, wall, ticks = serve(model_fn, instances, "cuda", workdir)
+    launches = dict(ops.LAUNCHES)
+    sig = record_signature(records)
+    completed = sum(
+        1 for r in records
+        if int(r.metadata.value_type) == int(ValueType.WORKFLOW_INSTANCE)
+        and int(r.metadata.intent) == int(WI.ELEMENT_COMPLETED)
+        and r.key == getattr(r.value, "workflow_instance_key", None)
+    )
+    if completed != instances:
+        raise AssertionError(f"{label}: {completed} of {instances} processes completed")
+    if len(sig) != per_instance * instances:
+        raise AssertionError(
+            f"{label}: {len(sig)} signature records != {per_instance} x {instances}")
+    if engine.host_only_reasons:
+        raise AssertionError(f"{label}: workflows served host-side: "
+                             f"{engine.host_only_reasons}")
+    if engine._host.element_instances.instances:
+        raise AssertionError(f"{label}: instances left in the embedded oracle")
+    if engine.host_records_processed > len(records) - len(sig):
+        raise AssertionError(f"{label}: instance records processed host-side")
+    zero = [k for k in SERVING_KERNELS[label] if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"{label}: kernels never launched serving: {zero}")
+    return {
+        "instances": instances, "credits": SERVE_CREDITS, "capacity": SERVE_CAPACITY,
+        "records": len(records), "signature_records": len(sig),
+        "device_records": engine.device_records_processed,
+        "host_records": engine.host_records_processed, "ticks": ticks,
+        "wall_seconds": wall, "records_per_sec": len(records) / wall,
+        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def serve_parity(workdir, instances=SERVE_INSTANCES_C3):
+    """Phase 6b: config 1 in a credit drought (``instances`` instances, 256
+    credits) served on the card and on the CPU: equal log signatures."""
+    sigs = {}
+    for device in ("cuda", "cpu"):
+        _engine, records, wall, _ticks = serve(config1_model, instances, device, workdir)
+        sigs[device] = (record_signature(records), wall)
+    (a, wa), (c, wc) = sigs["cuda"], sigs["cpu"]
+    for i, (x, y) in enumerate(zip(a, c)):
+        if x != y:
+            raise AssertionError(f"serving log differs at signature record {i}: "
+                                 f"cuda {x} cpu {y}")
+    if len(a) != len(c):
+        raise AssertionError(f"serving logs differ in length: {len(a)} vs {len(c)}")
+    return {"instances": instances, "signature_records": len(a),
+            "cuda_seconds": wa, "cpu_seconds": wc}
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measured number here (JSON)")
@@ -1001,6 +1233,65 @@ def main(argv) -> int:
             f"no overflow; {run['transitions_per_sec']:.1f} transitions/s over the "
             f"{run['waves'] - 1} waves after the first ({run['timed_seconds']:.3f} s); "
             f"launches {run['launches']}")
+    # phase 6: the serving path. The first engine built in this process
+    # runs the boot self-check inside its constructor
+    import shutil
+    import tempfile
+
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+    workdir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="serve-", dir=workdir)
+    try:
+        if ops._SELFCHECK_PASSED:
+            raise AssertionError("the boot self-check ran before the first engine")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        CudaPartitionEngine(0, 1, capacity=SERVE_CAPACITY)
+        boot_s = time.perf_counter() - t0
+        by_path["selfcheck"] = dict(ops.LAUNCHES)
+        zero = [k for k in SELFCHECK_KERNELS if by_path["selfcheck"][k] <= 0]
+        if not ops._SELFCHECK_PASSED or zero:
+            raise AssertionError(f"the boot self-check did not run its kernels: {zero}")
+        report["selfcheck"] = {"seconds": boot_s, "launches": by_path["selfcheck"]}
+        log(f"[6] first engine on the card: boot self-check bit-equal in "
+            f"{boot_s:.3f} s; launches {by_path['selfcheck']}")
+        for label, model_fn, instances, per_instance in (
+            ("config1", config1_model, SERVE_INSTANCES, TRANSITIONS_PER_INSTANCE),
+            ("config3", config3_model, SERVE_INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3),
+        ):
+            run = serve_checked(label, model_fn, instances, per_instance, workdir)
+            report["serving_" + label] = run
+            by_path["serving_" + label] = run["launches"]
+            log(f"[6a] {label} served through the Broker: {instances} instances, "
+                f"capacity {SERVE_CAPACITY}, {SERVE_CREDITS} credits: "
+                f"{run['records']} records ({run['signature_records']} signature, "
+                f"{run['device_records']} through the step kernel, "
+                f"{run['host_records']} host-side) in {run['wall_seconds']:.3f} s "
+                f"= {run['records_per_sec']:.1f} records/s, {run['ticks']} ticks; "
+                f"launches {run['launches']}")
+        par = serve_parity(workdir)
+        report["serving_parity"] = par
+        log(f"[6b] config 1, {par['instances']} instances, {SERVE_CREDITS} credits "
+            f"(a credit drought): cuda == cpu, equal log signatures "
+            f"({par['signature_records']} records; cuda {par['cuda_seconds']:.3f} s, "
+            f"cpu {par['cpu_seconds']:.3f} s)")
+        if args.profile:
+            report["profile_selfcheck"] = profile_selfcheck()
+            for row in report["profile_selfcheck"]:
+                log(f"[p] self-check: {row['count']}x {row['name']} "
+                    f"{row['device_us']:.2f} us each")
+            prof = profile_serving(workdir, SERVE_INSTANCES_C3)
+            report["profile_serving"] = prof
+            log(f"[p] config 1 served, {prof['instances']} instances: "
+                f"{prof['records']} records, wall {prof['wall_ms']:.1f} ms, device "
+                f"busy {prof['device_busy_ms']:.1f} ms (idle share "
+                f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops")
+            for row in prof["top"]:
+                log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     if args.profile:
         for label, name, model_fn in (("profile", "config 1", config1_model),
                                       ("profile_config3", "config 3", config3_model)):
@@ -1012,8 +1303,9 @@ def main(argv) -> int:
                 f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops")
             for row in prof["top"]:
                 log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
-    # launches: the sum over the two main-path runs (phases 4 and 5), each
-    # run's own count beside it; the two wrappers no path calls stay at 0
+    # launches: the sum over the main-path runs (phases 4, 5 and 6: the boot
+    # self-check and the two served configs), each run's own count beside
+    # it; masked_row_add, which no path calls, stays at 0
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -18,11 +18,59 @@ COPIED = [
     "models/el/parser.py", "protocol/jsonpath.py", "models/transform/steps.py",
     "models/transform/executable.py", "models/transform/transformer.py",
     "tpu/intern.py",
+    # the engine's host oracle and its record model
+    "protocol/__init__.py", "protocol/metadata.py", "protocol/msgpack.py",
+    "protocol/records.py", "protocol/codec.py", "protocol/columnar.py",
+    "engine/mappings.py", "models/el/interpreter.py", "models/bpmn/xml.py",
+    "models/bpmn/validation.py", "models/bpmn/yaml_front.py",
+    "engine/interpreter.py",
+    # the log and snapshots
+    "_events.py", "log/__init__.py", "log/storage.py", "log/logstream.py",
+    "log/snapshot.py", "log/stateser.py",
+    # the in-process broker, its drain and its client
+    "tracing/__init__.py", "tracing/recorder.py", "tracing/spans.py",
+    "runtime/__init__.py", "runtime/clock.py", "runtime/actors.py",
+    "runtime/metrics.py", "runtime/broker.py",
+    "scheduler/__init__.py", "scheduler/admission.py",
+    "scheduler/placement.py", "scheduler/wave.py",
+    "exporter/__init__.py", "exporter/base.py", "exporter/director.py",
+    "exporter/jsonl.py", "exporter/memory.py", "exporter/metrics_exporter.py",
+    "gateway/__init__.py", "gateway/client.py", "gateway/workers.py",
 ]
-# jsonpath's msgpack traverser lazily imports zeebe_tpu.protocol.msgpack;
-# it is off the compile path and the copy drops it
-DROPPED = {"protocol/jsonpath.py": "traverse"}
-_IMPORT = re.compile(r"^(\s*)(from|import) zeebe_tpu\.")
+# top-level functions and classes a copy leaves out:
+# - jsonpath's msgpack traverser lazily imports zeebe_tpu.protocol.msgpack;
+#   it is off the compile path
+# - MeshExchange is the multi-device frame exchange of the cluster broker
+#   (the mesh path): its body imports jax.sharding and zeebe_tpu.tpu.shard
+DROPPED = {
+    "protocol/jsonpath.py": ("traverse",),
+    "scheduler/placement.py": ("MeshExchange",),
+}
+# (source text, copy text) pairs a copy replaces, each found exactly once
+REPLACED = {
+    # DevicePlan's default device list: the visible CUDA cards, not jax's
+    "scheduler/placement.py": [(
+        "            import jax\n\n            devices = jax.devices()\n",
+        "            import torch\n\n            devices = [\n"
+        "                torch.device(\"cuda\", i)\n"
+        "                for i in range(torch.cuda.device_count())\n"
+        "            ]\n",
+    )],
+    # the package's exports follow the dropped MeshExchange
+    "scheduler/__init__.py": [
+        ("import DevicePlan, MeshExchange\n", "import DevicePlan\n"),
+        ('    "MeshExchange",\n', ""),
+    ],
+}
+# lazy imports of modules the port does not copy, each off the served path
+UNRESOLVED = {
+    # the host oracle's optional native KV spill: under try/except, and the
+    # broker installs the log lookup that replaces it
+    ("engine/interpreter.py", "zeebe_tpu_torch.native"),
+    # the C++ log backend, imported only when native=True is asked for
+    ("log/storage.py", "zeebe_tpu_torch.native"),
+}
+_IMPORT = re.compile(r"^(\s*)(from|import) zeebe_tpu(?=[. ])")
 
 
 def _port_sources():
@@ -48,7 +96,7 @@ def _imported_modules(tree):
 
 def test_no_jax_and_no_zeebe_tpu_imports_at_any_depth():
     sources = _port_sources()
-    assert len(sources) > 20
+    assert len(sources) >= 70  # the 69 modules of the port and chip_smoke.py
     offenders = []
     for path in sources:
         with open(path) as f:
@@ -60,17 +108,96 @@ def test_no_jax_and_no_zeebe_tpu_imports_at_any_depth():
     assert offenders == []
 
 
+def _module_file(parts):
+    """The file of module ``zeebe_tpu_torch.<...>``, or None."""
+    base = os.path.join(ROOT, *parts)
+    for path in (base + ".py", os.path.join(base, "__init__.py")):
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def _defines(path, name):
+    """True when the module at ``path`` binds ``name`` at its top level."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node.name == name:
+            return True
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            if any((a.asname or a.name.split(".")[0]) == name for a in node.names):
+                return True
+        targets = node.targets if isinstance(node, ast.Assign) else (
+            [node.target] if isinstance(node, ast.AnnAssign) else [])
+        for target in targets:
+            elts = target.elts if isinstance(target, ast.Tuple) else [target]
+            if any(isinstance(t, ast.Name) and t.id == name for t in elts):
+                return True
+    return False
+
+
+def test_every_port_import_resolves_to_a_module_of_the_port():
+    """A missing copy would show only at run time on the card: every
+    ``zeebe_tpu_torch`` import, at any depth, names a module of the port or
+    a name its module binds, but for the listed lazy imports of modules the
+    port leaves out."""
+    missing = set()
+    for path in _port_sources():
+        rel = os.path.relpath(path, PORT)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                wanted = [(a.name.split("."), None) for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                wanted = [(node.module.split("."), a.name) for a in node.names]
+            else:
+                continue
+            for parts, name in wanted:
+                if parts[0] != "zeebe_tpu_torch":
+                    continue
+                module = _module_file(parts)
+                if module is not None and (
+                    name is None or _module_file(parts + [name]) is not None
+                    or _defines(module, name)
+                ):
+                    continue
+                missing.add((rel, ".".join(parts + ([name] if name else []))))
+    assert missing == UNRESOLVED
+
+
+def test_probe_bits_are_the_ones_the_broker_reads():
+    """The copied broker's tick imports PROBE_JOB_BACKLOG from the port's
+    engine module; the bits are the JAX engine's (1 and 2)."""
+    from zeebe_tpu_torch.runtime import broker
+    from zeebe_tpu_torch.tpu import engine
+
+    assert (engine.PROBE_DEADLINES, engine.PROBE_JOB_BACKLOG) == (1, 2)
+    with open(broker.__file__) as f:
+        assert "from zeebe_tpu_torch.tpu.engine import PROBE_JOB_BACKLOG" in f.read()
+
+
 def _expected_copy(rel):
     with open(os.path.join(ROOT, "zeebe_tpu", rel)) as f:
         src = f.read()
+    for old, new in REPLACED.get(rel, ()):
+        assert src.count(old) == 1, (rel, old)
+        src = src.replace(old, new)
     if rel in DROPPED:
         tree = ast.parse(src)
-        fn = next(n for n in tree.body
-                  if isinstance(n, ast.FunctionDef) and n.name == DROPPED[rel])
         lines = src.splitlines(keepends=True)
-        src = "".join(lines[: fn.lineno - 1] + lines[fn.end_lineno:]).rstrip() + "\n"
+        spans = [
+            (n.lineno - 1 - len(n.decorator_list), n.end_lineno)
+            for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and n.name in DROPPED[rel]
+        ]
+        assert len(spans) == len(DROPPED[rel]), rel
+        for start, end in sorted(spans, reverse=True):
+            lines[start:end] = []
+        src = "".join(lines).rstrip() + "\n"
     return "".join(
-        _IMPORT.sub(r"\1\2 zeebe_tpu_torch.", line)
+        _IMPORT.sub(r"\1\2 zeebe_tpu_torch", line)
         for line in src.splitlines(keepends=True)
     )
 
@@ -85,6 +212,7 @@ def _entry_points():
     from zeebe_tpu_torch.models.bpmn.builder import Bpmn
     from zeebe_tpu_torch.models.transform.transformer import transform_model
     from zeebe_tpu_torch.tpu import batch, drive, graph, state
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
 
     workflows = transform_model(
         Bpmn.create_process("p").start_event().service_task("t", type="x")
@@ -97,11 +225,12 @@ def _entry_points():
         "empty": lambda: batch.empty(4, 2),
         "make_queue": lambda: drive.make_queue(8, 2),
         "state_from_numpy": lambda: state.state_from_numpy(cpu_state),
+        "engine": lambda: CudaPartitionEngine(0, 1, capacity=16),
     }
 
 
 @pytest.mark.parametrize("name", ["make_state", "compile_graph", "empty",
-                                  "make_queue", "state_from_numpy"])
+                                  "make_queue", "state_from_numpy", "engine"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default is the card")

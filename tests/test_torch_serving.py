@@ -1,0 +1,297 @@
+"""The port's serving path against the JAX package's host oracle.
+
+The port's own in-process ``Broker`` with ``CudaPartitionEngine`` (on the
+CPU here: every kernel wrapper takes its plain PyTorch version) writes the
+same event log as the JAX package's ``Broker`` with the host oracle engine,
+scenario by scenario. The scenarios and models are those of
+``tests/test_tpu_parity.py``; each model is written to BPMN XML by the JAX
+package and deployed as that resource on both sides, so both brokers deploy
+the same document. Tolerance 0: every signature field is an integer,
+string or exact payload.
+"""
+
+import types
+
+import pytest
+
+import zeebe_tpu.gateway as jax_gateway
+import zeebe_tpu.runtime as jax_runtime
+from zeebe_tpu.models.bpmn.builder import Bpmn
+from zeebe_tpu.models.bpmn.xml import write_model
+from test_tpu_parity import (
+    fork_join_process,
+    gateway_process,
+    order_process,
+    record_signature,
+)
+
+import zeebe_tpu_torch.gateway as port_gateway
+import zeebe_tpu_torch.protocol.records as port_records
+import zeebe_tpu_torch.runtime as port_runtime
+from zeebe_tpu_torch.engine.interpreter import WorkflowRepository
+from zeebe_tpu_torch.gateway.client import ClientException as PortClientException
+from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+from zeebe_tpu.gateway.client import ClientException as JaxClientException
+
+
+def port_deploy(client, model):
+    return client.deploy_resources([port_records.DeploymentResource(
+        resource=write_model(model), resource_name="process.bpmn",
+    )])
+
+
+ORACLE = types.SimpleNamespace(
+    runtime=jax_runtime, JobWorker=jax_gateway.JobWorker,
+    ClientException=JaxClientException, ZeebeClient=jax_gateway.ZeebeClient,
+    deploy=lambda client, model: client.deploy_model(model),
+)
+PORT = types.SimpleNamespace(
+    runtime=port_runtime, JobWorker=port_gateway.JobWorker,
+    ClientException=PortClientException, ZeebeClient=port_gateway.ZeebeClient,
+    deploy=port_deploy,
+)
+
+
+def port_broker(clock, data_dir=None, capacity=1 << 12):
+    repo = WorkflowRepository()
+    return port_runtime.Broker(
+        num_partitions=1, clock=clock, data_dir=data_dir,
+        engine_factory=lambda pid: CudaPartitionEngine(
+            pid, 1, repository=repo, clock=clock, capacity=capacity,
+            device="cpu",
+        ),
+    )
+
+
+def run_scenario(ns, scenario, make_broker=None):
+    clock = ns.runtime.ControlledClock(start_ms=1_000_000)
+    broker = (make_broker or (lambda c: ns.runtime.Broker(
+        num_partitions=1, clock=c)))(clock)
+    try:
+        scenario(ns, broker, ns.ZeebeClient(broker), clock)
+        broker.run_until_idle()
+        return broker, record_signature(broker.records(0))
+    finally:
+        broker.close()
+
+
+# -- the scenarios of TestServiceTaskParity and TestParallelGatewayParity --
+
+
+def happy_path(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    ns.JobWorker(broker, "payment-service", lambda ctx: {"paid": True})
+    client.create_instance(
+        "order-process", payload={"orderId": 31243, "orderValue": 99}
+    )
+
+
+def multiple_instances(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    ns.JobWorker(broker, "payment-service", lambda ctx: {"paid": True}, credits=64)
+    for i in range(10):
+        client.create_instance("order-process", payload={"orderId": i})
+
+
+def job_fail_and_retry(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    attempts = []
+
+    def handler(ctx):
+        attempts.append(1)
+        if len(attempts) == 1:
+            ctx.fail(retries=ctx.job.retries - 1)
+            return None
+        return {"paid": True}
+
+    ns.JobWorker(broker, "payment-service", handler)
+    client.create_instance("order-process", payload={"orderId": 1})
+
+
+def job_no_retries_incident(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+
+    def handler(ctx):
+        ctx.fail(retries=0)
+
+    ns.JobWorker(broker, "payment-service", handler)
+    client.create_instance("order-process", payload={"orderId": 1})
+
+
+def job_timeout_reactivation(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    seen = []
+
+    def handler(ctx):
+        seen.append(ctx.key)
+        if len(seen) == 1:
+            ctx.finished = True  # crashed worker: never completes
+            return None
+        return {"paid": True}
+
+    ns.JobWorker(broker, "payment-service", handler, timeout_ms=5_000)
+    client.create_instance("order-process", payload={"orderId": 1})
+    broker.run_until_idle()
+    clock.advance(10_000)
+    broker.tick()
+
+
+def complete_unknown_job_rejected(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    try:
+        client.complete_job(999999)
+    except ns.ClientException:
+        pass
+
+
+def create_unknown_workflow_rejected(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    try:
+        client.create_instance("no-such-process")
+    except ns.ClientException:
+        pass
+
+
+def fork_join(ns, broker, client, clock):
+    ns.deploy(client, fork_join_process())
+    ns.JobWorker(broker, "svc-a", lambda ctx: {"a": 1})
+    ns.JobWorker(broker, "svc-b", lambda ctx: {"b": 2})
+    client.create_instance("fork-join", payload={"seed": 7})
+
+
+def fork_join_many(ns, broker, client, clock):
+    ns.deploy(client, fork_join_process())
+    ns.JobWorker(broker, "svc-a", lambda ctx: {"a": 1}, credits=64)
+    ns.JobWorker(broker, "svc-b", lambda ctx: {"b": 2}, credits=64)
+    for i in range(5):
+        client.create_instance("fork-join", payload={"seed": i})
+
+
+def _hang(ctx):
+    ctx.finished = True  # the job stays ACTIVATED: the instance stays live
+    return None
+
+
+def cancel_and_update_live_instances(ns, broker, client, clock):
+    """CANCEL and UPDATE_PAYLOAD demote a live device instance (its scope
+    tree, its job, its in-flight join) to the embedded host oracle."""
+    ns.deploy(client, order_process())
+    ns.deploy(client, fork_join_process())
+    ns.JobWorker(broker, "payment-service", _hang)
+    ns.JobWorker(broker, "svc-a", lambda ctx: {"a": 1})
+    ns.JobWorker(broker, "svc-b", _hang)
+    first = client.create_instance("order-process", payload={"orderId": 1})
+    second = client.create_instance("order-process", payload={"orderId": 2})
+    joined = client.create_instance("fork-join", payload={"seed": 3})
+    broker.run_until_idle()
+    client.cancel_instance(first.workflow_instance_key)
+    client.update_payload(second.workflow_instance_key, {"orderId": 22})
+    client.cancel_instance(joined.workflow_instance_key)
+
+
+SCENARIOS = [
+    happy_path, multiple_instances, job_fail_and_retry,
+    job_no_retries_incident, job_timeout_reactivation,
+    complete_unknown_job_rejected, create_unknown_workflow_rejected,
+    fork_join, fork_join_many, cancel_and_update_live_instances,
+]
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda s: s.__name__)
+def test_port_broker_writes_the_oracles_log(scenario):
+    _b, oracle = run_scenario(ORACLE, scenario)
+    broker, port = run_scenario(PORT, scenario, port_broker)
+    for i, (a, b) in enumerate(zip(oracle, port)):
+        assert a == b, f"record {i} mismatch:\n  oracle: {a}\n  port:   {b}"
+    assert len(oracle) == len(port)
+    engine = broker.partitions[0].engine
+    # the workflows were device-served: instance records went through the
+    # step kernel, and none but the demoted ones moved to the oracle
+    assert engine.host_only_reasons == {}
+    assert engine.device_records_processed > 0
+    demoted = engine._host.element_instances.instances
+    if scenario is cancel_and_update_live_instances:
+        assert demoted  # the updated instance lives on in the oracle
+    else:
+        assert not demoted
+
+
+# -- host-routed workflows --------------------------------------------------
+
+
+def timer_process():
+    return (
+        Bpmn.create_process("timed")
+        .start_event("start")
+        .timer_catch_event("wait", duration_ms=10_000)
+        .service_task("after", type="after-service")
+        .end_event("end")
+        .done()
+    )
+
+
+def host_routed(ns, broker, client, clock):
+    ns.deploy(client, order_process())
+    ns.deploy(client, gateway_process())
+    ns.deploy(client, timer_process())
+    for job_type in ("payment-service", "priority-service", "normal-service",
+                     "after-service"):
+        ns.JobWorker(broker, job_type, lambda ctx: {"done": True})
+    client.create_instance("order-process", payload={"orderId": 1})
+    client.create_instance("decision", payload={"orderValue": 250})
+    client.create_instance("decision", payload={"orderValue": 5})
+    client.create_instance("timed", payload={"t": 1})
+    broker.run_until_idle()
+    clock.advance(11_000)
+    broker.tick()
+
+
+def test_unported_gates_route_their_workflows_to_the_host_oracle():
+    _b, oracle = run_scenario(ORACLE, host_routed)
+    broker, port = run_scenario(PORT, host_routed, port_broker)
+    assert port == oracle
+    engine = broker.partitions[0].engine
+    reasons = {
+        wf.id: engine.host_only_reasons.get(key)
+        for key, wf in engine.repository.by_key.items()
+    }
+    assert reasons == {
+        "order-process": None,
+        "decision": "has_conditions",
+        "timed": "has_timers",
+    }
+    completed = [
+        s for s in port
+        if s[2] == 5 and s[3] == 8 and s[8] in ("order-process", "decision", "timed")
+    ]
+    assert len(completed) == 4  # every process element completed
+    assert engine.device_records_processed > 0
+    assert engine.host_records_processed > 0
+
+
+# -- durability: close, reopen on the same data_dir -------------------------
+
+
+def test_port_broker_recovers_its_state_with_no_new_records(tmp_path):
+    clock = port_runtime.ControlledClock(start_ms=1_000_000)
+    broker = port_broker(clock, data_dir=str(tmp_path))
+    client = port_gateway.ZeebeClient(broker)
+    port_deploy(client, order_process())
+    port_gateway.JobWorker(broker, "payment-service", lambda ctx: {"paid": True})
+    client.create_instance("order-process", payload={"orderId": 1})
+    broker.run_until_idle()
+    broker.snapshot()
+    # a second instance whose job is still open lives past the snapshot
+    client.create_instance("order-process", payload={"orderId": 2})
+    broker.run_until_idle()
+    before = record_signature(broker.records(0))
+    broker.close()
+
+    reopened = port_broker(clock, data_dir=str(tmp_path))
+    try:
+        reopened.run_until_idle()
+        assert record_signature(reopened.records(0)) == before
+        engine = reopened.partitions[0].engine
+        assert engine.device_records_processed > 0  # replay went through the kernel
+    finally:
+        reopened.close()

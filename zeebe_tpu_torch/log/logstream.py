@@ -1,0 +1,551 @@
+"""Log stream: positioned record log with commit position and readers.
+
+Reference parity: ``logstreams/.../log/LogStream.java`` (positions, commit
+position), ``LogStreamWriterImpl`` / ``LogStreamBatchWriterImpl`` (atomic
+multi-record batches), ``BufferedLogStreamReader`` (seekable iteration via
+the sparse ``LogBlockIndex``).
+
+Positions are dense per-partition record sequence numbers (the reference
+uses sparse byte positions; density is an implementation choice, the
+contract — strictly increasing, stable across replay — is the same).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Callable, Iterator, List, Optional
+
+from zeebe_tpu_torch.log.storage import SegmentedLogStorage
+from zeebe_tpu_torch.protocol import codec
+from zeebe_tpu_torch.protocol.columnar import ColumnarBatch, RecordsView
+from zeebe_tpu_torch.protocol.records import Record
+
+BLOCK_INDEX_DENSITY = 256  # record a (position → address) entry every N records
+
+
+class LogStream:
+    """A partition's append-only record log."""
+
+    def __init__(
+        self,
+        storage: SegmentedLogStorage,
+        partition_id: int = 0,
+        topic_name: str = "default-topic",
+        clock: Optional[Callable[[], int]] = None,
+        recover_commit: bool = True,
+    ):
+        """``recover_commit``: in single-writer mode (True) recovery marks
+        the whole recovered log committed. Under raft (False) the commit
+        position is the LEADER's to advance — a restarted follower's
+        unreplicated tail must not be exposed as committed, or a later
+        conflict truncation would rewind the commit position (commit is
+        final)."""
+        self.storage = storage
+        self.partition_id = partition_id
+        self.topic_name = topic_name
+        self.clock = clock or (lambda: int(time.time() * 1000))
+        self.recover_commit = recover_commit
+
+        self._next_position = 0
+        self._commit_position = -1
+        # compaction floor: first position still held (in memory AND on
+        # disk); everything below is covered by a snapshot
+        self._base_position = 0
+        self._base_prev_term = -1  # raft term of record base_position-1
+        # first record position per storage segment (compaction is
+        # segment-aligned: a segment is deleted only when ALL its records
+        # fall below the floor, so the in-memory view always matches what
+        # recovery rebuilds from the remaining segments)
+        self._segment_first_pos: dict = {}
+        # sparse block index: (position, address); reference LogBlockIndex.java:44
+        self._block_index: List[tuple] = []
+        # in-memory tail: records by dense position (the hot read path; disk is
+        # the durability path — mirrors the reference's dispatcher write buffer
+        # serving readers before/alongside storage)
+        self._records: List[Record] = []
+        # compaction/truncation mutate (_base_position, _records) as a
+        # compound update while readers on other actors index by
+        # position - base; the lock makes each record_at read and each
+        # compound mutation atomic (list.append alone is atomic under the
+        # GIL, so the append hot path stays lock-free)
+        self._view_lock = threading.Lock()
+        self._commit_listeners: List[Callable[[int], None]] = []
+        # floor providers (exporter directors): each returns the first
+        # position it still needs; compact() never passes them (reference:
+        # segment deletion is bounded by exporter/subscriber positions)
+        self._floor_providers: List[Callable[[], int]] = []
+        self._load_base_meta()
+        self._recover()
+
+    def _base_meta_path(self) -> str:
+        return os.path.join(self.storage.directory, "base.meta")
+
+    def _load_base_meta(self) -> None:
+        try:
+            with open(self._base_meta_path()) as f:
+                data = json.load(f)
+            self._base_prev_term = int(data.get("base_prev_term", -1))
+            self._base_meta_position = int(data.get("base_position", 0))
+        except (OSError, ValueError):
+            self._base_meta_position = 0
+
+    def _save_base_meta(self) -> None:
+        tmp = self._base_meta_path() + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(
+                    {
+                        "base_position": self._base_position,
+                        "base_prev_term": self._base_prev_term,
+                    },
+                    f,
+                )
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._base_meta_path())
+            self._base_meta_position = self._base_position
+        except OSError:
+            pass
+
+    # -- recovery scan (reference FsLogStorage recovery + LogBlockIndexWriter)
+    def _recover(self) -> None:
+        last_position = -1
+        torn = False
+        torn_address = None
+        for base_address, data in self.storage.iter_blocks():
+            if torn:
+                break
+            offset = 0
+            while offset < len(data):
+                frame_len = codec.peek_frame_length(data, offset)
+                if frame_len is None or offset + frame_len > len(data):
+                    torn = True  # torn tail write: discard
+                    torn_address = base_address + offset
+                    break
+                try:
+                    record, next_offset = codec.decode_record(data, offset)
+                except ValueError:
+                    torn = True  # corrupt tail frame (bad crc): discard
+                    torn_address = base_address + offset
+                    break
+                if record.position % BLOCK_INDEX_DENSITY == 0:
+                    self._block_index.append((record.position, base_address + offset))
+                seg = self.storage.segment_of(base_address)
+                self._segment_first_pos.setdefault(seg, record.position)
+                if not self._records:
+                    self._base_position = record.position
+                self._records.append(record)
+                last_position = record.position
+                offset = next_offset
+        if torn_address is not None:
+            # physically cut the torn tail so the next append resumes at the
+            # last whole record — an in-memory discard alone would leave new
+            # appends stranded AFTER the partial frame, unreachable to every
+            # future recovery scan (the storage layer's crc pre-scan catches
+            # most of this; this covers a torn FIRST record and frames whose
+            # prefix validates but whose body the codec rejects)
+            try:
+                self.storage.truncate(torn_address)
+            except OSError:
+                pass  # read-only/odd storage: recovery still discards in memory
+        self._next_position = last_position + 1
+        if not self._records and self._base_meta_position > 0:
+            # empty log after a fast-forward (or compaction that emptied
+            # it) followed by a crash: resume at the persisted base — the
+            # prev-term of base-1 was loaded with it
+            self._base_position = self._base_meta_position
+            self._next_position = max(self._next_position, self._base_meta_position)
+        # (when base.meta disagrees with the recovered records, term_at
+        # consults _base_meta_position directly — no need to discard the
+        # persisted prev-term here)
+        # Single-writer mode: recovered records were durably written, commit
+        # resumes at the log end. Raft mode: stay at -1 until the leader
+        # advances it (see __init__).
+        self._commit_position = last_position if self.recover_commit else -1
+
+    # -- write path --------------------------------------------------------
+    @property
+    def next_position(self) -> int:
+        return self._next_position
+
+    @property
+    def base_position(self) -> int:
+        """First retained position (compaction floor)."""
+        return self._base_position
+
+    def record_at(self, position: int) -> Optional[Record]:
+        """Record by position, None when compacted away or not yet
+        appended — the supported random-access API (raft replication and
+        readers must not reach into the private list). Columnar-appended
+        entries materialize here, once (the backing batch caches the row,
+        so every reader sees one object identity per position)."""
+        with self._view_lock:
+            idx = position - self._base_position
+            if idx < 0 or idx >= len(self._records):
+                return None
+            entry = self._records[idx]
+            if type(entry) is tuple:  # lazy (batch, row) columnar ref
+                entry = entry[0].row(entry[1])
+                self._records[idx] = entry
+            return entry
+
+    def slice_records(
+        self,
+        start: int,
+        limit: Optional[int] = None,
+        committed_only: bool = False,
+    ) -> List[Record]:
+        """Materialized records from ``start`` under ONE lock acquisition
+        (the drain loops used to pay a lock round-trip per record via
+        ``record_at``). Clamps to the live window; ``committed_only``
+        bounds at the commit position (the wave-drain read)."""
+        with self._view_lock:
+            hi = self._next_position - 1
+            if committed_only:
+                hi = min(hi, self._commit_position)
+            lo = max(start, self._base_position)
+            if lo > hi:
+                return []
+            i0 = lo - self._base_position
+            i1 = hi - self._base_position + 1
+            if limit is not None:
+                i1 = min(i1, i0 + limit)
+            out = self._records[i0:i1]
+            for k, entry in enumerate(out):
+                if type(entry) is tuple:
+                    entry = entry[0].row(entry[1])
+                    self._records[i0 + k] = entry
+                    out[k] = entry
+            return out
+
+    def committed_view(
+        self, start: int, limit: Optional[int] = None
+    ) -> RecordsView:
+        """Committed records from ``start`` as a :class:`RecordsView` —
+        one lock acquisition, NO row materialization (lazy columnar
+        entries stay lazy; column reads come from the backing batch).
+        The exporter plane's read API."""
+        with self._view_lock:
+            hi = self._commit_position
+            lo = max(start, self._base_position)
+            if lo > hi:
+                return RecordsView([])
+            i0 = lo - self._base_position
+            i1 = hi - self._base_position + 1
+            if limit is not None:
+                i1 = min(i1, i0 + limit)
+            return RecordsView(self._records[i0:i1])
+
+    def term_at(self, position: int) -> int:
+        """Raft term at ``position``. For the position just below the
+        PERSISTED compaction base the term is retained across compaction
+        (replication prev-entry checks); live records win when still
+        present — this makes the answer correct on both sides of the
+        crash window between writing base.meta and deleting segments."""
+        record = self.record_at(position)
+        if record is not None:
+            return record.raft_term
+        if position == self._base_meta_position - 1:
+            return self._base_prev_term
+        if position == self._base_position - 1:
+            return self._base_prev_term if (
+                self._base_meta_position == self._base_position
+            ) else -1
+        return -1
+
+    def compact(self, position: int) -> int:
+        """Compaction floor: drop records below ``position``, SEGMENT
+        aligned — a storage segment is deleted only when every record in
+        it falls below the floor, and the in-memory tail drops exactly the
+        deleted segments' records. This keeps the live view identical to
+        what a restart recovers from the remaining segments. Only
+        positions covered by a durable snapshot may be compacted (the
+        caller's contract — reference: the broker deletes segments below
+        the snapshot position). Registered floor providers (exporter
+        directors) additionally bound the floor HERE: records some
+        exporter has not acked survive even a caller that forgot them.
+        Returns the new base position."""
+        for provider in list(self._floor_providers):
+            position = min(position, provider())
+        position = min(position, self._next_position)
+        if position <= self._base_position:
+            return self._base_position
+        segs = sorted(self._segment_first_pos)
+        # a segment is fully below the floor when the NEXT segment starts
+        # at or below the floor position
+        new_base = self._base_position
+        first_kept = None
+        for i, seg in enumerate(segs):
+            next_first = (
+                self._segment_first_pos[segs[i + 1]]
+                if i + 1 < len(segs) else self._next_position + 1
+            )
+            if next_first <= position:
+                continue  # fully compactable
+            first_kept = seg
+            new_base = max(
+                self._base_position, self._segment_first_pos[seg]
+            )
+            break
+        if first_kept is None or new_base <= self._base_position:
+            return self._base_position
+        prev = self.record_at(new_base - 1)
+        self._base_prev_term = prev.raft_term if prev is not None else -1
+        with self._view_lock:
+            del self._records[: new_base - self._base_position]
+            self._base_position = new_base
+        self._block_index = [e for e in self._block_index if e[0] >= new_base]
+        # persist the base metadata BEFORE deleting segments: the prev-term
+        # of base-1 must survive a crash anywhere in this sequence (leaders
+        # advertise it in replication prev-entry checks; -1 would make
+        # followers truncate committed records)
+        self._save_base_meta()
+        self.storage.delete_segments_before(first_kept)
+        self._segment_first_pos = {
+            s: p for s, p in self._segment_first_pos.items() if s >= first_kept
+        }
+        return self._base_position
+
+    def fast_forward(self, position: int, term: int = -1) -> None:
+        """Jump an empty-or-behind log to ``position`` (exclusive: next
+        append lands there) after installing a snapshot that covers
+        everything below — the follower side of snapshot catch-up
+        (reference SnapshotReplicationService + follower reset). Refuses
+        to rewind."""
+        if position <= self._next_position:
+            return
+        # the snapshot supersedes everything on disk: reset storage so a
+        # restart cannot resurrect the pre-gap records
+        self.storage.reset()
+        with self._view_lock:
+            self._records.clear()
+            self._base_position = position
+        self._block_index = []
+        self._segment_first_pos = {}
+        self._base_prev_term = term
+        self._next_position = position
+        self._commit_position = max(self._commit_position, position - 1)
+        self._save_base_meta()
+
+    @property
+    def commit_position(self) -> int:
+        return self._commit_position
+
+    def append(self, records, commit: bool = True) -> int:
+        """Atomically append a batch (reference LogStreamBatchWriter).
+        Assigns positions + timestamps; returns the last assigned position.
+
+        ``records`` is a list of ``Record`` objects or a
+        :class:`ColumnarBatch` — either way the whole wave encodes in ONE
+        codec pass into a single buffer, appends as one storage block, and
+        the block index derives from the pass's frame offsets (no
+        re-walk). A columnar batch's rows stay LAZY: the in-memory tail
+        holds ``(batch, row)`` refs that materialize on first read."""
+        ts = self.clock()
+        first_position = self._next_position
+        columnar = isinstance(records, ColumnarBatch)
+        if columnar:
+            n = len(records)
+            records.assign_positions(first_position, ts)
+            buf, offsets = codec.encode_columnar(records)
+            self._records.extend(records.log_entries())
+            # response/push-relevant rows that are already materialized
+            # get their just-encoded frame cached, like the list path
+            records.cache_frames(buf, offsets)
+        else:
+            n = len(records)
+            for i, record in enumerate(records):
+                record.position = first_position + i
+                if record.timestamp < 0:
+                    record.timestamp = ts
+            buf, offsets = codec.encode_records(records)
+            self._records.extend(records)
+        self._next_position = first_position + n
+        address = self.storage.append(buf)
+        if n:
+            self._segment_first_pos.setdefault(
+                self.storage.segment_of(address), first_position
+            )
+            # sparse block index: only when the appended position range
+            # actually crosses a density boundary (group-committed batches
+            # are the append hot path)
+            last = first_position + n - 1
+            if (last // BLOCK_INDEX_DENSITY) * BLOCK_INDEX_DENSITY >= first_position:
+                for i, offset in enumerate(offsets):
+                    if (first_position + i) % BLOCK_INDEX_DENSITY == 0:
+                        self._block_index.append(
+                            (first_position + i, address + offset)
+                        )
+            if not columnar:
+                # cache the just-encoded frame on response/push-relevant
+                # records: the cluster broker re-encodes exactly these for
+                # client response / push marshalling moments later
+                total = len(buf)
+                for i, record in enumerate(records):
+                    md = record.metadata
+                    if md.request_id >= 0 or md.request_stream_id >= 0:
+                        end = offsets[i + 1] if i + 1 < n else total
+                        record._frame = (
+                            record.position, bytes(buf[offsets[i]:end]),
+                        )
+        if commit:
+            self.set_commit_position(self._next_position - 1)
+        return self._next_position - 1
+
+    def append_replicated(self, record: Record) -> int:
+        """Follower append: the record keeps its leader-assigned position,
+        timestamp and raft term (reference: follower writes the
+        AppendRequest's serialized entries verbatim). The record's position
+        must equal ``next_position``."""
+        if record.position != self._next_position:
+            raise ValueError(
+                f"replicated append at {record.position}, expected {self._next_position}"
+            )
+        frame = codec.encode_record(record)
+        address = self.storage.append(frame)
+        self._segment_first_pos.setdefault(
+            self.storage.segment_of(address), record.position
+        )
+        self._records.append(record)
+        if record.position % BLOCK_INDEX_DENSITY == 0:
+            self._block_index.append((record.position, address))
+        self._next_position += 1
+        return record.position
+
+    def set_commit_position(self, position: int) -> None:
+        if position > self._commit_position:
+            self._commit_position = position
+            for listener in self._commit_listeners:
+                listener(position)
+
+    def on_commit(self, listener: Callable[[int], None]) -> None:
+        self._commit_listeners.append(listener)
+
+    def remove_commit_listener(self, listener: Callable[[int], None]) -> None:
+        """Unhook a commit listener (exporter directors close on leader
+        step-down; a stale listener would pump a dead director forever)."""
+        if listener in self._commit_listeners:
+            self._commit_listeners.remove(listener)
+
+    def add_floor_provider(self, provider: Callable[[], int]) -> None:
+        """Register a compaction bound: ``provider()`` returns the first
+        position its owner still needs (see ``compact``)."""
+        if provider not in self._floor_providers:
+            self._floor_providers.append(provider)
+
+    def remove_floor_provider(self, provider: Callable[[], int]) -> None:
+        if provider in self._floor_providers:
+            self._floor_providers.remove(provider)
+
+    def flush(self) -> None:
+        self.storage.flush()
+
+    def reader(self, position: int = 0) -> "LogStreamReader":
+        return LogStreamReader(self, position)
+
+    # -- failure injection (reference StreamProcessorRule.truncateLog) ------
+    def truncate(self, position: int) -> None:
+        """Discard records with position >= ``position`` (failure injection;
+        raft follower conflict resolution). In raft mode committed records
+        are final — truncating them is a protocol violation and raises."""
+        if not self.recover_commit and position <= self._commit_position:
+            raise RuntimeError(
+                f"refusing to truncate at {position}: commit position is "
+                f"{self._commit_position} (commit is final)"
+            )
+        address = None
+        for record, addr in _iter_disk_frames(self, 0):
+            if record.position >= position:
+                address = addr
+                break
+        if address is not None:
+            self.storage.truncate(address)
+            self._next_position = position
+            self._commit_position = min(self._commit_position, position - 1)
+            self._block_index = [e for e in self._block_index if e[0] < position]
+            # purge segment bookkeeping for truncated-away content: a stale
+            # too-low first-position would later let compact() delete a
+            # segment still holding live records
+            self._segment_first_pos = {
+                s: p for s, p in self._segment_first_pos.items() if p < position
+            }
+            with self._view_lock:
+                del self._records[position - self._base_position :]
+
+
+def _iter_disk_frames(log: LogStream, target: int) -> Iterator[tuple]:
+    """Scan frames from storage, yielding (record, address) for positions >=
+    target. Used by truncate and as the cold-read fallback; the hot read path
+    serves from the in-memory tail."""
+    start_entry = None
+    for pos, addr in log._block_index:
+        if pos <= target:
+            start_entry = (pos, addr)
+        else:
+            break
+    for base_address, data in log.storage.iter_blocks():
+        segment_id = log.storage.segment_of(base_address)
+        if start_entry is not None and log.storage.segment_of(start_entry[1]) > segment_id:
+            continue
+        offset = 0
+        if start_entry is not None and log.storage.segment_of(start_entry[1]) == segment_id:
+            offset = log.storage.offset_of(start_entry[1]) - log.storage.offset_of(base_address)
+        while offset < len(data):
+            frame_len = codec.peek_frame_length(data, offset)
+            if frame_len is None or offset + frame_len > len(data):
+                break
+            record, next_offset = codec.decode_record(data, offset)
+            if record.position >= target:
+                yield record, base_address + offset
+            offset = next_offset
+
+
+class LogStreamReader:
+    """Sequential reader with seek-by-position, served from the in-memory
+    tail (O(1) per record).
+
+    Reference: ``logstreams/.../log/BufferedLogStreamReader.java``.
+    """
+
+    def __init__(self, log: LogStream, position: int = 0):
+        self.log = log
+        self._position = max(position, 0)
+
+    def seek(self, position: int) -> None:
+        self._position = max(position, 0)
+
+    def __iter__(self) -> Iterator[Record]:
+        if self._position < self.log.base_position:
+            self._position = self.log.base_position
+        while True:
+            record = self.log.record_at(self._position)
+            if record is None:
+                return
+            self._position = record.position + 1
+            yield record
+
+    def read_committed(self, limit: Optional[int] = None) -> List[Record]:
+        """All records from the current position up to the commit position
+        (records past the commit position are not consumed). One lock
+        acquisition for the whole span — the wave drain's read path."""
+        out = self.log.slice_records(
+            self._position, limit=limit, committed_only=True
+        )
+        if out:
+            self._position = out[-1].position + 1
+        elif self._position < self.log.base_position:
+            self._position = self.log.base_position
+        return out
+
+
+class LogStreamWriter:
+    """Single-record convenience writer (reference LogStreamWriterImpl)."""
+
+    def __init__(self, log: LogStream):
+        self.log = log
+
+    def write(self, record: Record, commit: bool = True) -> int:
+        return self.log.append([record], commit=commit)

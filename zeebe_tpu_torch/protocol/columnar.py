@@ -1,0 +1,511 @@
+"""Columnar record batches: the wave as a first-class protocol value.
+
+The serving plane's host ceiling is per-record Python (PR-4's
+``serving_host_seconds_total``/``serving_device_seconds_total`` split):
+every hop after the device readback used to materialize a ``Record``
+object per row and hand it down the chain one at a time. These types make
+the WAVE the currency instead — scalar frame fields live in plain Python
+list columns, and ``Record`` objects materialize lazily, only at API
+edges (log recovery, incident re-reads, sink serialization, client
+response frames).
+
+Two shapes, one duck API (``__len__``/``__iter__``/``__getitem__`` plus
+column accessors ``positions()``, ``value_types()``, ``record_types()``,
+``intents()``, ``timestamps()``, ``keys()``, ``request_ids()``):
+
+- :class:`ColumnarBatch` — columns-first. Produced by the device engine's
+  readback decode (``tpu/engine.py``) where the data is BORN columnar;
+  rows build on demand through a per-batch materializer and are cached,
+  so shared consumers (log tail, exporter view, response path) see one
+  object identity per row.
+- :class:`RecordsView` — entries-first. A zero-copy window over a span of
+  log-tail entries (``Record`` objects, or ``(batch, idx)`` lazy refs for
+  columnar appends); column accessors read attributes/columns without
+  materializing lazy rows. This is what the exporter director dispatches
+  and what the drain loops slice.
+
+Every LAZY row materialization counts into the process-global
+``serving_rows_materialized_total`` counter — the proof metric that the
+pure host wave path touches zero of them (rows reaching the log there are
+engine-built ``Record`` objects already, never lazy views).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence
+
+from zeebe_tpu_torch.protocol.records import Record
+
+# canonical column names = the frame scalar fields (protocol/codec.py
+# layout order, minus the derived frame_length/crc)
+FRAME_COLUMNS = (
+    "position",
+    "source_record_position",
+    "key",
+    "timestamp",
+    "producer_id",
+    "raft_term",
+    "request_id",
+    "request_stream_id",
+    "incident_key",
+    "record_type",
+    "value_type",
+    "intent",
+    "rejection_type",
+    "rejection_reason",
+)
+
+# cached global-metric handle: one registry lock round-trip per process,
+# not per materialized row (import deferred — protocol must not pull the
+# runtime package in at module load)
+_materialized_counter = None
+
+
+def _count_materialized(n: int = 1) -> None:
+    global _materialized_counter
+    if _materialized_counter is None:
+        from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+
+        _materialized_counter = GLOBAL_REGISTRY.counter(
+            "serving_rows_materialized_total",
+            "Record objects lazily materialized from columnar batch views "
+            "(0 on the pure host wave path — rows there are engine-built)",
+        )
+    _materialized_counter.inc(n)
+
+
+def rows_materialized_total() -> float:
+    """Current value of the lazy-materialization counter (tests/bench)."""
+    from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+
+    return GLOBAL_REGISTRY.counter("serving_rows_materialized_total").value
+
+
+class ColumnarBatch:
+    """A wave of records as columns, rows materialized lazily on demand.
+
+    ``cols`` maps canonical :data:`FRAME_COLUMNS` names to per-row lists.
+    Reading a column the batch was not built with derives it from REAL
+    rows — the materializer is the authority for unprovided fields, so
+    every row materializes (counted); provide the columns consumers will
+    read to stay lazy. ``materializer(i)`` builds row ``i``'s ``Record``
+    (frame fields the batch was explicitly assigned — positions/timestamps
+    from a log append — are stamped onto the materialized row so lazy rows
+    agree with their encoded frames). ``values`` optionally carries
+    per-row ``RecordValue`` objects so ``value_bytes`` can encode without
+    building full rows."""
+
+    __slots__ = ("n", "_cols", "_rows", "_materializer", "_values",
+                 "_value_bytes", "_stamped", "_value_builder",
+                 "device_source")
+
+    def __init__(
+        self,
+        n: int,
+        cols: Optional[Dict[str, list]] = None,
+        materializer: Optional[Callable[[int], Record]] = None,
+        values: Optional[list] = None,
+        value_builder: Optional[Callable[[int], object]] = None,
+    ):
+        self.n = n
+        self._cols: Dict[str, list] = dict(cols or {})
+        self._rows: List[Optional[Record]] = [None] * n
+        self._materializer = materializer
+        self._values = values
+        # builds just row i's RecordValue (no Record/metadata wrapper) —
+        # the append-edge encode path for lazy device emissions
+        self._value_builder = value_builder
+        self._value_bytes: Optional[List[Optional[bytes]]] = None
+        # columns assigned after construction (log append stamps positions
+        # and timestamps) that must overrule the materializer's output
+        self._stamped: set = set()
+        # set by the device readback decode: (host column arrays, scalar
+        # column lists, meta epoch) — lets the engine re-STAGE a lazy row
+        # straight from these columns (see TpuPartitionEngine)
+        self.device_source = None
+
+    # -- construction -------------------------------------------------------
+    @classmethod
+    def from_records(cls, records: Sequence[Record]) -> "ColumnarBatch":
+        """Wrap existing ``Record`` objects: rows are pre-cached (NO lazy
+        materializations ever happen — this is the host wave path),
+        columns build on first access."""
+        batch = cls(len(records))
+        batch._rows = list(records)
+        return batch
+
+    # -- columns ------------------------------------------------------------
+    def col(self, name: str) -> list:
+        column = self._cols.get(name)
+        if column is None:
+            column = self._build_col(name)
+            self._cols[name] = column
+        return column
+
+    def _build_col(self, name: str) -> list:
+        rows = self._rows
+        if any(r is None for r in rows):
+            # a missing column on a lazy batch: the MATERIALIZER is the
+            # authority for that field, so build the column from real
+            # rows (counted) — fabricating defaults here would let
+            # encode_columnar durably write frame values that disagree
+            # with what the batch's own rows later report
+            if self._materializer is None:
+                raise KeyError(
+                    f"columnar batch has no {name!r} column and no "
+                    "materializer to derive it from"
+                )
+            rows = self.rows()
+        if name in ("position", "source_record_position", "key", "timestamp",
+                    "producer_id", "raft_term"):
+            return [getattr(r, name) for r in rows]
+        if name in ("record_type", "value_type", "intent", "rejection_type"):
+            return [int(getattr(r.metadata, name)) for r in rows]
+        return [getattr(r.metadata, name) for r in rows]
+
+    def positions(self) -> list:
+        return self.col("position")
+
+    def value_types(self) -> list:
+        return self.col("value_type")
+
+    def record_types(self) -> list:
+        return self.col("record_type")
+
+    def intents(self) -> list:
+        return self.col("intent")
+
+    def timestamps(self) -> list:
+        return self.col("timestamp")
+
+    def keys(self) -> list:
+        return self.col("key")
+
+    def request_ids(self) -> list:
+        return self.col("request_id")
+
+    def assign_positions(self, first_position: int, timestamp: int) -> None:
+        """Log-append assignment: dense positions from ``first_position``
+        and the append timestamp (rows whose timestamp column is unset).
+        Already-materialized rows are stamped immediately; lazy rows pick
+        the values up at materialization."""
+        self._cols["position"] = list(range(first_position, first_position + self.n))
+        ts_col = self._cols.get("timestamp")
+        if ts_col is None:
+            ts_col = [timestamp] * self.n
+        else:
+            ts_col = [timestamp if t < 0 else t for t in ts_col]
+        self._cols["timestamp"] = ts_col
+        self._stamped.update(("position", "timestamp"))
+        for i, row in enumerate(self._rows):
+            if row is not None:
+                row.position = first_position + i
+                if row.timestamp < 0:
+                    row.timestamp = timestamp
+
+    def log_entries(self) -> list:
+        """Tail entries for ``LogStream.append``: the cached ``Record``
+        where one exists, else a lazy ``(batch, row)`` ref (materialized
+        by the log on first positional read)."""
+        rows = self._rows
+        return [
+            rows[i] if rows[i] is not None else (self, i)
+            for i in range(self.n)
+        ]
+
+    # -- rows ---------------------------------------------------------------
+    def row(self, i: int) -> Record:
+        record = self._rows[i]
+        if record is None:
+            if self._materializer is None:
+                raise ValueError("columnar batch has no row materializer")
+            record = self._materializer(i)
+            for name in self._stamped:
+                if name == "position":
+                    record.position = self._cols["position"][i]
+                elif name == "timestamp":
+                    if record.timestamp < 0:
+                        record.timestamp = self._cols["timestamp"][i]
+                elif name == "raft_term":
+                    record.raft_term = self._cols["raft_term"][i]
+            self._rows[i] = record
+            _count_materialized()
+        return record
+
+    def rows(self) -> List[Record]:
+        return [self.row(i) for i in range(self.n)]
+
+    def value_bytes(self, i: int) -> bytes:
+        """Row ``i``'s encoded value document (msgpack) without requiring
+        a materialized ``Record`` when the value (or its bytes) is known
+        to the batch."""
+        from zeebe_tpu_torch.protocol import msgpack
+
+        if self._value_bytes is None:
+            self._value_bytes = [None] * self.n
+        cached = self._value_bytes[i]
+        if cached is not None:
+            return cached
+        row = self._rows[i]
+        if row is not None:
+            value = row.value
+        else:
+            # values list / value builder / full-row fallback, in order
+            value = self.value_of(i)
+        encoded = value.encode() if value is not None else msgpack.EMPTY_DOCUMENT
+        self._value_bytes[i] = encoded
+        return encoded
+
+    def value_of(self, i: int):
+        """Row ``i``'s ``RecordValue`` WITHOUT building the full row when
+        the batch carries values (or a value builder) — the device
+        emission path appends values-only rows lazily."""
+        row = self._rows[i]
+        if row is not None:
+            return row.value
+        if self._values is not None and self._values[i] is not None:
+            value = self._values[i]
+            if callable(value):
+                # lazily-built value (device emission): build once, cache
+                value = value()
+                self._values[i] = value
+            return value
+        if self._value_builder is not None:
+            if self._values is None:
+                self._values = [None] * self.n
+            value = self._value_builder(i)
+            self._values[i] = value
+            return value
+        return self.row(i).value
+
+    def device_ref(self, i: int):
+        """``(source batch, row)`` when row ``i`` can be re-staged for the
+        device straight from readback columns, else None."""
+        if self.device_source is not None:
+            return (self, i)
+        return None
+
+    def cache_frames(self, buf, offsets: List[int]) -> None:
+        """Post-append frame caching for already-materialized rows that
+        are response/push-relevant (the broker re-encodes exactly these
+        for client marshalling moments later) — mirrors the list-append
+        path's caching; lazy rows skip (no object to hang the frame on)."""
+        total = len(buf)
+        n = self.n
+        for i, row in enumerate(self._rows):
+            if row is None:
+                continue
+            md = row.metadata
+            if md.request_id >= 0 or md.request_stream_id >= 0:
+                end = offsets[i + 1] if i + 1 < n else total
+                row._frame = (row.position, bytes(buf[offsets[i]:end]))
+
+    def set_raft_term(self, term: int) -> None:
+        """Stamp the raft term on every row (the group-commit drain does
+        this per record on list appends); lazy rows pick it up at
+        materialization via the stamped column."""
+        self._cols["raft_term"] = [term] * self.n
+        self._stamped.add("raft_term")
+        for row in self._rows:
+            if row is not None:
+                row.raft_term = term
+
+    # -- sequence protocol --------------------------------------------------
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        for i in range(self.n):
+            yield self.row(i)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self.row(k) for k in range(*i.indices(self.n))]
+        if i < 0:
+            i += self.n
+        return self.row(i)
+
+
+class RecordsView:
+    """A read-only window over log-tail entries with column access.
+
+    Entries are ``Record`` objects or ``(ColumnarBatch, idx)`` lazy refs;
+    column accessors never materialize a lazy ref (they read the backing
+    batch's columns), iteration/indexing does (counted, cached in the
+    backing batch so the log tail and this view share row identity)."""
+
+    __slots__ = ("_entries", "_cols")
+
+    def __init__(self, entries: list):
+        self._entries = entries
+        self._cols: Dict[str, list] = {}
+
+    # -- columns ------------------------------------------------------------
+    def col(self, name: str) -> list:
+        column = self._cols.get(name)
+        if column is not None:
+            return column
+        meta = name in (
+            "record_type", "value_type", "intent", "rejection_type",
+            "rejection_reason", "request_id", "request_stream_id",
+            "incident_key",
+        )
+        int_cast = name in ("record_type", "value_type", "intent", "rejection_type")
+        out = []
+        for e in self._entries:
+            if type(e) is tuple:
+                out.append(e[0].col(name)[e[1]])
+            elif meta:
+                v = getattr(e.metadata, name)
+                out.append(int(v) if int_cast else v)
+            else:
+                out.append(getattr(e, name))
+        self._cols[name] = out
+        return out
+
+    def positions(self) -> list:
+        return self.col("position")
+
+    def value_types(self) -> list:
+        return self.col("value_type")
+
+    def record_types(self) -> list:
+        return self.col("record_type")
+
+    def intents(self) -> list:
+        return self.col("intent")
+
+    def timestamps(self) -> list:
+        return self.col("timestamp")
+
+    def keys(self) -> list:
+        return self.col("key")
+
+    def request_ids(self) -> list:
+        return self.col("request_id")
+
+    def value_bytes(self, i: int) -> bytes:
+        from zeebe_tpu_torch.protocol import msgpack
+
+        e = self._entries[i]
+        if type(e) is tuple:
+            return e[0].value_bytes(e[1])
+        return e.value.encode() if e.value is not None else msgpack.EMPTY_DOCUMENT
+
+    def select(self, indices: List[int]) -> "RecordsView":
+        """Sub-view of the given entry indices (the director's
+        hidden-record filter — no rows materialize)."""
+        entries = self._entries
+        return RecordsView([entries[i] for i in indices])
+
+    def entries(self) -> list:
+        """The raw tail entries (``Record`` objects or lazy
+        ``(batch, idx)`` refs) — consumers that can act on refs without
+        materializing (the wave drains' apply loops) read these."""
+        return self._entries
+
+    # -- sequence protocol --------------------------------------------------
+    def _materialize(self, e) -> Record:
+        if type(e) is tuple:
+            return e[0].row(e[1])
+        return e
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __iter__(self):
+        for e in self._entries:
+            yield self._materialize(e)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self._materialize(e) for e in self._entries[i]]
+        return self._materialize(self._entries[i])
+
+    def rows(self) -> List[Record]:
+        return [self._materialize(e) for e in self._entries]
+
+
+class MixedBatch(ColumnarBatch):
+    """A log-appendable batch over MIXED entries — real ``Record`` objects
+    interleaved with lazy ``(batch, idx)`` refs, in append order.
+
+    This is how device-emission follow-ups reach ``LogStream.append``
+    without materializing: the wave drain's merged ``written`` list holds
+    eager rows for records that needed objects (responses, pushes, sends'
+    siblings) and lazy refs into the emission batch for plain appends.
+    Columns read through to the backing batch; refs materialize only on a
+    positional row read (counted by the BACKING batch — not double-counted
+    here)."""
+
+    __slots__ = ("_entries",)
+
+    def __init__(self, entries: list):
+        super().__init__(len(entries))
+        self._entries = list(entries)
+        rows = self._rows
+        for i, e in enumerate(self._entries):
+            if type(e) is not tuple:
+                rows[i] = e
+
+    def _build_col(self, name: str) -> list:
+        meta = name in (
+            "record_type", "value_type", "intent", "rejection_type",
+            "rejection_reason", "request_id", "request_stream_id",
+            "incident_key",
+        )
+        int_cast = name in (
+            "record_type", "value_type", "intent", "rejection_type",
+        )
+        out = []
+        for i, e in enumerate(self._entries):
+            row = self._rows[i]
+            if row is not None:
+                if meta:
+                    v = getattr(row.metadata, name)
+                    out.append(int(v) if int_cast else v)
+                else:
+                    out.append(getattr(row, name))
+            else:
+                out.append(e[0].col(name)[e[1]])
+        return out
+
+    def row(self, i: int) -> Record:
+        record = self._rows[i]
+        if record is None:
+            e = self._entries[i]
+            record = e[0].row(e[1])  # the backing batch counts + caches
+            for name in self._stamped:
+                if name == "position":
+                    record.position = self._cols["position"][i]
+                elif name == "timestamp":
+                    if record.timestamp < 0:
+                        record.timestamp = self._cols["timestamp"][i]
+                elif name == "raft_term":
+                    record.raft_term = self._cols["raft_term"][i]
+            self._rows[i] = record
+        return record
+
+    def value_bytes(self, i: int) -> bytes:
+        row = self._rows[i]
+        if row is None:
+            e = self._entries[i]
+            return e[0].value_bytes(e[1])
+        return super().value_bytes(i)
+
+    def device_ref(self, i: int):
+        e = self._entries[i]
+        if type(e) is tuple:
+            return e[0].device_ref(e[1])
+        return None
+
+
+def as_log_batch(written):
+    """A drain's merged ``written`` channel → what ``LogStream.append``
+    (and ``raft.append``) consume: the list itself when every entry is a
+    real ``Record`` (the host path — zero overhead), else a
+    :class:`MixedBatch` preserving order and laziness."""
+    for e in written:
+        if type(e) is tuple:
+            return MixedBatch(written)
+    return written

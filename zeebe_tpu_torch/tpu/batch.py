@@ -54,6 +54,27 @@ ERR_IO_MAPPING_OUT = 104
 ERR_JOB_NO_RETRIES = 105
 ERR_CORRELATION_KEY = 106
 
+REJECTION_REASONS = {
+    REJ_JOB_NOT_ACTIVATABLE: "Job is not in one of these states: CREATED, FAILED, TIMED_OUT",
+    REJ_JOB_NOT_COMPLETABLE: "Job is not in state: ACTIVATED, TIMED_OUT",
+    REJ_JOB_NOT_ACTIVATED: "Job is not in state ACTIVATED",
+    REJ_JOB_NOT_FAILED: "Job is not in state FAILED",
+    REJ_RETRIES_NOT_POSITIVE: "Retries must be greater than 0",
+    REJ_JOB_NOT_EXIST: "Job does not exist",
+    REJ_TIMER_NOT_EXIST: "timer does not exist",
+    REJ_SUB_NOT_ACTIVE: "activity is not active anymore",
+    # REJ_MSG_DUP's reason embeds the message id — formatted in
+    # engine._materialize from the interned id
+    REJ_SUB_OCCUPIED: (
+        "a subscription for this (message name, correlation key) is already "
+        "open on this TPU-backed partition (one live subscription per key)"
+    ),
+    REJ_MSG_STORE_OCCUPIED: (
+        "a message with this (name, correlation key) is already stored on "
+        "this TPU-backed partition (one buffered message per key)"
+    ),
+}
+
 FIELDS = (
     "valid", "rtype", "vtype", "intent", "key", "elem", "wf",
     "instance_key", "scope_key", "v_vt", "v_num", "v_str",

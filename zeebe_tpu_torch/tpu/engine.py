@@ -1,0 +1,1985 @@
+"""Host wrapper: a batched partition stream processor over the step kernel.
+
+PyTorch counterpart of ``zeebe_tpu.tpu.engine``. ``CudaPartitionEngine`` is
+the device-backed drop-in for the host oracle ``PartitionEngine``
+(``zeebe_tpu_torch/engine/interpreter.py``): the broker feeds it committed
+records (in log order) and gets back written follow-ups, responses,
+cross-partition sends and worker pushes — but processing runs as SIMD
+batches through ``kernel.step_kernel`` on the card.
+
+Routing: WORKFLOW_INSTANCE / JOB / TIMER records run on the device;
+DEPLOYMENT, MESSAGE, MESSAGE_SUBSCRIPTION and INCIDENT records are
+delegated to an embedded host oracle engine (rare control-plane work).
+Emissions are merged back in source order, which preserves the oracle's
+append order.
+
+Workflows the device cannot execute fall back per workflow: their instance
+records route to the embedded host oracle, so the engine serves every
+deployed workflow. Two things put a workflow there: what
+``graph.check_device_compatible`` refuses (as in the JAX engine), and a
+feature gate the port's step kernel does not run yet (every gate but
+``has_parallel_joins``) — ``host_only_reasons`` names each. The message
+store stays on the host in this engine.
+
+Unlike JAX arrays, the state tables are updated IN PLACE by the step
+kernel; every host read below that must outlive a later step copies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from zeebe_tpu_torch.device import DeviceLike, resolve
+from zeebe_tpu_torch.engine.interpreter import (
+    JobSubscription,
+    PartitionEngine,
+    ProcessingResult,
+    WorkflowRepository,
+)
+from zeebe_tpu_torch.engine.mappings import MappingError, extract, merge
+from zeebe_tpu_torch.models.el.interpreter import (
+    ConditionEvalError,
+    evaluate_condition,
+)
+from zeebe_tpu_torch.protocol.enums import (
+    ErrorType,
+    RecordType,
+    RejectionType,
+    ValueType,
+)
+from zeebe_tpu_torch.protocol.intents import (
+    JobIntent as JI,
+    WorkflowInstanceIntent as WI,
+)
+from zeebe_tpu_torch.protocol.metadata import RecordMetadata
+from zeebe_tpu_torch.protocol.records import (
+    IncidentRecord,
+    JobHeaders,
+    JobRecord,
+    Record,
+    TimerRecord,
+    WorkflowInstanceRecord,
+)
+from zeebe_tpu_torch.tpu import batch as rb
+from zeebe_tpu_torch.tpu import graph as graph_mod
+from zeebe_tpu_torch.tpu import kernel, ops, state as state_mod
+from zeebe_tpu_torch.tpu.batch import PayloadError, RecordBatch
+from zeebe_tpu_torch.tpu.intern import InternTable
+
+_DEVICE_VALUE_TYPES = {
+    int(ValueType.WORKFLOW_INSTANCE),
+    int(ValueType.JOB),
+    int(ValueType.TIMER),
+}
+
+_MESSAGE_VALUE_TYPES = {
+    int(ValueType.MESSAGE),
+    int(ValueType.MESSAGE_SUBSCRIPTION),
+    int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION),
+}
+
+# the feature gates the port's step kernel runs; a workflow that turns on
+# any other gate is served by the embedded host oracle
+PORTED_GATES = ("has_parallel_joins",)
+
+PROBE_DEADLINES = 1  # bit0: some job/timer/message deadline is due
+PROBE_JOB_BACKLOG = 2  # bit1: assignable jobs exist AND credits are free
+
+
+def _due_probe_kernel(state: state_mod.EngineState, now: int) -> torch.Tensor:
+    """0-dim int32 bitmask (PROBE_*): is ANY device-side deadline due at
+    ``now``, and is there job backlog a free credit could assign (jobs
+    type-matched against credited subscriptions)? One plain reduction over
+    the relevant columns; the predicates mirror the host sweeps below."""
+    job_due = torch.any(
+        (state.job_state == int(JI.ACTIVATED))
+        & (state.job_deadline >= 0)
+        & (state.job_deadline <= now)
+    )
+    timer_due = torch.any((state.timer_key >= 0) & (state.timer_due <= now))
+    msg_due = torch.any((state.msg_key >= 0) & (state.msg_deadline <= now))
+    assignable = (
+        (state.job_state == int(JI.CREATED))
+        | (state.job_state == int(JI.TIMED_OUT))
+        | (state.job_state == int(JI.FAILED))
+    ) & (state.job_i32[:, state_mod.JB_RETRIES] > 0)
+    credited = state.sub_valid & (state.sub_credits > 0)
+    backlog = torch.any(
+        assignable[:, None]
+        & credited[None, :]
+        & (state.job_i32[:, state_mod.JB_TYPE, None] == state.sub_type[None, :])
+    )
+    return (
+        (job_due | timer_due | msg_due).to(torch.int32) * PROBE_DEADLINES
+        + backlog.to(torch.int32) * PROBE_JOB_BACKLOG
+    )
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A host view of a tensor for an immediate read (shares memory with a
+    CPU tensor: never keep it across a step)."""
+    return t.detach().cpu().numpy()
+
+
+def _np_copy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor that later in-place steps leave alone."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _host_unpack_payload(pay: np.ndarray):
+    """Host-side view of one packed payload row ([3V] i32 — see
+    state.pack_payload): returns (vt, num, sid) for columns_to_payload."""
+    v = pay.shape[-1] // 3
+    vt = pay[..., :v]
+    sid = pay[..., v : 2 * v]
+    num = np.ascontiguousarray(pay[..., 2 * v : 3 * v]).view(np.float32)
+    return vt, num, sid
+
+
+def _pow2(n: int) -> int:
+    p = 64
+    while p < n:
+        p *= 2
+    return p
+
+
+def _as_record(entry) -> Record:
+    """Materialize a tail entry (real ``Record`` or lazy ``(batch, idx)``
+    ref)."""
+    if type(entry) is tuple:
+        return entry[0].row(entry[1])
+    return entry
+
+
+_FRAME_DEFAULTS = None
+
+
+def _frame_defaults():
+    """Frame-field defaults of a fresh Record/metadata (producer_id,
+    incident_key, rejection_type): the lazy emission batch pre-fills its
+    frame columns with these."""
+    global _FRAME_DEFAULTS
+    if _FRAME_DEFAULTS is None:
+        md = RecordMetadata()
+        probe = Record(metadata=md)
+        _FRAME_DEFAULTS = (
+            probe.producer_id, md.incident_key, int(md.rejection_type),
+        )
+    return _FRAME_DEFAULTS
+
+
+_staged_columnar_counter = None
+
+
+def _count_staged_columnar(n: int = 1) -> None:
+    global _staged_columnar_counter
+    if _staged_columnar_counter is None:
+        from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+
+        _staged_columnar_counter = GLOBAL_REGISTRY.counter(
+            "serving_rows_staged_columnar_total",
+            "Device rows re-staged straight from emission-batch columns "
+            "(no Record object ever materialized for them)",
+        )
+    _staged_columnar_counter.inc(n)
+
+
+@dataclasses.dataclass
+class _PendingSegment:
+    """One dispatched (not yet collected) device segment of a wave."""
+
+    results: List[ProcessingResult]
+    positions: List[int]
+    live: List[int]           # indices (into the segment's records) staged
+    suppress: set             # segment-record indices with host-emitted
+                              # job-incident follow-ups (kernel copy drops)
+    rows: List[int] = dataclasses.field(default_factory=list)
+    out: Optional[RecordBatch] = None   # device emission batch (unfetched)
+    stats: Optional[dict] = None        # device stats (unfetched)
+
+
+@dataclasses.dataclass
+class PendingWave:
+    """A wave in flight: dispatched to the device, results not yet
+    materialized. ``records`` may be a plain list or a lazy columnar view;
+    ``positions`` carries every record's log position."""
+
+    records: List[Record]
+    per_record: List[Optional[ProcessingResult]]
+    segments: List[_PendingSegment] = dataclasses.field(default_factory=list)
+    positions: List[int] = dataclasses.field(default_factory=list)
+    partition_id: int = -1
+    host_seconds: float = 0.0    # staging + host-routed records + readback
+    device_seconds: float = 0.0  # blocked on device outputs at collect
+    collected: Optional[List[ProcessingResult]] = None  # one-shot cache
+
+
+class CudaPartitionEngine:
+    """Batched device stream processor for one partition."""
+
+    def __init__(
+        self,
+        partition_id: int = 0,
+        num_partitions: int = 1,
+        repository: Optional[WorkflowRepository] = None,
+        clock: Optional[Callable[[], int]] = None,
+        capacity: int = 1 << 12,
+        num_vars: int = 16,
+        sub_capacity: int = 16,
+        device: DeviceLike = None,
+    ):
+        self.partition_id = partition_id
+        self.num_partitions = num_partitions
+        # the CUDA card unless the caller asks for the CPU
+        self.device = resolve(device)
+        self.repository = repository if repository is not None else WorkflowRepository()
+        self.clock = clock or (lambda: 0)
+        if self.device.type == "cuda":
+            # the boot self-check, once per process: a kernel that computes
+            # wrong on this card refuses to serve (the JAX engine's place of
+            # autotune, after which its boot runs pallas_ops.selfcheck)
+            ops.selfcheck()
+        self.capacity = capacity
+        self.num_vars = num_vars
+        self.interns = InternTable()
+
+        # host oracle engine for control-plane records and host-only
+        # workflows; shares the repository and the workflow keyspace via
+        # explicit counter sync after each batch
+        self._host = PartitionEngine(
+            partition_id=partition_id,
+            num_partitions=num_partitions,
+            repository=self.repository,
+            clock=self.clock,
+        )
+
+        self.graph: Optional[graph_mod.DeviceGraph] = None
+        self.meta: Optional[graph_mod.GraphMeta] = None
+        self.state = state_mod.make_state(
+            capacity=capacity, num_vars=num_vars, sub_capacity=sub_capacity,
+            device=self.device,
+        )
+        # key watermark of the last rebuild_lookup_state run (see
+        # _dispatch_device)
+        self._keys_at_rebuild = 0
+        self._compiled_count = 0
+        self._host_only_keys: set = set()
+        # workflow key → why its instances run on the host oracle
+        self.host_only_reasons: Dict[int, str] = {}
+        self._gates_by_key: Dict[int, Optional[str]] = {}
+        self.device_records_processed = 0
+        self.host_records_processed = 0
+        self._device_keys_dirty = False
+        # the message store stays host-side in this engine
+        self._messages_on_device = False
+        self.records_by_position: Dict[int, Record] = self._host.records_by_position
+        self.last_processed_position = -1
+        # delta-snapshot dirty tracking over the device table families;
+        # None = cold (everything dirty)
+        self._dirty_device: Optional[set] = None
+        self.last_snapshot_readback: List[str] = []
+        # bumped by _recompile: workflow SLOTS in older emission batches
+        # are stale after a redeploy
+        self._meta_epoch = 0
+
+    # -- routing ----------------------------------------------------------
+    def partition_for_correlation_key(self, correlation_key: str) -> int:
+        return self._host.partition_for_correlation_key(correlation_key)
+
+    @property
+    def topics(self):
+        return self._host.topics
+
+    @property
+    def topic_sub_acks(self):
+        return self._host.topic_sub_acks
+
+    @property
+    def exporter_positions(self):
+        return self._host.exporter_positions
+
+    # -- deployment → graph recompile -------------------------------------
+    def _unported_gates(self, wf) -> Optional[str]:
+        """The feature gates ``wf`` turns on that the port's step kernel
+        does not run, comma-joined; None when there are none. The workflow
+        is compiled alone, on the CPU, with its own intern table, so the
+        engine's interned ids are left as they were."""
+        if wf.key not in self._gates_by_key:
+            graph, _meta = graph_mod.compile_graph(
+                [wf], interns=InternTable(), device="cpu"
+            )
+            gates = [g for g in graph.gates_on() if g not in PORTED_GATES]
+            self._gates_by_key[wf.key] = ", ".join(gates) or None
+        return self._gates_by_key[wf.key]
+
+    def _recompile(self, extra_variables=None) -> None:
+        """Split the deployed set: device-served workflows compile into the
+        graph; the rest run their instances on the embedded host oracle."""
+        workflows = []
+        host_only = set()
+        reasons: Dict[int, str] = {}
+        for key in sorted(self.repository.by_key):
+            wf = self.repository.by_key[key]
+            reason = graph_mod.check_device_compatible(wf)
+            if reason is None:
+                reason = self._unported_gates(wf)
+            if reason is not None:
+                host_only.add(key)
+                reasons[key] = reason
+            else:
+                workflows.append(wf)
+        self._host_only_keys = host_only
+        self.host_only_reasons = reasons
+        self._meta_epoch += 1  # older emission batches' wf slots are stale
+        if not workflows:
+            self.graph = None
+            self._compiled_count = 0
+            return
+        if extra_variables is not None:
+            var_names = list(extra_variables)
+        else:
+            var_names = list(self.meta.varspace.names) if self.meta else []
+        self.graph, self.meta = graph_mod.compile_graph(
+            workflows, interns=self.interns, extra_variables=var_names,
+            device=self.device,
+        )
+        if self.graph.num_vars > self.num_vars:
+            raise PayloadError(
+                f"workflow variables ({self.graph.num_vars}) exceed engine "
+                f"num_vars={self.num_vars}; raise num_vars"
+            )
+        self._compiled_count = len(workflows)
+
+    # -- instance demotion: rare imperative ops take the host path ---------
+    def _live_device_instance_slot(self, key: int) -> int:
+        """Slot of a live root element instance in the device table, -1
+        when absent (completed, unknown, or host-side)."""
+        if key < 0:
+            return -1
+        keys = _np(self.state.ei_i64[:, 0])
+        states = _np(self.state.ei_i32[:, state_mod.EI_STATE])
+        hits = np.nonzero((keys == key) & (states != -1))[0]
+        return int(hits[0]) if len(hits) else -1
+
+    def _demote_instance(self, root_key: int) -> None:
+        """Migrate a live instance's scope tree (+ its jobs and in-flight
+        joins) from the device tables into the embedded host oracle, which
+        then runs the exact reference cascade for CANCEL / UPDATE_PAYLOAD.
+        (Device timers and the device message store are empty here: their
+        workflows are host-served.)"""
+        self._mark_device_dirty()
+        self._host.snapshot_mark_dirty(None)
+        s = self.state
+        ei_i32 = _np_copy(s.ei_i32)
+        ei_i64 = _np_copy(s.ei_i64)
+        ei_pay = _np_copy(s.ei_pay)
+        states = ei_i32[:, state_mod.EI_STATE]
+        live = states != -1
+
+        root_slot = self._live_device_instance_slot(root_key)
+        if root_slot < 0:
+            return
+        # collect the scope tree (parent-slot pointers, bounded depth)
+        tree = {root_slot}
+        changed = True
+        while changed:
+            changed = False
+            for slot in np.nonzero(live)[0]:
+                parent = int(ei_i32[slot, state_mod.EI_SCOPE])
+                if parent in tree and int(slot) not in tree:
+                    tree.add(int(slot))
+                    changed = True
+        slots_sorted = sorted(tree, key=lambda sl: int(ei_i64[sl, 0]))
+
+        names = self.meta.varspace.names if self.meta else []
+        by_slot: Dict[int, object] = {}
+        for slot in slots_sorted:
+            key = int(ei_i64[slot, 0])
+            parent_slot = int(ei_i32[slot, state_mod.EI_SCOPE])
+            parent = by_slot.get(parent_slot)
+            wf_slot = int(ei_i32[slot, state_mod.EI_WF])
+            workflow = (
+                self.meta.workflows[wf_slot]
+                if self.meta and 0 <= wf_slot < len(self.meta.workflows)
+                else None
+            )
+            value = WorkflowInstanceRecord(
+                bpmn_process_id=workflow.id if workflow else "",
+                version=workflow.version if workflow else -1,
+                workflow_key=workflow.key if workflow else -1,
+                workflow_instance_key=int(ei_i64[slot, 1]),
+                activity_id=(
+                    self.meta.element_id(
+                        wf_slot, int(ei_i32[slot, state_mod.EI_ELEM])
+                    )
+                    if self.meta else ""
+                ),
+                payload=rb.columns_to_payload(
+                    *_host_unpack_payload(ei_pay[slot]), names, self.interns
+                ),
+                scope_instance_key=(
+                    int(ei_i64[parent_slot, 0]) if parent_slot in tree else -1
+                ),
+            )
+            inst = self._host.element_instances.new_instance(
+                key, value, WI(int(states[slot])), parent=parent
+            )
+            inst.job_key = int(ei_i64[slot, 2])
+            inst.active_tokens = int(ei_i32[slot, state_mod.EI_TOKENS])
+            pending_elem = int(ei_i32[slot, state_mod.EI_PENDING_BD])
+            if pending_elem >= 0 and self.meta:
+                self._host._pending_boundary[key] = (
+                    self.meta.element_id(wf_slot, pending_elem),
+                    dict(value.payload),
+                )
+            by_slot[slot] = inst
+
+        tree_keys = {int(ei_i64[sl, 0]) for sl in tree}
+
+        # migrate this tree's jobs
+        job_i64 = _np_copy(s.job_i64)
+        job_i32 = _np_copy(s.job_i32)
+        job_slots = [
+            int(sl)
+            for sl in np.nonzero(job_i32[:, state_mod.JB_STATE] != -1)[0]
+            if int(job_i64[sl, state_mod.JBL_AIK]) in tree_keys
+        ]
+        from zeebe_tpu_torch.engine.interpreter import JobState
+
+        for sl in job_slots:
+            jkey = int(job_i64[sl, state_mod.JBL_KEY])
+            self._host.jobs[jkey] = JobState(
+                state=int(job_i32[sl, state_mod.JB_STATE]),
+                record=self._job_value_from_slot(sl),
+                deadline=int(job_i64[sl, state_mod.JBL_DEADLINE]),
+            )
+
+        # migrate in-flight parallel joins: device join rows are keyed by
+        # (scope_key << 10 | gateway element), payloads merged eagerly
+        join_keys = _np_copy(s.join_key)
+        join_arr = _np_copy(s.join_arrived)
+        join_pay_np = _np_copy(s.join_pay)
+        join_slots = [
+            int(sl)
+            for sl in np.nonzero(join_keys >= 0)[0]
+            if int(join_keys[sl]) >> 10 in tree_keys
+        ]
+        for sl in join_slots:
+            scope_key = int(join_keys[sl]) >> 10
+            gw_elem = int(join_keys[sl]) & ((1 << 10) - 1)
+            scope = self._host.element_instances.get(scope_key)
+            if scope is None:
+                continue
+            merged = rb.columns_to_payload(
+                *_host_unpack_payload(join_pay_np[sl]), names, self.interns
+            )
+            arrivals = {
+                int(pos): dict(merged)
+                for pos in np.nonzero(join_arr[sl])[0]
+            }
+            if arrivals:
+                scope.join_arrivals[gw_elem] = arrivals
+
+        # clear the migrated rows from the device tables + hash maps
+        dev = self.device
+
+        def idx(values, dtype=torch.int64):
+            return torch.as_tensor(values, dtype=dtype, device=dev)
+
+        ei_idx = idx(sorted(tree))
+        ei_del_keys = idx([int(ei_i64[sl, 0]) for sl in sorted(tree)])
+        s.ei_i32[ei_idx, state_mod.EI_STATE] = -1
+        s.ei_i64[ei_idx, 0] = -1
+        ops.delete(s.ei_map, ei_del_keys,
+                   torch.ones(ei_del_keys.shape, dtype=torch.bool, device=dev))
+        if job_slots:
+            j_idx = idx(job_slots)
+            j_keys = idx([int(job_i64[sl, state_mod.JBL_KEY]) for sl in job_slots])
+            s.job_i32[j_idx, state_mod.JB_STATE] = -1
+            s.job_i64[j_idx, state_mod.JBL_KEY] = -1
+            ops.delete(s.job_map, j_keys,
+                       torch.ones(j_keys.shape, dtype=torch.bool, device=dev))
+        if join_slots:
+            jo_idx = idx(join_slots)
+            jo_keys = idx([int(join_keys[sl]) for sl in join_slots])
+            s.join_key[jo_idx] = -1
+            s.join_nin[jo_idx] = 0
+            s.join_arrived[jo_idx] = False
+            s.join_pos_stamp[jo_idx] = -1
+            ops.delete(s.join_map, jo_keys,
+                       torch.ones(jo_keys.shape, dtype=torch.bool, device=dev))
+        # the host-side frees bypass the kernel's free-slot ring: re-derive
+        # it (and the lookup structures) now
+        self.state = state_mod.rebuild_lookup_state(s)
+        self._keys_at_rebuild = 0
+
+    def _routes_to_host(self, record: Record) -> bool:
+        """True when a device-value-type record belongs to a host-only
+        workflow or a host-side (possibly demoted) instance and must run on
+        the oracle. Pure — no side effects."""
+        vt = int(record.metadata.value_type)
+        value = record.value
+        if vt == int(ValueType.WORKFLOW_INSTANCE):
+            wf_key = value.workflow_key
+            intent = int(record.metadata.intent)
+            if wf_key <= 0 and intent == int(WI.CREATE):
+                wf = self._resolve_workflow(value)
+                wf_key = wf.key if wf is not None else -1
+            if wf_key in self._host_only_keys:
+                return True
+            if self._nonscalar_payload(record):
+                return True
+            if int(record.metadata.record_type) == int(RecordType.COMMAND) and (
+                intent in (int(WI.CANCEL), int(WI.UPDATE_PAYLOAD))
+            ):
+                return True
+            instances = self._host.element_instances.instances
+            return (
+                record.key in instances
+                or value.workflow_instance_key in instances
+            )
+        if vt == int(ValueType.JOB):
+            if self._nonscalar_payload(record):
+                return True
+            return (
+                value.headers.workflow_key in self._host_only_keys
+                or record.key in self._host.jobs
+                or value.headers.workflow_instance_key
+                in self._host.element_instances.instances
+            )
+        if vt == int(ValueType.TIMER):
+            return (
+                record.key in self._host.timers
+                or value.activity_instance_key
+                in self._host.element_instances.instances
+            )
+        if vt in (
+            int(ValueType.MESSAGE), int(ValueType.MESSAGE_SUBSCRIPTION)
+        ):
+            return not self._messages_on_device
+        if vt == int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION):
+            return (
+                value.activity_instance_key
+                in self._host.element_instances.instances
+            )
+        return False
+
+    def _var_column(self, name: str) -> int:
+        if self.meta is None:
+            raise PayloadError("no workflows deployed")
+        col = self.meta.varspace.column(name)
+        if col >= self.num_vars:
+            raise PayloadError(f"variable space overflow at {name!r}")
+        return col
+
+    # -- worker subscriptions (host-managed device table) ------------------
+    def add_job_subscription(self, sub: JobSubscription) -> List[Record]:
+        """Idempotent per subscriber key. Returns ACTIVATE commands for the
+        backlog of already-created matching jobs (device table and host
+        oracle); the caller appends them to the partition log."""
+        self.remove_job_subscription(sub.subscriber_key)
+        host_backlog = self._host.add_job_subscription(dataclasses.replace(sub))
+        s = self.state
+        valid = _np(s.sub_valid)
+        free = int(np.argmin(valid)) if not valid.all() else -1
+        if free < 0 or valid[free]:
+            raise RuntimeError("subscription table full")
+
+        activatable = {int(JI.CREATED), int(JI.TIMED_OUT), int(JI.FAILED)}
+        type_id = self.interns.intern(sub.job_type)
+        job_i32 = _np_copy(s.job_i32)
+        job_keys = _np_copy(s.job_key)
+        backlog: List[Record] = []
+        credits = sub.credits
+        candidates = [
+            (int(job_keys[slot]), slot)
+            for slot in np.nonzero(
+                (job_i32[:, state_mod.JB_STATE] != -1)
+                & (job_i32[:, state_mod.JB_TYPE] == type_id)
+                & (job_i32[:, state_mod.JB_RETRIES] > 0)
+            )[0]
+            if int(job_i32[slot, state_mod.JB_STATE]) in activatable
+        ]
+        for key, slot in sorted(candidates):
+            if credits <= 0:
+                break
+            activated = self._job_value_from_slot(int(slot))
+            activated.deadline = self.clock() + sub.timeout
+            activated.worker = sub.worker
+            backlog.append(
+                Record(
+                    key=key,
+                    value=activated,
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=ValueType.JOB,
+                        intent=int(JI.ACTIVATE),
+                        request_stream_id=sub.subscriber_key,
+                    ),
+                )
+            )
+            credits -= 1
+
+        self._mark_device_dirty("sub")
+        s.sub_key[free] = sub.subscriber_key
+        s.sub_type[free] = type_id
+        s.sub_worker[free] = self.interns.intern(sub.worker)
+        # backlog activations consumed credits up front; the kernel
+        # returns them on ACTIVATE rejection like pool assignments
+        s.sub_credits[free] = credits
+        s.sub_timeout[free] = sub.timeout
+        s.sub_valid[free] = True
+        return host_backlog + backlog
+
+    def remove_job_subscription(self, subscriber_key: int) -> None:
+        self._host.remove_job_subscription(subscriber_key)
+        self._mark_device_dirty("sub")
+        s = self.state
+        s.sub_valid &= s.sub_key != subscriber_key
+
+    def increase_job_credits(self, subscriber_key: int, credits: int) -> None:
+        self._host.increase_job_credits(subscriber_key, credits)
+        self._mark_device_dirty("sub")
+        s = self.state
+        s.sub_credits += torch.where(s.sub_key == subscriber_key, credits, 0).to(
+            s.sub_credits.dtype
+        )
+
+    # -- deadline scans (broker tick) --------------------------------------
+    def deadlines_due_probe(self) -> torch.Tensor:
+        """Device 0-dim int32 bitmask (PROBE_DEADLINES | PROBE_JOB_BACKLOG):
+        is any device-side deadline due now, and is there unassigned job
+        backlog a free credit could serve? The in-process broker reads it
+        synchronously each tick; host-oracle deadlines are swept by
+        ``host_deadline_commands``."""
+        return _due_probe_kernel(self.state, int(self.clock()))
+
+    def backlog_activations(self) -> List[Record]:
+        """Host-oracle side only; the device job backlog is served by
+        ``device_backlog_activations`` behind the probe's backlog bit."""
+        return self._host.backlog_activations()
+
+    def device_backlog_activations(self) -> List[Record]:
+        """ACTIVATE commands for device-table jobs that became activatable
+        while every subscription was out of credits. Credits are consumed
+        up front; the kernel returns them on ACTIVATE rejection."""
+        s = self.state
+        valid = _np(s.sub_valid).copy()
+        if not valid.any():
+            return []
+        sub_keys = _np_copy(s.sub_key)
+        sub_types = _np_copy(s.sub_type)
+        sub_credits = _np_copy(s.sub_credits)
+        sub_timeouts = _np_copy(s.sub_timeout)
+        sub_workers = _np_copy(s.sub_worker)
+        if not (sub_credits[valid] > 0).any():
+            return []
+        activatable = {int(JI.CREATED), int(JI.TIMED_OUT), int(JI.FAILED)}
+        job_i32 = _np_copy(s.job_i32)
+        job_keys = _np_copy(s.job_key)
+        candidates = [
+            (int(job_keys[slot]), slot)
+            for slot in np.nonzero(
+                (job_i32[:, state_mod.JB_STATE] != -1)
+                & (job_i32[:, state_mod.JB_RETRIES] > 0)
+            )[0]
+            if int(job_i32[slot, state_mod.JB_STATE]) in activatable
+        ]
+        out: List[Record] = []
+        now = self.clock()
+        sub_slots = [int(i) for i in np.nonzero(valid)[0]]
+        # the round-robin cursor persists in state.sub_rr (host-oracle
+        # parity: the oracle's cursor is global)
+        rr = int(s.sub_rr) % len(sub_slots)
+        for key, slot in sorted(candidates):
+            type_id = int(job_i32[slot, state_mod.JB_TYPE])
+            target = None
+            for j in range(len(sub_slots)):
+                cand = sub_slots[(rr + j) % len(sub_slots)]
+                if sub_credits[cand] > 0 and int(sub_types[cand]) == type_id:
+                    target = cand
+                    rr = (rr + j + 1) % len(sub_slots)
+                    break
+            if target is None:
+                continue  # no credits for this type; try other jobs' types
+            sub_credits[target] -= 1
+            activated = self._job_value_from_slot(int(slot))
+            activated.deadline = now + int(sub_timeouts[target])
+            activated.worker = self.interns.string(int(sub_workers[target])) or ""
+            out.append(
+                Record(
+                    key=key,
+                    value=activated,
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=ValueType.JOB,
+                        intent=int(JI.ACTIVATE),
+                        request_stream_id=int(sub_keys[target]),
+                    ),
+                )
+            )
+        if out:  # rr only advances on an assignment, which also appends
+            self._mark_device_dirty("sub")
+            s.sub_credits.copy_(torch.from_numpy(sub_credits))
+            s.sub_rr.fill_(rr)
+        return out
+
+    def host_deadline_commands(self) -> List[Record]:
+        """The embedded oracle's due commands only (per-family key order)."""
+        return (
+            sorted(self._host.check_job_deadlines(), key=lambda r: r.key)
+            + sorted(self._host.check_timer_deadlines(), key=lambda r: r.key)
+            + sorted(self._host.check_message_ttls(), key=lambda r: r.key)
+        )
+
+    def device_deadline_commands(self) -> List[Record]:
+        """Device-side due commands only (jobs, timers, message TTLs — each
+        family key-sorted)."""
+        return (
+            self._device_job_deadlines()
+            + self._device_timer_deadlines()
+            + self._device_message_ttls()
+        )
+
+    def check_job_deadlines(self) -> List[Record]:
+        return sorted(
+            self._device_job_deadlines() + self._host.check_job_deadlines(),
+            key=lambda r: r.key,
+        )
+
+    def _device_job_deadlines(self) -> List[Record]:
+        now = self.clock()
+        s = self.state
+        keys = _np_copy(s.job_key)
+        states = _np(s.job_state)
+        deadlines = _np(s.job_deadline)
+        due = (states == int(JI.ACTIVATED)) & (deadlines >= 0) & (deadlines <= now)
+        out = []
+        for slot in np.nonzero(due)[0][np.argsort(keys[np.nonzero(due)[0]])]:
+            out.append(
+                Record(
+                    key=int(keys[slot]),
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=ValueType.JOB,
+                        intent=int(JI.TIME_OUT),
+                    ),
+                    value=self._job_value_from_slot(int(slot)),
+                )
+            )
+        return out
+
+    def check_timer_deadlines(self) -> List[Record]:
+        return sorted(
+            self._device_timer_deadlines() + self._host.check_timer_deadlines(),
+            key=lambda r: r.key,
+        )
+
+    def _device_timer_deadlines(self) -> List[Record]:
+        now = self.clock()
+        s = self.state
+        keys = _np(s.timer_key)
+        due = (keys >= 0) & (_np(s.timer_due) <= now)
+        slots = np.nonzero(due)[0]
+        out = []
+        for slot in slots[np.argsort(keys[slots])]:
+            slot = int(slot)
+            out.append(
+                Record(
+                    key=int(keys[slot]),
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=ValueType.TIMER,
+                        intent=2,  # TimerIntent.TRIGGER
+                    ),
+                    value=TimerRecord(
+                        workflow_instance_key=int(_np(s.timer_instance_key)[slot]),
+                        activity_instance_key=int(_np(s.timer_aik)[slot]),
+                        due_date=int(_np(s.timer_due)[slot]),
+                        handler_element_id=self.meta.element_id(
+                            int(_np(s.timer_wf)[slot]),
+                            int(_np(s.timer_elem)[slot]),
+                        ),
+                    ),
+                )
+            )
+        return out
+
+    def check_message_ttls(self) -> List[Record]:
+        return sorted(
+            self._device_message_ttls() + self._host.check_message_ttls(),
+            key=lambda r: r.key,
+        )
+
+    def _device_message_ttls(self) -> List[Record]:
+        from zeebe_tpu_torch.protocol.intents import MessageIntent as MI
+        from zeebe_tpu_torch.protocol.records import MessageRecord
+
+        now = self.clock()
+        s = self.state
+        keys = _np(s.msg_key)
+        due = (keys >= 0) & (_np(s.msg_deadline) <= now)
+        slots = np.nonzero(due)[0]
+        names = self.meta.varspace.names if self.meta else []
+        msg_i32 = _np(s.msg_i32)
+        msg_pay = _np(s.msg_pay)
+        out = []
+        for slot in slots[np.argsort(keys[slots])]:
+            slot = int(slot)
+            out.append(
+                Record(
+                    key=int(keys[slot]),
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=ValueType.MESSAGE,
+                        intent=int(MI.DELETE),
+                    ),
+                    value=MessageRecord(
+                        name=self.interns.string(int(msg_i32[slot, 0])) or "",
+                        correlation_key=self._corr_string(
+                            int(msg_i32[slot, 1]), int(msg_i32[slot, 2])
+                        ),
+                        payload=rb.columns_to_payload(
+                            *_host_unpack_payload(msg_pay[slot]),
+                            names, self.interns,
+                        ),
+                        message_id=(
+                            self.interns.string(int(msg_i32[slot, 3])) or ""
+                        ),
+                    ),
+                )
+            )
+        return out
+
+    def compaction_floor(self) -> int:
+        """Incident state lives on the embedded host oracle."""
+        return min(
+            self.last_processed_position + 1, self._host.compaction_floor()
+        )
+
+    # -- snapshot / restore: the tables leave the card in the data-only
+    # device envelope of log/stateser.py (FORMAT_DEVICE_V1), the layout the
+    # JAX engine writes and reads, so state crosses between the engines
+    _ALL_DEVICE_FAMILIES = (
+        "ei", "job", "join", "keys", "msg", "msub", "sub", "timer",
+    )
+
+    def _mark_device_dirty(self, *families: str) -> None:
+        """Record device-table mutations for delta snapshots; no args =
+        every device family."""
+        if self._dirty_device is None:
+            return
+        self._dirty_device.update(families or self._ALL_DEVICE_FAMILIES)
+
+    def snapshot_dirty_families(self):
+        host = self._host.snapshot_dirty_families()
+        if self._dirty_device is None or host is None:
+            return None
+        return frozenset({"d/" + f for f in self._dirty_device} | set(host))
+
+    def snapshot_mark_clean(self) -> None:
+        self._dirty_device = set()
+        self._host.snapshot_mark_clean()
+
+    def snapshot_mark_dirty(self, families=None) -> None:
+        if families is None:
+            self._dirty_device = None
+            self._host.snapshot_mark_dirty(None)
+            return
+        dev = [f[2:] for f in families if f.startswith("d/")]
+        if dev:  # empty would mean mark-ALL in _mark_device_dirty's varargs
+            self._mark_device_dirty(*dev)
+        host = [f for f in families if f.startswith("h/")]
+        if host:
+            self._host.snapshot_mark_dirty(host)
+
+    def snapshot_state(self, families=None) -> dict:
+        from zeebe_tpu_torch.log import stateser
+
+        dirty_dev = None
+        if families is not None:
+            dirty_dev = {f[2:] for f in families if f.startswith("d/")}
+        arrays: Dict[str, Optional[np.ndarray]] = {}
+        read: List[str] = []
+
+        def put(name: str, value, skip: bool) -> None:
+            if skip:
+                arrays[name] = None  # clean family: previous segment reused
+            else:
+                arrays[name] = _np_copy(value)
+                read.append(name)
+
+        for name in state_mod.STATE_FIELDS:
+            skip = (
+                dirty_dev is not None
+                and stateser.device_array_family(name) not in dirty_dev
+            )
+            v = getattr(self.state, name)
+            if name in state_mod.MAP_FIELDS:
+                put(name + ".keys", v.keys, skip)
+                put(name + ".vals", v.vals, skip)
+            else:
+                put(name, v, skip)
+        self.last_snapshot_readback = read
+        return {
+            "fmt": stateser.FORMAT_DEVICE_V1,
+            "arrays": arrays,
+            "meta": {
+                # interned strings in id order (id 0 is reserved NIL)
+                "interns": [s or "" for s in self.interns._by_id[1:]],
+                "variables": (
+                    list(self.meta.varspace.names) if self.meta else []
+                ),
+                "last_processed_position": self.last_processed_position,
+            },
+            "host": self._host.snapshot_state(),
+        }
+
+    def restore_state(self, snap: dict) -> None:
+        from zeebe_tpu_torch.log import stateser
+        from zeebe_tpu_torch.tpu import hashmap
+
+        if snap.get("fmt") != stateser.FORMAT_DEVICE_V1:
+            raise ValueError("not a device-engine snapshot")
+        self._dirty_device = None  # restored engine: next take is full
+        self._host.restore_state(snap["host"])
+        meta = snap.get("meta", {})
+        self.interns = InternTable()
+        for s in meta.get("interns", []):
+            self.interns.intern(s)
+        # recompile through the deployment path with the snapshot's
+        # variable-column order forced (column ids live in the payloads)
+        self.meta = None
+        self.graph = None
+        if self.repository.by_key:
+            self._recompile(extra_variables=list(meta.get("variables", [])))
+        arrays = snap["arrays"]
+        dev = self.device
+
+        def t(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+
+        kwargs = {}
+        for name in state_mod.STATE_FIELDS:
+            if name + ".keys" in arrays:
+                kwargs[name] = hashmap.HashTable(
+                    keys=t(arrays[name + ".keys"]), vals=t(arrays[name + ".vals"])
+                )
+            elif name == "ei_i32" and arrays[name].shape[1] == 5:
+                # snapshot without the pending-boundary column: pad it
+                a = np.asarray(arrays[name])
+                kwargs[name] = t(np.concatenate(
+                    [a, np.full((a.shape[0], 1), -1, np.int32)], axis=1
+                ))
+            elif name in arrays:
+                kwargs[name] = t(arrays[name])
+            else:
+                # a family the snapshot predates: keep the fresh empty table
+                kwargs[name] = getattr(self.state, name)
+        st = state_mod.EngineState(**kwargs)
+        # job-worker subscriptions are transient client-session state: a
+        # restored partition starts with an empty subscription table
+        st.sub_key.fill_(-1)
+        st.sub_credits.zero_()
+        st.sub_valid.zero_()
+        # derive the lookup structures from the restored rows
+        self.state = state_mod.rebuild_lookup_state(st)
+        self._keys_at_rebuild = 0
+        self.capacity = st.capacity
+        self.num_vars = st.num_vars
+        self.last_processed_position = int(
+            meta.get("last_processed_position", -1)
+        )
+
+    def _job_value_from_slot(self, slot: int) -> JobRecord:
+        s = self.state
+        i32 = _np(s.job_i32[slot])
+        i64 = _np(s.job_i64[slot])
+        wf_slot = int(i32[state_mod.JB_WF])
+        elem = int(i32[state_mod.JB_ELEM])
+        workflow = (
+            self.meta.workflows[wf_slot]
+            if self.meta and 0 <= wf_slot < len(self.meta.workflows)
+            else None
+        )
+        return JobRecord(
+            type=self.interns.string(int(i32[state_mod.JB_TYPE])) or "",
+            retries=int(i32[state_mod.JB_RETRIES]),
+            deadline=int(i64[state_mod.JBL_DEADLINE]),
+            worker=self.interns.string(int(i32[state_mod.JB_WORKER])) or "",
+            payload=rb.columns_to_payload(
+                *_host_unpack_payload(_np_copy(s.job_pay[slot])),
+                self.meta.varspace.names if self.meta else [],
+                self.interns,
+            ),
+            headers=JobHeaders(
+                workflow_instance_key=int(i64[state_mod.JBL_IKEY]),
+                bpmn_process_id=workflow.id if workflow else "",
+                workflow_definition_version=workflow.version if workflow else -1,
+                workflow_key=workflow.key if workflow else -1,
+                activity_id=self.meta.element_id(wf_slot, elem) if self.meta else "",
+                activity_instance_key=int(i64[state_mod.JBL_AIK]),
+            ),
+        )
+
+    # ------------------------------------------------------------------
+    # batch processing
+    # ------------------------------------------------------------------
+    def process(self, record: Record) -> ProcessingResult:
+        """Single-record convenience (replay and tests)."""
+        return self.process_batch([record])
+
+    def process_batch(self, records: List[Record]) -> ProcessingResult:
+        """Synchronous wave: dispatch + collect, merged record-major."""
+        return ProcessingResult.merged(self.process_wave(records))
+
+    def process_wave(self, records: List[Record]) -> List[ProcessingResult]:
+        """Per-record results of one wave (one device dispatch per
+        contiguous device segment)."""
+        return self.collect_wave(self.dispatch_wave(records))
+
+    def dispatch_wave(self, records) -> PendingWave:
+        """Stage + launch a wave WITHOUT reading device outputs back.
+        Host-routed records process inline (strict log order); device
+        segments dispatch through the kernel and stay pending until
+        ``collect_wave``.
+
+        ``records`` may be a plain list of ``Record`` objects or a lazy
+        columnar view (``RecordsView``). A lazy entry that is a device
+        EVENT of a device-resident instance stages straight from the
+        emission batch's columns — no ``Record`` materializes for it."""
+        t0 = time.perf_counter()
+        view = records if hasattr(records, "entries") else None
+        entries = list(view.entries()) if view is not None else records
+        n = len(entries)
+        if view is not None:
+            col_vts = view.value_types()
+            col_rts = view.record_types()
+            col_its = view.intents()
+            col_pos = view.positions()
+            col_keys = view.keys()
+        else:
+            col_vts = None
+            col_rts = col_its = col_pos = col_keys = None
+
+        per_record: List[Optional[ProcessingResult]] = [None] * n
+        wave = PendingWave(
+            records=records, per_record=per_record,
+            partition_id=self.partition_id,
+        )
+        positions = wave.positions
+        # device rows batch up; a host-routed record dispatches the
+        # pending device segment first, so state mutates in log order
+        pending: List[int] = []
+        # the two engines allocate from ONE keyspace; their counters sync
+        # at segment boundaries (device→host: one read when a device
+        # segment ran since the last pull; host→device: device-side max)
+        host_allocated = [False]
+
+        def push_host_keys() -> None:
+            if not host_allocated[0]:
+                return
+            self._mark_device_dirty("keys")
+            self.state.next_wf_key.clamp_(min=self._host.wf_keys.peek)
+            self.state.next_job_key.clamp_(min=self._host.job_keys.peek)
+            host_allocated[0] = False
+
+        def seg_meta(i: int):
+            if col_vts is not None:
+                return col_vts[i], col_rts[i], col_its[i]
+            md = entries[i].metadata
+            return (
+                int(md.value_type), int(md.record_type), int(md.intent),
+            )
+
+        def flush() -> None:
+            if not pending:
+                return
+            push_host_keys()  # device allocations continue after the host's
+            seg = self._dispatch_device(
+                [entries[i] for i in pending],
+                [positions[i] for i in pending],
+                [seg_meta(i) for i in pending],
+            )
+            seg.rows = list(pending)
+            wave.segments.append(seg)
+            self.device_records_processed += len(pending)
+            pending.clear()
+            self._device_keys_dirty = True
+
+        for i in range(n):
+            entry = entries[i]
+            lazy = type(entry) is tuple
+            if col_vts is not None:
+                vt, rt, intent = col_vts[i], col_rts[i], col_its[i]
+                pos, key = col_pos[i], col_keys[i]
+            else:
+                md = entry.metadata
+                vt = int(md.value_type)
+                rt = int(md.record_type)
+                intent = int(md.intent)
+                pos, key = entry.position, entry.key
+            positions.append(pos)
+            device_vt = vt in _DEVICE_VALUE_TYPES or (
+                vt in _MESSAGE_VALUE_TYPES
+                and self.graph is not None
+                and self.graph.has_messages
+            )
+            eligible = (
+                device_vt and self.meta is not None and self.graph is not None
+            )
+            if lazy and eligible and self._lazy_device_row(
+                entry, vt, rt, intent, key
+            ):
+                pending.append(i)
+                continue
+            if lazy:
+                record = entry[0].row(entry[1])
+                entries[i] = record
+            else:
+                record = entry
+            # records_by_position aliases the host oracle's cache
+            self.records_by_position[pos] = record
+            md = record.metadata
+            if eligible and not self._routes_to_host(record):
+                # payload numbers must be exactly representable in float32
+                # (device payload columns are f32): commands violating it
+                # are REJECTED at the boundary
+                bad = self._inexact_payload_value(record)
+                if bad is not None:
+                    per_record[i] = self._reject_payload(record, bad)
+                    continue
+                pending.append(i)
+            else:
+                flush()  # earlier device rows execute BEFORE this record
+                if self._device_keys_dirty:
+                    self._pull_device_keys_into_host()
+                    self._device_keys_dirty = False
+                wf_peek = self._host.wf_keys.peek
+                job_peek = self._host.job_keys.peek
+                if (
+                    vt == int(ValueType.WORKFLOW_INSTANCE)
+                    and int(md.record_type) == int(RecordType.COMMAND)
+                ):
+                    # rare imperative ops demote their live device instance
+                    if int(md.intent) == int(WI.CANCEL):
+                        self._demote_instance(record.key)
+                    elif int(md.intent) == int(WI.UPDATE_PAYLOAD):
+                        self._demote_instance(
+                            record.value.workflow_instance_key
+                        )
+                elif (
+                    vt == int(ValueType.JOB)
+                    and int(md.record_type) == int(RecordType.COMMAND)
+                    and self._nonscalar_payload(record)
+                ):
+                    # a non-columnar job result drags the owning instance
+                    # to the host path before the command applies
+                    owner = record.value.headers.workflow_instance_key
+                    if owner < 0 and record.key >= 0:
+                        slots = np.nonzero(
+                            _np(self.state.job_key) == record.key
+                        )[0]
+                        if len(slots):
+                            owner = int(
+                                _np(self.state.job_instance_key)[int(slots[0])]
+                            )
+                    self._demote_instance(owner)
+                deployed_before = len(self.repository.by_key)
+                self.host_records_processed += 1
+                try:
+                    per_record[i] = self._host.process(record)
+                except Exception as e:  # noqa: BLE001 - poison isolation
+                    self._host.processing_failures.append(
+                        (record.position, repr(e)[:300])
+                    )
+                if len(self.repository.by_key) != deployed_before:
+                    self._recompile()
+                if (
+                    self._host.wf_keys.peek != wf_peek
+                    or self._host.job_keys.peek != job_peek
+                ):
+                    host_allocated[0] = True
+        flush()
+        push_host_keys()
+        if positions:
+            self.last_processed_position = positions[-1]
+        wave.host_seconds += time.perf_counter() - t0
+        return wave
+
+    def _lazy_device_row(self, entry, vt, rt, intent, key) -> bool:
+        """True when a LAZY tail ref (``(batch, idx)``) can enter a device
+        segment straight from its backing readback columns. Conservative:
+        anything not provably device-resident from columns alone
+        materializes and takes the per-record path."""
+        if rt != int(RecordType.EVENT):
+            return False
+        ref = entry[0].device_ref(entry[1])
+        if ref is None:
+            return False
+        src, j = ref
+        _o, scols, epoch = src.device_source
+        if epoch != self._meta_epoch or self.meta is None:
+            return False
+        if vt == int(ValueType.JOB):
+            if intent in (
+                int(JI.FAILED), int(JI.RETRIES_UPDATED), int(JI.CANCELED)
+            ):
+                # host-side job-incident bookkeeping reads these records
+                return False
+        elif vt != int(ValueType.WORKFLOW_INSTANCE):
+            return False
+        wf_slot = scols["wf"][j]
+        workflow = (
+            self.meta.workflows[wf_slot]
+            if 0 <= wf_slot < len(self.meta.workflows) else None
+        )
+        if workflow is not None and workflow.key in self._host_only_keys:
+            return False
+        instances = self._host.element_instances.instances
+        if scols["instance_key"][j] in instances:
+            return False
+        if vt == int(ValueType.JOB):
+            return key not in self._host.jobs
+        return key not in instances
+
+    def collect_wave(self, wave: PendingWave) -> List[ProcessingResult]:
+        """Materialize a dispatched wave: one bulk device fetch per
+        segment, columnar emission decode, per-record source stamping."""
+        from zeebe_tpu_torch.protocol.records import stamp_source_positions
+
+        if wave.collected is not None:  # collection is one-shot
+            return wave.collected
+        t0 = time.perf_counter()
+        device_s = 0.0
+        for seg in wave.segments:
+            device_s += self._collect_device(seg)
+            for i, res in zip(seg.rows, seg.results):
+                wave.per_record[i] = res
+        results: List[ProcessingResult] = []
+        for pos, res in zip(wave.positions, wave.per_record):
+            if res is None:  # poisoned host record: contained, no output
+                res = ProcessingResult()
+            stamp_source_positions(res.written, pos)
+            results.append(res)
+        wave.device_seconds += device_s
+        wave.host_seconds += (time.perf_counter() - t0) - device_s
+        self.last_wave_seconds = (wave.host_seconds, wave.device_seconds)
+        wave.collected = results
+        return results
+
+    def _pull_device_keys_into_host(self) -> None:
+        """Advance the embedded oracle's key generators past the device
+        counters (one device→host read; only at device-segment → host-record
+        boundaries)."""
+        from zeebe_tpu_torch.engine import keyspace
+
+        dev_wf, dev_job = torch.stack(
+            [self.state.next_wf_key, self.state.next_job_key]
+        ).tolist()
+        if self._host.wf_keys.peek < dev_wf or self._host.job_keys.peek < dev_job:
+            self._host.snapshot_mark_dirty(("h/control",))
+        if self._host.wf_keys.peek < dev_wf:
+            self._host.wf_keys.set_key(dev_wf - keyspace.STEP_SIZE)
+        if self._host.job_keys.peek < dev_job:
+            self._host.job_keys.set_key(dev_job - keyspace.STEP_SIZE)
+
+    @staticmethod
+    def _nonscalar_payload(record: Record) -> bool:
+        """True when the record payload holds values with no device column
+        form (lists/nested documents) — such records take the host path."""
+        payload = getattr(record.value, "payload", None)
+        if not payload:
+            return False
+        return any(
+            not isinstance(v, (type(None), bool, int, float, str))
+            for v in payload.values()
+        )
+
+    def _inexact_payload_value(self, record: Record):
+        """Name of the first payload entry not exactly representable in
+        f32 on a COMMAND record, else None."""
+        from zeebe_tpu_torch.tpu.conditions import f32_exact
+
+        if int(record.metadata.record_type) != int(RecordType.COMMAND):
+            return None
+        payload = getattr(record.value, "payload", None)
+        if not payload:
+            return None
+        for name, value in payload.items():
+            if (
+                isinstance(value, (int, float))
+                and not isinstance(value, bool)
+                and not f32_exact(value)
+            ):
+                return name
+        return None
+
+    def _reject_payload(self, record: Record, field: str) -> ProcessingResult:
+        out = ProcessingResult()
+        md = record.metadata
+        rejection = Record(
+            key=record.key,
+            value=record.value.copy(),
+            metadata=RecordMetadata(
+                record_type=RecordType.COMMAND_REJECTION,
+                value_type=md.value_type,
+                intent=md.intent,
+                rejection_type=RejectionType.BAD_VALUE,
+                rejection_reason=(
+                    f"payload value {field!r} is not exactly representable "
+                    "in float32 (TPU partition payload contract)"
+                ),
+                request_id=md.request_id,
+                request_stream_id=md.request_stream_id,
+            ),
+            source_record_position=record.position,
+        )
+        out.written.append(rejection)
+        if md.request_id >= 0:
+            out.responses.append(rejection)
+        return out
+
+    # -- host record → batch row -------------------------------------------
+    # dtype families for the packed host→device transfer: one copy per
+    # family (plus the three payload matrices) instead of one per column
+    _I64_COLS = ("key", "instance_key", "scope_key", "req", "aux_key",
+                 "aux2_key", "deadline")
+    _I32_COLS = ("rtype", "vtype", "intent", "elem", "wf", "req_stream",
+                 "type_id", "retries", "worker", "src", "rej")
+    _BOOL_COLS = ("valid", "resp", "push")
+    _COL_DEFAULTS = {
+        "valid": False, "rtype": 0, "vtype": 0, "intent": 0, "key": -1,
+        "elem": -1, "wf": -1, "instance_key": -1, "scope_key": -1,
+        "req": -1, "req_stream": -1, "aux_key": -1, "aux2_key": -1,
+        "type_id": 0, "retries": 0, "deadline": -1, "worker": 0,
+        "src": -1, "resp": False, "push": False, "rej": 0,
+    }
+
+    def _stage(self, records: List[Record]) -> RecordBatch:
+        # pow2 buckets (at least 64 rows), as the JAX engine stages off-TPU:
+        # the staged size decides nothing in the log, but keeps the shapes
+        # the JAX engine steps
+        size = _pow2(len(records))
+        v = self.num_vars
+        cols: Dict[str, object] = {
+            name: [default] * size
+            for name, default in self._COL_DEFAULTS.items()
+        }
+        cols["v_vt"] = np.zeros((size, v), np.int8)
+        cols["v_num"] = np.zeros((size, v), np.float32)
+        cols["v_str"] = np.zeros((size, v), np.int32)
+        staged_lazy = 0
+        for i, record in enumerate(records):
+            if type(record) is tuple:
+                src, j = record[0].device_ref(record[1])
+                self._stage_from_emission(cols, i, src, j)
+                staged_lazy += 1
+            else:
+                self._stage_row(cols, i, record)
+        if staged_lazy:
+            _count_staged_columnar(staged_lazy)
+        return self._pack_batch(cols, size)
+
+    def _stage_from_emission(self, cols, i, src, j) -> None:
+        """Stage one row by COPYING the backing emission batch's columns
+        (only those ``_stage_row`` would set for the value type)."""
+        o, s, _epoch = src.device_source
+        vt = s["vtype"][j]
+        cols["valid"][i] = True
+        cols["rtype"][i] = s["rtype"][j]
+        cols["vtype"][i] = vt
+        cols["intent"][i] = s["intent"][j]
+        cols["key"][i] = s["key"][j]
+        cols["req"][i] = s["req"][j]
+        cols["req_stream"][i] = s["req_stream"][j]
+        wf = s["wf"][j]
+        if vt == int(ValueType.WORKFLOW_INSTANCE):
+            cols["wf"][i] = wf
+            cols["elem"][i] = s["elem"][j] if wf >= 0 else -1
+            cols["instance_key"][i] = s["instance_key"][j]
+            cols["scope_key"][i] = s["scope_key"][j]
+        elif vt == int(ValueType.JOB):
+            cols["type_id"][i] = s["type_id"][j]
+            cols["retries"][i] = s["retries"][j]
+            cols["deadline"][i] = s["deadline"][j]
+            cols["worker"][i] = s["worker"][j]
+            cols["aux_key"][i] = s["aux_key"][j]
+            cols["instance_key"][i] = s["instance_key"][j]
+            cols["wf"][i] = wf
+            cols["elem"][i] = s["elem"][j] if wf >= 0 else -1
+        # payload columns copy MASKED by the type column (unset lanes must
+        # not carry junk)
+        vt_row = o["v_vt"][j]
+        mask = vt_row != 0
+        cols["v_vt"][i] = vt_row
+        cols["v_num"][i] = np.where(mask, o["v_num"][j], 0)
+        cols["v_str"][i] = np.where(mask, o["v_str"][j], 0)
+
+    def _pack_batch(self, cols: Dict[str, object], size: int) -> RecordBatch:
+        """Scalar columns → one [columns, rows] matrix per dtype family →
+        one host→device copy each; each batch column is a contiguous row of
+        its family's matrix."""
+        dev = self.device
+        kw: Dict[str, torch.Tensor] = {}
+        for names, dtype in (
+            (self._I64_COLS, np.int64),
+            (self._I32_COLS, np.int32),
+            (self._BOOL_COLS, bool),
+        ):
+            mat = np.empty((len(names), size), dtype)
+            for j, name in enumerate(names):
+                mat[j] = cols[name]
+            on_dev = torch.from_numpy(mat).to(dev)
+            for j, name in enumerate(names):
+                kw[name] = on_dev[j]
+        for name in ("v_vt", "v_num", "v_str"):
+            kw[name] = torch.from_numpy(cols[name]).to(dev)
+        return RecordBatch(**kw)
+
+    def _run_step(self, batch: RecordBatch, now: int) -> tuple:
+        """Launch ONE wave through the step kernel, rebinding ``self.state``
+        and returning ``(out, stats)``."""
+        self.state, out, stats = kernel.step_kernel(
+            self.graph, self.state, batch, now, partition_id=self.partition_id
+        )
+        return out, stats
+
+    def _stage_row(self, cols, i, record: Record) -> None:
+        md = record.metadata
+        vt = int(md.value_type)
+        cols["valid"][i] = True
+        cols["rtype"][i] = int(md.record_type)
+        cols["vtype"][i] = vt
+        cols["intent"][i] = int(md.intent)
+        cols["key"][i] = record.key
+        cols["req"][i] = md.request_id
+        cols["req_stream"][i] = md.request_stream_id
+        value = record.value
+        if vt == int(ValueType.WORKFLOW_INSTANCE):
+            wf_slot = self.meta.slot(value.workflow_key)
+            if (
+                int(md.record_type) == int(RecordType.COMMAND)
+                and int(md.intent) == int(WI.CREATE)
+            ):
+                workflow = self._resolve_workflow(value)
+                wf_slot = self.meta.slot(workflow.key) if workflow else -1
+            cols["wf"][i] = wf_slot
+            if wf_slot >= 0 and value.activity_id:
+                cols["elem"][i] = self.meta.elem_idx[wf_slot].get(
+                    value.activity_id, -1
+                )
+            cols["instance_key"][i] = value.workflow_instance_key
+            cols["scope_key"][i] = value.scope_instance_key
+            self._stage_payload(cols, i, value.payload)
+        elif vt == int(ValueType.JOB):
+            cols["type_id"][i] = self.interns.intern(value.type) if value.type else 0
+            cols["retries"][i] = value.retries
+            cols["deadline"][i] = value.deadline
+            cols["worker"][i] = (
+                self.interns.intern(value.worker) if value.worker else 0
+            )
+            headers = value.headers
+            cols["aux_key"][i] = headers.activity_instance_key
+            cols["instance_key"][i] = headers.workflow_instance_key
+            wf_slot = self.meta.slot(headers.workflow_key)
+            cols["wf"][i] = wf_slot
+            if wf_slot >= 0 and headers.activity_id:
+                cols["elem"][i] = self.meta.elem_idx[wf_slot].get(
+                    headers.activity_id, -1
+                )
+            self._stage_payload(cols, i, value.payload)
+        elif vt == int(ValueType.TIMER):
+            cols["aux_key"][i] = value.activity_instance_key
+            cols["instance_key"][i] = value.workflow_instance_key
+            cols["deadline"][i] = value.due_date
+            if value.handler_element_id and self.meta is not None:
+                wf_slot = self._wf_slot_of_instance(
+                    value.activity_instance_key
+                )
+                if wf_slot >= 0:
+                    cols["wf"][i] = wf_slot
+                    cols["elem"][i] = self.meta.elem_idx[wf_slot].get(
+                        value.handler_element_id, -1
+                    )
+
+    def _wf_slot_of_instance(self, key: int) -> int:
+        """Workflow slot of a live device element instance (host-side scan;
+        timer records are rare control records)."""
+        if key < 0:
+            return -1
+        keys = _np(self.state.ei_i64[:, 0])
+        hits = np.nonzero(keys == key)[0]
+        if not len(hits):
+            return -1
+        return int(self.state.ei_i32[int(hits[0]), state_mod.EI_WF])
+
+    def _stage_payload(self, cols, i, payload) -> None:
+        if not payload:
+            return
+        try:
+            vt, num, sid = rb.payload_to_columns(
+                payload, self._var_column, self.interns, self.num_vars
+            )
+        except rb.PayloadError:
+            if int(cols["rtype"][i]) == int(RecordType.COMMAND_REJECTION):
+                # a rejection echoes the offending command's payload; it is
+                # terminal for the kernel, so it stages with none
+                return
+            raise
+        cols["v_vt"][i] = vt
+        cols["v_num"][i] = num
+        cols["v_str"][i] = sid
+
+    def _resolve_workflow(self, value: WorkflowInstanceRecord):
+        if value.workflow_key > 0:
+            return self.repository.by_key.get(value.workflow_key)
+        if value.version > 0:
+            return self.repository.by_id_and_version(
+                value.bpmn_process_id, value.version
+            )
+        return self.repository.latest(value.bpmn_process_id)
+
+    # -- device round -------------------------------------------------------
+    def _dispatch_device(
+        self, records: List, positions: List[int], metas: List[tuple],
+    ) -> _PendingSegment:
+        """Host pre-work + staging + kernel launch for one device segment;
+        returns the pending segment WITHOUT synchronizing on the device.
+        ``records`` entries may be lazy ``(batch, idx)`` refs; ``metas``
+        carries each entry's ``(value_type, record_type, intent)``."""
+        results = [ProcessingResult() for _ in records]
+        # job-incident bookkeeping lives in the host engine: run the
+        # oracle's _incident_on_job_event for the JOB events flowing through
+        # the device; for FAILED-with-no-retries the HOST emits the
+        # follow-up and the kernel's own incident CREATE is suppressed
+        suppress_incident_create: set = set()
+        for i, (vt, rt, intent) in enumerate(metas):
+            if vt != int(ValueType.JOB) or rt != int(RecordType.EVENT):
+                continue
+            if intent == int(JI.FAILED):
+                record = _as_record(records[i])
+                if record.value.retries <= 0:
+                    self._host.snapshot_mark_dirty(
+                        ("h/incidents", "h/control")
+                    )
+                    self._host._incident_on_job_event(record, results[i])
+                    suppress_incident_create.add(i)
+            elif intent in (int(JI.RETRIES_UPDATED), int(JI.CANCELED)):
+                record = _as_record(records[i])
+                self._host.snapshot_mark_dirty(("h/incidents", "h/control"))
+                self._host._incident_on_job_event(record, results[i])
+        # CREATE commands with unknown workflows are rejected host-side
+        rejected = set()
+        for i, (vt, rt, intent) in enumerate(metas):
+            if (
+                vt == int(ValueType.WORKFLOW_INSTANCE)
+                and rt == int(RecordType.COMMAND)
+                and intent == int(WI.CREATE)
+            ):
+                record = _as_record(records[i])
+                if self._resolve_workflow(record.value) is None:
+                    md = record.metadata
+                    value = record.value.copy()
+                    value.workflow_instance_key = self._next_wf_key_host()
+                    rejection = Record(
+                        key=record.key,
+                        source_record_position=record.position,
+                        metadata=RecordMetadata(
+                            record_type=RecordType.COMMAND_REJECTION,
+                            value_type=ValueType.WORKFLOW_INSTANCE,
+                            intent=int(WI.CREATE),
+                            rejection_type=RejectionType.BAD_VALUE,
+                            rejection_reason="Workflow is not deployed",
+                            request_id=md.request_id,
+                            request_stream_id=md.request_stream_id,
+                        ),
+                        value=value,
+                    )
+                    results[i].written.append(rejection)
+                    results[i].responses.append(rejection)
+                    rejected.add(i)
+
+        seg = _PendingSegment(
+            results=results,
+            positions=positions,
+            live=[i for i in range(len(records)) if i not in rejected],
+            suppress=suppress_incident_create,
+        )
+        live = seg.live
+        if not live:
+            return seg
+        batch = self._stage([records[i] for i in live])
+        now = int(self.clock())
+        # re-derive the fallback maps before the key window can wrap past
+        # the direct-mapped index capacity (see rebuild_lookup_state): a
+        # conservative host-side bound, so the serving path pays no sync
+        fanout = max(1, self.graph.emit_width if self.graph is not None else 1)
+        self._keys_at_rebuild += 5 * fanout * len(live)
+        if self._keys_at_rebuild > self.state.ei_index.shape[0] // 4:
+            self.state = state_mod.rebuild_lookup_state(self.state)
+            self._keys_at_rebuild = 0
+        self._mark_device_dirty()  # a kernel step may write any table
+        out, stats = self._run_step(batch, now)
+        seg.out = out
+        seg.stats = stats
+        return seg
+
+    def _collect_device(self, seg: _PendingSegment) -> float:
+        """Synchronize on one dispatched segment: the overflow flag and the
+        emission count in one read, then one fetch of the emitted rows,
+        then columnar decode into the segment's per-record results. Returns
+        the seconds spent blocked on the device."""
+        if seg.out is None:
+            return 0.0
+        t0 = time.perf_counter()
+        overflow, count = torch.stack(
+            [seg.stats["overflow"].to(torch.int64),
+             seg.stats["emitted"].to(torch.int64)]
+        ).tolist()
+        if overflow:
+            raise RuntimeError(
+                "device table overflow — raise CudaPartitionEngine capacity"
+            )
+        o = {
+            name: _np(getattr(seg.out, name)[:count]) for name in rb.FIELDS
+        }
+        # collection is one-shot: clear the device refs BEFORE decoding
+        seg.out = None
+        seg.stats = None
+        waited = time.perf_counter() - t0
+        self._emit_records(
+            o, [seg.positions[i] for i in seg.live], seg.results, seg.live,
+            seg.suppress,
+        )
+        return waited
+
+    def _next_wf_key_host(self) -> int:
+        """Allocate a workflow key host-side, keeping the device counter in
+        sync (rejections consume a key in the oracle too)."""
+        key = int(self.state.next_wf_key)
+        self._mark_device_dirty("keys")
+        self.state.next_wf_key += 5
+        return key
+
+    # -- emission → host records -------------------------------------------
+    def _emit_records(
+        self,
+        o: Dict[str, np.ndarray],
+        src_positions: List[int],
+        results: List[ProcessingResult],
+        live_rows: List[int],
+        suppress_incident_create: "set | None" = None,
+    ) -> None:
+        """Decode one emission batch (``o``: the emitted rows' columns as
+        numpy arrays) into records. Scalar columns convert to Python lists
+        ONCE; rows materialize lazily."""
+        from zeebe_tpu_torch.protocol.columnar import ColumnarBatch
+        from zeebe_tpu_torch.protocol.intents import (
+            IncidentIntent,
+            MessageSubscriptionIntent as MS,
+            WorkflowInstanceSubscriptionIntent as WS,
+        )
+
+        count = int(o["valid"].sum())
+        if not count:
+            return
+        cols = {
+            k: v[:count].tolist() for k, v in o.items() if v.ndim == 1
+        }
+        # bind THIS compile's meta into the lazy closures
+        meta = self.meta
+        names = meta.varspace.names
+        srcs = cols["src"]
+        sources = [
+            src_positions[s] if 0 <= s < len(src_positions) else -1
+            for s in srcs
+        ]
+        producer_d, incident_d, rejtype_d = _frame_defaults()
+        emission = ColumnarBatch(
+            count,
+            {
+                "key": cols["key"],
+                "record_type": cols["rtype"],
+                "value_type": cols["vtype"],
+                "intent": cols["intent"],
+                "request_id": cols["req"],
+                "request_stream_id": cols["req_stream"],
+                "source_record_position": sources,
+                "producer_id": [producer_d] * count,
+                "incident_key": [incident_d] * count,
+                "rejection_type": [rejtype_d] * count,
+                "rejection_reason": [""] * count,
+                "raft_term": [0] * count,
+            },
+            materializer=lambda r: self._materialize(
+                o, cols, r, names, sources, meta
+            ),
+            value_builder=lambda r: self._materialize_value(
+                o, cols, r, names, meta
+            ),
+        )
+        emission.device_source = (o, cols, self._meta_epoch)
+        rt_cmd = int(RecordType.COMMAND)
+        rt_rej = int(RecordType.COMMAND_REJECTION)
+        for r in range(count):
+            src = srcs[r]
+            res = results[live_rows[src]] if 0 <= src < len(live_rows) else results[0]
+            vt = cols["vtype"][r]
+            rt = cols["rtype"][r]
+            intent = cols["intent"][r]
+            # cross-partition subscription commands are SENDS
+            if rt == rt_cmd and vt == int(
+                ValueType.MESSAGE_SUBSCRIPTION
+            ) and intent in (int(MS.OPEN), int(MS.CLOSE)):
+                record = emission.row(r)
+                target = self.partition_for_correlation_key(
+                    record.value.correlation_key
+                )
+                record.source_record_position = -1  # sends are unstamped
+                res.sends.append((target, record))
+                continue
+            if rt == rt_cmd and vt == int(
+                ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION
+            ) and intent == int(WS.CORRELATE):
+                record = emission.row(r)
+                record.source_record_position = -1
+                res.sends.append((cols["wf"][r], record))
+                continue
+            if (
+                rt == rt_cmd
+                and vt == int(ValueType.INCIDENT)
+                and intent == int(IncidentIntent.CREATE)
+            ):
+                if (
+                    suppress_incident_create
+                    and 0 <= src < len(live_rows)
+                    and live_rows[src] in suppress_incident_create
+                ):
+                    continue  # job incidents are host-emitted
+                record = emission.row(r)
+                if (
+                    record.value is not None
+                    and record.value.failure_event_position < 0
+                ):
+                    # the failing event IS this emission's source record
+                    record.value.failure_event_position = (
+                        record.source_record_position
+                    )
+                res.written.append(record)
+                if cols["resp"][r] and cols["req"][r] >= 0:
+                    res.responses.append(record)
+                if cols["push"][r]:
+                    res.pushes.append((cols["req_stream"][r], record))
+                continue
+            resp = cols["resp"][r] and cols["req"][r] >= 0
+            push = cols["push"][r]
+            if not resp and not push and rt != rt_rej:
+                # plain append: the row stays COLUMNS into the log tail
+                res.written.append((emission, r))
+                continue
+            record = emission.row(r)
+            res.written.append(record)
+            if resp:
+                res.responses.append(record)
+            if push:
+                res.pushes.append((cols["req_stream"][r], record))
+
+    def _materialize(self, o, cols, r, names, sources, meta) -> Record:
+        """One emission row → Record (``meta`` is the graph meta bound AT
+        EMIT)."""
+        vt = cols["vtype"][r]
+        rt = cols["rtype"][r]
+        rej = cols["rej"][r]
+        value = self._materialize_value(o, cols, r, names, meta)
+
+        md = RecordMetadata(
+            record_type=RecordType(rt),
+            value_type=ValueType(vt),
+            intent=cols["intent"][r],
+            request_id=cols["req"][r],
+            request_stream_id=cols["req_stream"][r],
+        )
+        if rt == int(RecordType.COMMAND_REJECTION):
+            md.rejection_type = (
+                RejectionType.BAD_VALUE
+                if rej == rb.REJ_RETRIES_NOT_POSITIVE
+                else RejectionType.NOT_APPLICABLE
+            )
+            md.rejection_reason = rb.REJECTION_REASONS.get(rej, "")
+            if vt == int(ValueType.MESSAGE) and rej == rb.REJ_MSG_DUP:
+                md.rejection_type = RejectionType.BAD_VALUE
+                md.rejection_reason = (
+                    f"message with id '{value.message_id}' is already "
+                    "published"
+                )
+        record = Record(key=cols["key"][r], metadata=md, value=value)
+        record.source_record_position = sources[r]
+        return record
+
+    def _materialize_value(self, o, cols, r, names, meta):
+        """One emission row → its typed ``RecordValue`` only."""
+        vt = cols["vtype"][r]
+        rej = cols["rej"][r]
+        wf_slot = cols["wf"][r]
+        elem = cols["elem"][r]
+        payload = rb.columns_to_payload(
+            o["v_vt"][r], o["v_num"][r], o["v_str"][r], names, self.interns
+        )
+        workflow = (
+            meta.workflows[wf_slot]
+            if 0 <= wf_slot < len(meta.workflows)
+            else None
+        )
+        elem_id = meta.element_id(wf_slot, elem)
+        element = (
+            workflow.elements[elem] if workflow and 0 <= elem < len(workflow.elements)
+            else None
+        )
+
+        if vt == int(ValueType.WORKFLOW_INSTANCE):
+            value = WorkflowInstanceRecord(
+                bpmn_process_id=workflow.id if workflow else "",
+                version=workflow.version if workflow else -1,
+                workflow_key=workflow.key if workflow else -1,
+                workflow_instance_key=cols["instance_key"][r],
+                activity_id=elem_id,
+                payload=payload,
+                scope_instance_key=cols["scope_key"][r],
+            )
+        elif vt == int(ValueType.JOB):
+            value = JobRecord(
+                type=self.interns.string(cols["type_id"][r]) or "",
+                retries=cols["retries"][r],
+                deadline=cols["deadline"][r],
+                worker=self.interns.string(cols["worker"][r]) or "",
+                payload=payload,
+                custom_headers=dict(element.job_headers) if element else {},
+                headers=JobHeaders(
+                    workflow_instance_key=cols["instance_key"][r],
+                    bpmn_process_id=workflow.id if workflow else "",
+                    workflow_definition_version=workflow.version if workflow else -1,
+                    workflow_key=workflow.key if workflow else -1,
+                    activity_id=elem_id,
+                    activity_instance_key=cols["aux_key"][r],
+                ),
+            )
+        elif vt == int(ValueType.INCIDENT):
+            error_type, message = self._incident_error(o, r, element, payload, rej)
+            value = IncidentRecord(
+                error_type=int(error_type),
+                error_message=message,
+                bpmn_process_id=workflow.id if workflow else "",
+                workflow_instance_key=cols["instance_key"][r],
+                activity_id=elem_id,
+                activity_instance_key=cols["aux_key"][r],
+                job_key=cols["aux2_key"][r],
+                payload=payload,
+            )
+        elif vt == int(ValueType.TIMER):
+            value = TimerRecord(
+                workflow_instance_key=cols["instance_key"][r],
+                activity_instance_key=cols["aux_key"][r],
+                due_date=cols["deadline"][r],
+                handler_element_id=elem_id,
+            )
+        elif vt == int(ValueType.MESSAGE):
+            from zeebe_tpu_torch.protocol.records import MessageRecord
+
+            value = MessageRecord(
+                name=self.interns.string(cols["type_id"][r]) or "",
+                correlation_key=self._corr_string(
+                    cols["retries"][r], cols["worker"][r]
+                ),
+                time_to_live=max(cols["deadline"][r], 0),
+                payload=payload,
+                message_id=self.interns.string(cols["aux2_key"][r]) or "",
+            )
+        elif vt == int(ValueType.MESSAGE_SUBSCRIPTION):
+            from zeebe_tpu_torch.protocol.records import MessageSubscriptionRecord
+
+            value = MessageSubscriptionRecord(
+                workflow_instance_partition_id=cols["wf"][r],
+                workflow_instance_key=cols["instance_key"][r],
+                activity_instance_key=cols["aux_key"][r],
+                message_name=self.interns.string(cols["type_id"][r]) or "",
+                correlation_key=self._corr_string(
+                    cols["retries"][r], cols["worker"][r]
+                ),
+            )
+        elif vt == int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION):
+            from zeebe_tpu_torch.protocol.records import (
+                WorkflowInstanceSubscriptionRecord,
+            )
+
+            value = WorkflowInstanceSubscriptionRecord(
+                workflow_instance_key=cols["instance_key"][r],
+                activity_instance_key=cols["aux_key"][r],
+                message_name=self.interns.string(cols["type_id"][r]) or "",
+                payload=payload,
+                message_partition_id=cols["aux2_key"][r],
+                correlation_key=self._corr_string(
+                    cols["retries"][r], cols["worker"][r]
+                ),
+            )
+        else:
+            value = None
+        return value
+
+    def _corr_string(self, cvt: int, cbits: int) -> str:
+        """Correlation columns → the oracle's string form."""
+        from zeebe_tpu_torch.tpu.conditions import VT_BOOL, VT_STR
+
+        if cvt == int(VT_STR):
+            return self.interns.string(cbits) or ""
+        if cvt == int(VT_BOOL):
+            return str(bool(np.int32(cbits).view(np.float32)))
+        if cvt == 0:
+            return ""
+        f = float(np.int32(cbits).view(np.float32))
+        return str(int(f)) if f == int(f) else str(f)
+
+    def _incident_error(self, o, r, element, payload, rej):
+        """Reconstruct the oracle's exact incident error message by
+        re-running the failing host evaluation (the device only ships an
+        error code)."""
+        if rej == rb.ERR_CONDITION_NO_FLOW:
+            return (
+                ErrorType.CONDITION_ERROR,
+                "All conditions evaluated to false and no default flow is set.",
+            )
+        if rej == rb.ERR_CONDITION_EVAL and element is not None:
+            try:
+                for flow in element.outgoing_with_condition:
+                    evaluate_condition(flow.condition, payload)
+            except ConditionEvalError as e:
+                return ErrorType.CONDITION_ERROR, str(e)
+            return ErrorType.CONDITION_ERROR, "condition evaluation failed"
+        if rej in (rb.ERR_IO_MAPPING_IN, rb.ERR_IO_MAPPING_OUT) and element is not None:
+            mappings = (
+                element.input_mappings
+                if rej == rb.ERR_IO_MAPPING_IN
+                else element.output_mappings
+            )
+            try:
+                if rej == rb.ERR_IO_MAPPING_IN:
+                    extract(payload, mappings)
+                else:
+                    merge(payload, {}, mappings)
+            except MappingError as e:
+                return ErrorType.IO_MAPPING_ERROR, str(e)
+            return ErrorType.IO_MAPPING_ERROR, "io mapping failed"
+        if rej == rb.ERR_JOB_NO_RETRIES:
+            return ErrorType.JOB_NO_RETRIES, "No more retries left."
+        if rej == rb.ERR_CORRELATION_KEY:
+            path = getattr(element, "correlation_key_path", "") if element else ""
+            return (
+                ErrorType.IO_MAPPING_ERROR,
+                f"Failed to extract the correlation-key by '{path}'",
+            )
+        return ErrorType.UNKNOWN, ""

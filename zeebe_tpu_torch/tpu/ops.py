@@ -559,3 +559,97 @@ def delete(table: HashTable, keys: torch.Tensor, valid: torch.Tensor) -> HashTab
     else:
         table.keys.copy_(delete_reference(table, keys, valid).keys)
     return table
+
+
+# ---------------------------------------------------------------------------
+# boot self-check
+# ---------------------------------------------------------------------------
+
+_SELFCHECK_PASSED = False
+
+
+def _plain_set(table: torch.Tensor, slots, active, vals) -> torch.Tensor:
+    """The self-check's plain scatter: ``table[slots] = vals`` for active
+    records on a copy (the self-check's slots are distinct)."""
+    out = table.clone()
+    out[slots[active].to(torch.int64)] = vals[active].to(out.dtype)
+    return out
+
+
+def _plain_add(table: torch.Tensor, slots, active, vals) -> torch.Tensor:
+    out = table.clone()
+    out.index_put_((slots[active].to(torch.int64),), vals[active].to(out.dtype),
+                   accumulate=True)
+    return out
+
+
+def _selfcheck_on(device) -> None:
+    """Hold the insert, lookup, delete, row-update, lane-update and
+    lane-accumulate kernels against their plain versions on ``device``, bit
+    for bit, at the shapes and seed of ``pallas_ops.selfcheck`` in the JAX
+    package. Raises ``RuntimeError`` on any difference."""
+    import numpy as np
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(11)
+    t, b, k = 1 << 10, 1 << 8, 16
+
+    def on(a, dtype=None):
+        out = torch.from_numpy(np.asarray(a)).to(dev)
+        return out if dtype is None else out.to(dtype)
+
+    def eq(name, a, b_):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        b_ = b_.cpu().numpy() if isinstance(b_, torch.Tensor) else np.asarray(b_)
+        if a.shape != b_.shape or not (a == b_).all():
+            raise RuntimeError(
+                f"kernel selfcheck MISMATCH [{name}]: refusing to serve "
+                f"({a.ravel()[:4]} vs {b_.ravel()[:4]})"
+            )
+
+    def sorted_keys(table):
+        return torch.sort(table.keys).values
+
+    table = hashmap.make(t, device=dev)
+    keys = on(rng.choice(np.arange(1, 8 * t, 3, dtype=np.int64), b, replace=False))
+    vals = torch.arange(b, dtype=torch.int32, device=dev)
+    valid = on(rng.random(b) < 0.8)
+    t_x, ok_x = hashmap.insert(table, keys, vals, valid)
+    t_p = HashTable(table.keys.clone(), table.vals.clone())
+    t_p, ok_p = insert(t_p, keys, vals, valid)
+    eq("insert keyset", sorted_keys(t_x), sorted_keys(t_p))
+    eq("insert ok", ok_x, ok_p)
+    fx, sx = hashmap.lookup(t_p, keys, valid)
+    fp, sp = lookup(t_p, keys, valid)
+    eq("lookup found", fx, fp)
+    eq("lookup slots", torch.where(fx, sx, -1), torch.where(fp, sp, -1))
+    d_x = hashmap.delete(t_x, keys, valid)
+    d_p = delete(t_p, keys, valid)
+    eq("delete keyset", sorted_keys(d_x), sorted_keys(d_p))
+
+    tbl = on(rng.integers(0, 100, (t, k)), torch.int32)
+    slots = on(rng.choice(t, b, replace=False), torch.int32)
+    active = on(rng.random(b) < 0.7)
+    rows = on(rng.integers(0, 1000, (b, k)), torch.int32)
+    eq("row update", _plain_set(tbl, slots, active, rows),
+       masked_row_update(tbl.clone(), slots, active, rows))
+
+    t1 = on(rng.integers(0, 100, (t,)), torch.int32)
+    lvals = on(rng.integers(0, 9, (b,)), torch.int32)
+    eq("lane update", _plain_set(t1, slots, active, lvals),
+       masked_lane_update(t1.clone(), slots, active, lvals))
+    eq("lane accum", _plain_add(t1, slots, active, lvals),
+       masked_lane_accum(t1.clone(), slots, active, lvals))
+
+
+def selfcheck() -> None:
+    """The boot self-check (``pallas_ops.selfcheck`` in the JAX package):
+    run once per process before a CUDA-backed engine serves, so a kernel
+    that computes wrong on this card refuses to serve instead of corrupting
+    partition state. Nothing to check without a CUDA device: the CPU runs
+    the plain versions themselves."""
+    global _SELFCHECK_PASSED
+    if _SELFCHECK_PASSED or not torch.cuda.is_available():
+        return
+    _selfcheck_on(torch.device("cuda", torch.cuda.current_device()))
+    _SELFCHECK_PASSED = True

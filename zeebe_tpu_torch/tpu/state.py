@@ -404,15 +404,20 @@ def rebuild_lookup_state(state: EngineState) -> EngineState:
 def state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
     """Every table as a numpy array, keyed by field name; hash tables as
     ``"<field>.keys"`` / ``"<field>.vals"`` (the layout of the JAX engine's
-    ``snapshot_state`` arrays)."""
+    ``snapshot_state`` arrays). The arrays are copies on both devices, so a
+    later in-place step leaves them as they were."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", copy=True).numpy()
+
     out: Dict[str, np.ndarray] = {}
     for name in STATE_FIELDS:
         value = getattr(state, name)
         if isinstance(value, hashmap.HashTable):
-            out[f"{name}.keys"] = value.keys.cpu().numpy()
-            out[f"{name}.vals"] = value.vals.cpu().numpy()
+            out[f"{name}.keys"] = host(value.keys)
+            out[f"{name}.vals"] = host(value.vals)
         else:
-            out[name] = value.cpu().numpy()
+            out[name] = host(value)
     return out
 
 
