@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA engine (``zeebe_tpu_torch``).
 
-Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card at the main paths'
-shapes (phase 2), checks the drive loop on the card bit-equal to the same
-loop on the CPU (phase 3), then drives, at the benchmark's accelerator
-width and through the package's own entry points, config 1 (the
-order-process: start → service task "payment-service" → end; phase 4) and
-config 3 (parallel fork/join: start → fork → two service tasks → join →
-end; phase 5), both with synthetic instant workers, and shows from the
-launch counters that each run went through every kernel of its path.
-Phase 6 serves both configs through the port's in-process ``Broker`` with
-``CudaPartitionEngine`` — client → log → engine → job pushed to a worker →
-completion → log — at the serving benchmark's sizes: the first engine's
-construction runs the boot self-check (insert, lookup, delete, row update,
-lane update and lane accumulate against their plain versions, bit for
-bit); 6a checks every instance completed device-served with every kernel
-of the path launched, and 6b a credit-drought run's log on the card equal
-to the same run's on the CPU.
+Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc`` (phase
+1), holds each of the 13 kernel wrappers against its plain PyTorch
+version on the card at the main paths' shapes (phase 2), checks the drive
+loop on the card bit-equal to the same loop on the CPU on configs 1, 3
+and 2 and an I/O-mapping graph, and one mixed and one timer step (phase
+3), then drives, at the benchmark's accelerator width and through the
+package's own entry points, config 1 (the order-process: start → service
+task "payment-service" → end; phase 4), config 3 (parallel fork/join;
+phase 5) and config 2 (an exclusive gateway with a json-el condition;
+phase 5b), all with synthetic instant workers, and shows from the launch
+counters that each run went through every kernel of its path, exactly as
+often as its rounds and rebuilds ask. Phase 6 serves through the port's
+in-process ``Broker`` with ``CudaPartitionEngine`` — client → log →
+engine → job pushed to a worker → completion → log: the first engine's
+construction runs the boot self-check (insert, lookup, delete, row
+update, lane update and lane accumulate against their plain versions,
+bit for bit); 6a serves configs 1, 3 and 2 and a timer-catch workflow
+(the clock moved past the timers) and checks every instance completed
+device-served with every kernel of the path launched; 6b checks
+credit-drought logs on the card equal to the same runs' on the CPU, and
+config 2's and the timers' equal to the port's host oracle at full
+credit. Phase 7 runs the primitive-cost probe (``zeebe_tpu_torch.probe``:
+the row loop and the hash probe against ``index_put_``).
 
     python3 chip_smoke.py                     # the full check, one CUDA card
-    python3 chip_smoke.py --profile --out F   # + one wave of each config under
+    python3 chip_smoke.py --profile --out F   # + one wave of each config and one
+                                              #   eval_programs call under
                                               #   torch.profiler, every number
                                               #   written to F (JSON)
 
@@ -46,15 +53,24 @@ import traceback
 # that moves bytes and does no arithmetic to speak of is bytes over this
 HBM_BYTES_PER_S = 3.35e12
 
-# configs 1 and 3 at the benchmark's accelerator settings (bench.py:2292,
-# run_device_config at bench.py:1372; config 3 runs side_total =
+# configs 1, 2 and 3 at the benchmark's accelerator settings (bench.py:2292,
+# run_device_config at bench.py:1372; configs 2 and 3 run side_total =
 # total_instances // 4 instances, bench.py:2381)
 WAVE = 1 << 14
 INSTANCES = 1 << 20
+INSTANCES_C2 = 1 << 18
 INSTANCES_C3 = 1 << 18
 CAP_FACTOR = 4
 TRANSITIONS_PER_INSTANCE = 20
+TRANSITIONS_PER_INSTANCE_C2 = 22
 TRANSITIONS_PER_INSTANCE_C3 = 36
+# records of a config-2 instance whose orderValue is absent: the condition
+# errors and the incident stops it at the gateway
+TRANSITIONS_CONDITION_INCIDENT = 8
+# the I/O-mapping graph: records of an instance that runs to the end, and
+# of one stopped by the input-mapping incident (no orderValue)
+MAPPING_PER_INSTANCE = 20
+MAPPING_PER_STOPPED = 8
 REBUILD_EVERY = 3
 # the device functions of zeebe_tpu_torch/csrc, as the profiler names them
 OUR_KERNELS = ("gather_rows_kernel", "set_claim_kernel", "set_write_kernel",
@@ -155,6 +171,72 @@ def config3_model():
     return builder.done()
 
 
+def config2_model():
+    """Config 2 (bench.py:53 ``build_graph_xor``): an exclusive gateway
+    sends orderValue > 50 to one service task and, by default, the rest to
+    another (BASELINE.json configs[1])."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    builder = (
+        Bpmn.create_process("xor-process")
+        .start_event("start")
+        .exclusive_gateway("split")
+    )
+    builder.branch("$.orderValue > 50").service_task(
+        "big", type="payment-service"
+    ).end_event("end-big")
+    builder.branch(default=True).service_task(
+        "small", type="payment-service"
+    ).end_event("end-small")
+    return builder.done()
+
+
+def mapping_model():
+    """A service task with input and output mappings (the has_mappings
+    gate): orderValue → amount and orderId → ref in, amount → outcome out;
+    an instance without orderValue raises the input-mapping incident."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    return (
+        Bpmn.create_process("mapped")
+        .start_event("start")
+        .service_task("work", type="payment-service",
+                      inputs=[("$.orderValue", "$.amount"), ("$.orderId", "$.ref")],
+                      outputs=[("$.amount", "$.outcome")])
+        .end_event("end")
+        .done()
+    )
+
+
+TIMER_MS = 10_000
+
+
+def timer_model():
+    """start → 10 s timer catch event → service task → end (the has_timers
+    gate; ``timer_process`` of tests/test_torch_serving.py with the
+    benchmark's job type)."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    return (
+        Bpmn.create_process("timed")
+        .start_event("start")
+        .timer_catch_event("wait", duration_ms=TIMER_MS)
+        .service_task("after", type="payment-service")
+        .end_event("end")
+        .done()
+    )
+
+
+def mixed_order_values(n, seed=0):
+    """(orderValue per instance, absent mask): 10 or 99 in turns drawn from
+    ``seed``, absent in about one of eight — the default flow, the
+    conditioned flow and the condition-error incident all run."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.choice([10.0, 99.0], size=n), rng.random(n) < 0.125
+
+
 def config_graph(device, model_fn=config1_model):
     from zeebe_tpu_torch.models.transform.transformer import transform_model
     from zeebe_tpu_torch.tpu import graph as graph_mod
@@ -189,8 +271,10 @@ def config_state(meta, capacity, num_vars, device):
     return state
 
 
-def config_creates(meta, wave, num_vars, device):
-    """A wave of CREATE commands with payload {orderId, orderValue}."""
+def config_creates(meta, wave, num_vars, device, mixed=False):
+    """A wave of CREATE commands with payload {orderId, orderValue}:
+    orderValue 99.0 as ``bench.stage_creates`` makes it, or with ``mixed``
+    the values of ``mixed_order_values``."""
     import torch
 
     from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
@@ -210,12 +294,16 @@ def config_creates(meta, wave, num_vars, device):
     b.v_vt[:, oval] = VT_NUM
     b.v_num[:, oid] = torch.arange(wave, dtype=torch.float32, device=b.device)
     b.v_num[:, oval] = 99.0
+    if mixed:
+        values, absent = mixed_order_values(wave)
+        b.v_num[:, oval] = torch.from_numpy(values.astype("float32")).to(b.device)
+        b.v_vt[torch.from_numpy(absent).to(b.device), oval] = 0  # VT_ABSENT
     return b
 
 
-def config_setup(wave, device, model_fn=config1_model):
+def config_setup(wave, device, model_fn=config1_model, mixed=False):
     """Graph, meta, state, queue and a CREATE wave for config 1 (or, with
-    ``model_fn=config3_model``, config 3: the same settings)."""
+    ``model_fn`` another config's model, that config: the same settings)."""
     from zeebe_tpu_torch.tpu import drive
 
     graph, meta = config_graph(device, model_fn)
@@ -223,12 +311,12 @@ def config_setup(wave, device, model_fn=config1_model):
     state = config_state(meta, CAP_FACTOR * wave, num_vars, device)
     queue = drive.make_queue(4 * wave * max(2, graph.emit_width), num_vars,
                              device=device)
-    return graph, state, queue, config_creates(meta, wave, num_vars, device)
+    return graph, state, queue, config_creates(meta, wave, num_vars, device, mixed)
 
 
 def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
-                 rebuild_every=REBUILD_EVERY):
-    """Config 1 (or 3) through the package's entry points: compile the
+                 rebuild_every=REBUILD_EVERY, mixed=False):
+    """Config 1 (or another) through the package's entry points: compile the
     graph, make the state and queue, then per wave enqueue CREATEs and
     drive to quiescence with synthetic workers; rebuild the lookup state
     after the first wave and every ``rebuild_every`` waves after it.
@@ -238,7 +326,7 @@ def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
 
     from zeebe_tpu_torch.tpu import drive, state as state_mod
 
-    graph, state, queue, creates = config_setup(wave, device, model_fn)
+    graph, state, queue, creates = config_setup(wave, device, model_fn, mixed)
     totals = {"processed": 0, "emitted": 0, "completed_roots": 0, "rounds": 0}
     t0 = None
     for i in range(waves):
@@ -310,6 +398,38 @@ def _device_events(prof):
     events = [e for e in prof.key_averages()
               if dev_us(e) > 0 and e.device_type != torch.autograd.DeviceType.CPU]
     return events, dev_us
+
+
+def profile_eval_programs(wave):
+    """One ``conditions.eval_programs`` call of config 2's split gateway at
+    wave width (B = ``wave`` records × its flows) alone: CUDA-event ms and,
+    under torch.profiler, device ms and device ops. Every round of a
+    config-2 step runs it once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeebe_tpu_torch.tpu.conditions import eval_programs
+
+    graph, meta = config_graph("cuda", config2_model)
+    creates = config_creates(meta, wave, graph.num_vars, "cuda", mixed=True)
+    fan, v = graph.cond_flows.shape[2], graph.num_vars
+    cprog = graph.cond_prog[0, meta.elem_idx[0]["split"]][None, :].expand(wave, fan)
+
+    def call():
+        return eval_programs(graph.progs, graph.lit_nums, cprog,
+                             creates.v_vt[:, None, :].expand(wave, fan, v),
+                             creates.v_num[:, None, :].expand(wave, fan, v),
+                             creates.v_str[:, None, :].expand(wave, fan, v))
+
+    ms = time_ms(call)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events, dev_us = _device_events(prof)
+    return {"wave": wave, "flows": fan, "program_length": graph.progs.shape[1],
+            "ms": ms, "device_ms": sum(dev_us(e) for e in events) / 1e3,
+            "device_launches": sum(e.count for e in events)}
 
 
 def profile_selfcheck():
@@ -805,6 +925,123 @@ def check_delete(dev, gen):
     }
 
 
+def check_row_loop(dev, gen):
+    """The probe's row loop at its own sizes (B = 2^14 random indices into
+    CAP = 2^16 rows of K = 128 int32: about 1,700 rows named more than
+    once), n_writes 1 and 10, from a random table: bit-equal in place."""
+    import torch
+
+    from zeebe_tpu_torch import probe
+
+    b, cap, k = probe.B, probe.CAP, probe.K
+    base = torch.randint(-2**31, 2**31 - 1, (cap, k), generator=gen,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    idx = torch.randint(0, cap, (b,), generator=gen, dtype=torch.int32).to(dev)
+    rows = torch.randint(-2**31, 2**31 - 1, (b, k), generator=gen,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    err = 0.0
+    for n in (1, 10):
+        got = probe.row_loop(base.clone(), idx, rows, n)
+        want = probe.row_loop_reference(base.clone(), idx, rows, n)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([got], [want]))
+    if err != 0.0:
+        raise AssertionError(f"row_loop differs from its plain version: {err}")
+    distinct = int(torch.unique(idx).numel())
+    # the indices, the winners' rows in, the written rows out
+    nbytes = b * 4 + 2 * distinct * k * 4
+    work, plain, lib = base.clone(), base.clone(), base.clone()
+    return {
+        "name": "row_loop", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/probe.cu",
+        "replaces": "benchmarks/pallas_probe.py:62",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: probe.row_loop(work, idx, rows, 1)),
+        "ms_w10": time_ms(lambda: probe.row_loop(work, idx, rows, 10)),
+        "plain_ms": time_ms(lambda: probe.row_loop_reference(plain, idx, rows, 1)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # one index_put_ row scatter (it orders no duplicates: timed only)
+        "library_ms": time_ms(lambda: probe.index_put_chain(lib, idx, rows, 1)),
+        "shape": f"B={b} into [{cap}, {k}] i32 ({b - distinct} repeats), n_writes 1 and 10",
+    }
+
+
+def _probe_cases(dev, gen):
+    """The probe's two tables with B = 2^14 keys each: the script's own
+    (key k at index k for every third k: keys away from their hash) and a
+    half-full table filled by the probe's hash with linear probing (half
+    the keys present)."""
+    import numpy as np
+    import torch
+
+    from zeebe_tpu_torch import probe
+
+    b, cap = probe.B, probe.CAP
+    keys = torch.randint(0, cap, (b,), generator=gen, dtype=torch.int32).to(dev)
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen)))
+    present = rng.choice(2**31 - 1, cap // 2, replace=False)
+    mixed = np.concatenate([rng.choice(present, b // 2),
+                            rng.integers(-2**31, 0, size=b // 2)]).astype(np.int32)
+    return [
+        ("script table", keys, probe.script_table(cap).to(dev)),
+        ("hashed table", torch.from_numpy(mixed).to(dev),
+         torch.from_numpy(probe.hashed_table(present, cap)).to(dev)),
+    ]
+
+
+def _probe_reads(keys, tkeys) -> int:
+    """Table buckets the probe of ``keys`` reads (this data's chains)."""
+    import torch
+
+    from zeebe_tpu_torch import probe
+
+    cap = tkeys.shape[0]
+    h = probe._home(keys, cap)
+    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    reads = 0
+    for j in range(probe.PROBES):
+        tk = tkeys[(h + j) & (cap - 1)]
+        reads += int((~done).sum())
+        done = done | (tk == keys) | (tk == probe.EMPTY)
+    return reads
+
+
+def check_probe(dev, gen):
+    """The probe on both tables: bit-equal slots; timed on the hashed
+    table (the script's table is almost all first-probe misses)."""
+    import torch
+
+    from zeebe_tpu_torch import probe
+
+    cases = _probe_cases(dev, gen)
+    err = 0.0
+    hits = {}
+    for name, keys, tkeys in cases:
+        got = probe.probe(keys, tkeys)
+        want = probe.probe_reference(keys, tkeys)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([got], [want]))
+        hits[name] = int((want >= 0).sum())
+    if err != 0.0:
+        raise AssertionError(f"probe differs from its plain version: {err}")
+    (_, script_keys, script_table), (_, keys, tkeys) = cases
+    b = keys.shape[0]
+    # keys in, slots out, one 4-byte bucket per probe step this data takes
+    nbytes = b * 8 + _probe_reads(keys, tkeys) * 4
+    return {
+        "name": "probe", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/probe.cu",
+        "replaces": "benchmarks/pallas_probe.py:116",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: probe.probe(keys, tkeys)),
+        "ms_script_table": time_ms(lambda: probe.probe(script_keys, script_table)),
+        "plain_ms": time_ms(lambda: probe.probe_reference(keys, tkeys)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call probes a linear-probe table
+        "shape": f"B={b} keys into T={tkeys.shape[0]} i32; hits {hits}",
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the whole path on the card against the same path on the CPU
 # ---------------------------------------------------------------------------
@@ -817,22 +1054,51 @@ CONFIG3_KERNELS = CONFIG1_KERNELS + (
     "masked_row_update", "masked_row_max", "masked_lane_update",
     "masked_vec64_update", "delete",
 )
+TIMER_KERNELS = CONFIG1_KERNELS + ("delete",)
+PROBE_KERNELS = ("row_loop", "probe")
+# exact launches of a drive: per round of the step, and per lookup-state
+# rebuild (one insert for each of the six maps); config 2 runs config 1's
+# kernels (the condition programs are plain PyTorch)
+PER_ROUND = {
+    "config1": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 2},
+    "config3": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 4,
+                "masked_row_update": 3, "masked_row_max": 2, "masked_lane_update": 2,
+                "masked_vec64_update": 2, "insert": 1, "delete": 1},
+}
+PER_ROUND["config2"] = PER_ROUND["config1"]
+INSERTS_PER_REBUILD = 6
 
 
-def drive_path(model_fn, instances, per_instance, path):
+def reset_launches() -> None:
+    from zeebe_tpu_torch import probe
+    from zeebe_tpu_torch.tpu import ops
+
+    ops.reset_launches()
+    probe.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launches since the last reset: the 11 of ``ops``
+    and the 2 of ``probe``."""
+    from zeebe_tpu_torch import probe
+    from zeebe_tpu_torch.tpu import ops
+
+    return {**ops.LAUNCHES, **probe.LAUNCHES}
+
+
+def drive_path(label, model_fn, instances, per_instance, path):
     """One config at the benchmark's width on the card, the launch counters
     zeroed just before and read just after: every instance completed,
     ``per_instance`` records processed per instance, no overflow (the drive
-    loop raises on one), and every kernel of ``path`` launched."""
+    loop raises on one), every kernel of ``path`` launched, and each
+    wrapper launched exactly as often as the rounds and rebuilds ask."""
     import torch
-
-    from zeebe_tpu_torch.tpu import ops
 
     waves = instances // WAVE
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    reset_launches()
     _state, totals, elapsed = drive_config(waves, WAVE, "cuda", model_fn=model_fn)
-    launches = dict(ops.LAUNCHES)
+    launches = launch_counts()
     if totals["completed_roots"] != instances:
         raise AssertionError(f"completed {totals['completed_roots']} != {instances}")
     if totals["processed"] != per_instance * instances:
@@ -840,6 +1106,14 @@ def drive_path(model_fn, instances, per_instance, path):
     zero = [k for k in path if launches[k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: {zero}")
+    rebuilds = len(range(0, waves, REBUILD_EVERY))
+    want = {k: 0 for k in launches}
+    for k, n in PER_ROUND[label].items():
+        want[k] = n * totals["rounds"]
+    want["insert"] += INSERTS_PER_REBUILD * rebuilds
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want} "
+                             f"({totals['rounds']} rounds, {rebuilds} rebuilds)")
     timed = (waves - 1) * WAVE * per_instance
     return {
         "waves": waves, "wave": WAVE, "instances": instances,
@@ -850,7 +1124,11 @@ def drive_path(model_fn, instances, per_instance, path):
 
 
 def parity(wave=1024, waves=3, model_fn=config1_model,
-           per_instance=TRANSITIONS_PER_INSTANCE, rebuild_every=REBUILD_EVERY):
+           per_instance=TRANSITIONS_PER_INSTANCE, rebuild_every=REBUILD_EVERY,
+           mixed=False, per_stopped=0):
+    """Drive a config on the card and on the CPU: bit-equal state and
+    totals, ``per_instance`` records per instance (``per_stopped`` for the
+    instances ``mixed`` leaves without orderValue)."""
     import numpy as np
 
     from zeebe_tpu_torch.tpu import state as state_mod
@@ -858,7 +1136,7 @@ def parity(wave=1024, waves=3, model_fn=config1_model,
     results = {}
     for device in ("cuda", "cpu"):
         st, totals, _ = drive_config(waves, wave, device, model_fn=model_fn,
-                                     rebuild_every=rebuild_every)
+                                     rebuild_every=rebuild_every, mixed=mixed)
         results[device] = (state_mod.state_to_numpy(st), totals)
     (a, ta), (c, tc) = results["cuda"], results["cpu"]
     if ta != tc:
@@ -867,8 +1145,11 @@ def parity(wave=1024, waves=3, model_fn=config1_model,
            or not np.array_equal(a[k], c[k])]
     if bad:
         raise AssertionError(f"state differs between cuda and cpu: {bad}")
-    if ta["processed"] != per_instance * wave * waves:
-        raise AssertionError(f"processed {ta['processed']} != {per_instance} x {wave * waves}")
+    stopped = int(mixed_order_values(wave)[1].sum()) if mixed else 0
+    want = waves * (per_instance * (wave - stopped) + per_stopped * stopped)
+    if ta["processed"] != want or ta["completed_roots"] != waves * (wave - stopped):
+        raise AssertionError(f"totals {ta}: processed != {want} or completed != "
+                             f"{waves * (wave - stopped)}")
     return ta
 
 
@@ -954,15 +1235,65 @@ def parity_mixed(capacity=8192, size=4096, seed=7):
     the large-batch branches): state, emissions and stats bit-equal."""
     import numpy as np
 
+    st, cols = mixed_case(np.random.default_rng(seed), capacity, size)
+    return parity_step(config_graph, st, cols, 5_000)[0]
+
+
+def timer_step_case(waiting=200, size=4096, seed=11):
+    """numpy arrays of a timer-graph state where ``waiting`` instances wait
+    on their timers (driven there on the CPU), and a batch of TIMER
+    commands: CREATEs, TRIGGERs of live timers and of an unknown key, two
+    CANCEL rows for one key, a TRIGGER and a CANCEL of one key, padded to
+    ``size`` rows (B > 2048: the large-batch branches)."""
+    import numpy as np
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import TimerIntent as TI
+    from zeebe_tpu_torch.tpu import batch as rb, state as state_mod
+
+    st, _totals, _ = drive_config(1, waiting, "cpu", model_fn=timer_model)
+    st = state_mod.state_to_numpy(st)
+    live = np.nonzero(st["timer_key"] >= 0)[0]
+    if len(live) != waiting:
+        raise AssertionError(f"{len(live)} live timers, {waiting} expected")
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(live)
+    rows = ([(TI.CREATE, s) for s in slots[:16]] + [(TI.TRIGGER, None)]
+            + [(TI.CANCEL, slots[16]), (TI.CANCEL, slots[16])]
+            + [(TI.TRIGGER, slots[17]), (TI.CANCEL, slots[17])]
+            + [(TI.TRIGGER, s) for s in slots[18:]])
+    cols = rb.batch_to_numpy(rb.empty(size, 8, device="cpu"))
+    at = rng.choice(size, len(rows), replace=False)  # spread over the batch
+    for i, (intent, slot) in zip(np.sort(at), rows):
+        cols["valid"][i] = True
+        cols["rtype"][i] = int(RecordType.COMMAND)
+        cols["vtype"][i] = int(ValueType.TIMER)
+        cols["intent"][i] = int(intent)
+        if slot is None:
+            cols["key"][i] = 5 * 10**9 + 3  # no timer has this key
+            continue
+        cols["key"][i] = -1 if intent == TI.CREATE else st["timer_key"][slot]
+        cols["aux_key"][i] = st["timer_aik"][slot]
+        cols["instance_key"][i] = st["timer_instance_key"][slot]
+        cols["deadline"][i] = st["timer_due"][slot] + (TIMER_MS if intent == TI.CREATE else 0)
+        cols["wf"][i] = st["timer_wf"][slot]
+        cols["elem"][i] = st["timer_elem"][slot]
+    return st, cols
+
+
+def parity_step(graph_fn, st, cols, now):
+    """One step of ``graph_fn()``'s graph on the card and on the CPU from
+    the same numpy state and batch: state, emissions and stats bit-equal."""
+    import numpy as np
+
     from zeebe_tpu_torch.tpu import batch as rb, kernel, state as state_mod
 
-    st, cols = mixed_case(np.random.default_rng(seed), capacity, size)
     out = {}
     for device in ("cuda", "cpu"):
-        graph, _meta = config_graph(device)
+        graph, _meta = graph_fn(device)
         s, e, stats = kernel.step_kernel(
             graph, state_mod.state_from_numpy(st, device=device),
-            rb.batch_from_numpy(cols, device=device), 5_000, synthetic_workers=True)
+            rb.batch_from_numpy(cols, device=device), now, synthetic_workers=True)
         out[device] = ({**state_mod.state_to_numpy(s), **{
             "emit." + k: v for k, v in rb.batch_to_numpy(e).items()}},
             {k: int(v) for k, v in stats.items()})
@@ -971,8 +1302,21 @@ def parity_mixed(capacity=8192, size=4096, seed=7):
            or not np.array_equal(np.atleast_1d(a[k]).view(np.uint8),
                                  np.atleast_1d(c[k]).view(np.uint8))]
     if bad or sa != sc:
-        raise AssertionError(f"mixed step differs between cuda and cpu: {bad} {sa} {sc}")
-    return sa
+        raise AssertionError(f"step differs between cuda and cpu: {bad} {sa} {sc}")
+    return sa, a
+
+
+def parity_timer_step():
+    """Phase 3's timer step: the live-timer lookup, CREATE into the timer
+    table and map, TRIGGER (found, unknown), duplicate CANCELs."""
+    st, cols = timer_step_case()
+    stats, out = parity_step(lambda device: config_graph(device, timer_model),
+                             st, cols, 1_000_000 + TIMER_MS)
+    # left: the 16 timers the CREATE rows were modelled on and the 16 new
+    live = int((out["timer_key"] >= 0).sum())
+    if live != 32 or stats["overflow"]:
+        raise AssertionError(f"timer table after the step: {live} live timers, {stats}")
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -989,9 +1333,15 @@ SERVE_CREDITS = 256
 SERVE_CAPACITY = 4096
 SERVE_INSTANCES = 2048
 SERVE_INSTANCES_C3 = SERVE_INSTANCES // 4
+# config 2 and the timer workflow at the same quarter
+SERVE_INSTANCES_C2 = SERVE_INSTANCES // 4
+SERVE_INSTANCES_TIMER = SERVE_INSTANCES // 4
+# signature records per served timer instance
+SIGNATURE_PER_TIMER_INSTANCE = 29
 # the wrappers a served wave of each config must launch; the boot
 # self-check's own
-SERVING_KERNELS = {"config1": CONFIG1_KERNELS, "config3": CONFIG3_KERNELS}
+SERVING_KERNELS = {"config1": CONFIG1_KERNELS, "config2": CONFIG1_KERNELS,
+                   "config3": CONFIG3_KERNELS, "timers": TIMER_KERNELS}
 SELFCHECK_KERNELS = ("insert", "lookup", "delete", "masked_row_update",
                      "masked_lane_update", "masked_lane_accum")
 
@@ -1025,14 +1375,26 @@ def record_signature(records):
     return out
 
 
+def order_payload(i):
+    """The served CREATE payload: bench.stage_creates' {orderId, orderValue 99}."""
+    return {"orderId": i, "orderValue": 99}
+
+
+def alternating_payload(i):
+    """orderValue 99 and 10 in turns: config 2's two branches."""
+    return {"orderId": i, "orderValue": (99, 10)[i % 2]}
+
+
 def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
-          capacity=SERVE_CAPACITY):
+          capacity=SERVE_CAPACITY, payload=order_payload, advance_ms=0):
     """Serve ``instances`` instances of one config through the port's
-    in-process Broker on ``device``: deploy through the client, one job
-    worker, a burst of CREATE commands written to the log at once, one
-    drain, then ticks (each drains) until a tick adds no record. Closes the
-    broker and returns its engine, its log, the wall seconds from the first
-    CREATE to the last record, and the number of ticks."""
+    in-process Broker on ``device`` ("cuda", "cpu", or "oracle": the port's
+    copy of the host oracle engine instead of CudaPartitionEngine): deploy
+    through the client, one job worker, a burst of CREATE commands written
+    to the log at once, one drain, the clock moved on by ``advance_ms``,
+    then ticks (each drains) until a tick adds no record. Closes the broker
+    and returns its engine, its log, the wall seconds from the first CREATE
+    to the last record, and the number of ticks."""
     import tempfile
 
     import torch
@@ -1049,9 +1411,11 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
     broker = Broker(
         num_partitions=1, clock=clock,
         data_dir=tempfile.mkdtemp(prefix="serve-", dir=workdir),
-        engine_factory=lambda pid: CudaPartitionEngine(
-            pid, 1, repository=repo, clock=clock, capacity=capacity,
-            num_vars=16, sub_capacity=16, device=device,
+        engine_factory=None if device == "oracle" else (
+            lambda pid: CudaPartitionEngine(
+                pid, 1, repository=repo, clock=clock, capacity=capacity,
+                num_vars=16, sub_capacity=16, device=device,
+            )
         ),
     )
     engine = broker.partitions[0].engine
@@ -1061,14 +1425,15 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
               credits=credits)
     process_id = model.processes[0].id
     log_ = broker.partitions[0].log
-    if device != "cpu":
+    if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(instances):
         broker.write_command(0, WorkflowInstanceRecord(
-            bpmn_process_id=process_id, payload={"orderId": i, "orderValue": 99},
+            bpmn_process_id=process_id, payload=payload(i),
         ), WI.CREATE)
     broker.run_until_idle()
+    clock.advance(advance_ms)
     ticks = 0
     while True:
         before = log_.next_position
@@ -1077,7 +1442,7 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
         ticks += 1
         if log_.next_position == before:
             break
-    if device != "cpu":
+    if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     records = broker.records(0)
@@ -1085,19 +1450,20 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
     return engine, records, wall, ticks
 
 
-def serve_checked(label, model_fn, instances, per_instance, workdir):
+def serve_checked(label, model_fn, instances, per_instance, workdir,
+                  payload=order_payload, advance_ms=0):
     """Phase 6a for one config on the card, the launch counters zeroed
     just before and read just after."""
     import torch
 
     from zeebe_tpu_torch.protocol.enums import ValueType
     from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
-    from zeebe_tpu_torch.tpu import ops
 
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    engine, records, wall, ticks = serve(model_fn, instances, "cuda", workdir)
-    launches = dict(ops.LAUNCHES)
+    reset_launches()
+    engine, records, wall, ticks = serve(model_fn, instances, "cuda", workdir,
+                                         payload=payload, advance_ms=advance_ms)
+    launches = launch_counts()
     sig = record_signature(records)
     completed = sum(
         1 for r in records
@@ -1127,7 +1493,40 @@ def serve_checked(label, model_fn, instances, per_instance, workdir):
         "host_records": engine.host_records_processed, "ticks": ticks,
         "wall_seconds": wall, "records_per_sec": len(records) / wall,
         "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "signature": sig,
     }
+
+
+def _same_log(label, a, b, what):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            raise AssertionError(f"{label}: {what} differ at signature record {i}: "
+                                 f"{x} vs {y}")
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {what} differ in length: {len(a)} vs {len(b)}")
+
+
+def serve_parity_with_oracle(label, model_fn, cuda_sig, instances, workdir,
+                             payload=order_payload, advance_ms=0):
+    """Phase 6b for a served run of 6a: the same scenario on the CPU writes
+    the card's log signature; and with credits for every instance, the card
+    and the port's host oracle write the same log. (In a credit drought the
+    JAX engine, which the port follows, and the oracle re-assign stranded
+    jobs in another order: ROADMAP's note on the reference.)"""
+    out = {"instances": instances, "signature_records": len(cuda_sig)}
+    _engine, records, out["cpu_seconds"], _ticks = serve(
+        model_fn, instances, "cpu", workdir, payload=payload, advance_ms=advance_ms)
+    _same_log(label, cuda_sig, record_signature(records), "cuda and cpu logs")
+    sigs = {}
+    for device in ("cuda", "oracle"):
+        _engine, records, out[device + "_full_credit_seconds"], _ticks = serve(
+            model_fn, instances, device, workdir, credits=instances, payload=payload,
+            advance_ms=advance_ms)
+        sigs[device] = record_signature(records)
+    _same_log(label, sigs["cuda"], sigs["oracle"],
+              f"cuda and oracle logs at {instances} credits")
+    out["full_credit_signature_records"] = len(sigs["cuda"])
+    return out
 
 
 def serve_parity(workdir, instances=SERVE_INSTANCES_C3):
@@ -1179,7 +1578,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[1] kernels built in {build_s:.2f} s (nvcc wall {_build.last_build_seconds:.2f} s)")
+    log(f"[1] {len(_build.SOURCES)} kernel libraries built in {build_s:.2f} s "
+        f"(nvcc wall {_build.last_build_seconds:.2f} s)")
     for name, out in _build.ptxas_reports.items():
         for line in out.splitlines():
             if "registers" in line or "error" in line.lower():
@@ -1189,7 +1589,7 @@ def main(argv) -> int:
     gen = torch.Generator().manual_seed(1234)
     kernels = []
     for check in (check_gather, check_commit, check_lookup, check_scatters,
-                  check_insert, check_delete):
+                  check_insert, check_delete, check_row_loop, check_probe):
         rows = check("cuda", gen)
         for row in rows if isinstance(rows, list) else [rows]:
             kernels.append(row)
@@ -1199,6 +1599,9 @@ def main(argv) -> int:
             if "rebuild_ms" in row:
                 log(f"    rebuild shape: kernel {row['rebuild_ms']:.4f} ms, "
                     f"plain {row['rebuild_plain_ms']:.4f} ms")
+            for extra in ("ms_w10", "ms_script_table"):
+                if extra in row:
+                    log(f"    {extra}: kernel {row[extra]:.4f} ms")
 
     t0 = time.perf_counter()
     ptot = parity()
@@ -1212,25 +1615,46 @@ def main(argv) -> int:
         f"wave: cuda == cpu, bit-equal state and totals {ptot3} "
         f"({time.perf_counter() - t0:.1f} s)")
     report["parity_totals_config3"] = ptot3
+    t0 = time.perf_counter()
+    ptot2 = parity(model_fn=config2_model, per_instance=TRANSITIONS_PER_INSTANCE_C2,
+                   mixed=True, per_stopped=TRANSITIONS_CONDITION_INCIDENT)
+    log(f"[3] config 2, 3 waves x 1024 at capacity 4096, orderValue 10 / 99 / "
+        f"absent: cuda == cpu, bit-equal state and totals {ptot2} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["parity_totals_config2"] = ptot2
+    t0 = time.perf_counter()
+    ptotm = parity(model_fn=mapping_model, per_instance=MAPPING_PER_INSTANCE,
+                   mixed=True, per_stopped=MAPPING_PER_STOPPED)
+    log(f"[3] I/O-mapping graph, 3 waves x 1024 at capacity 4096 (missing "
+        f"source: incident): cuda == cpu, bit-equal state and totals {ptotm} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["parity_totals_mapping"] = ptotm
     mstats = parity_mixed()
     log(f"[3] one mixed step (job commands/events, timer commands, WI events), "
         f"B=4096 at capacity 8192: cuda == cpu, bit-equal state, emissions "
         f"and stats {mstats}")
+    tstats = parity_timer_step()
+    log(f"[3] one timer step (CREATE, TRIGGER found / unknown, duplicate "
+        f"CANCELs), B=4096 with 200 live timers: cuda == cpu, bit-equal "
+        f"state, emissions and stats {tstats}")
 
     by_path = {}
     for phase, label, model_fn, instances, per_instance, path in (
-        (4, "config1", config1_model, INSTANCES, TRANSITIONS_PER_INSTANCE,
+        ("4", "config1", config1_model, INSTANCES, TRANSITIONS_PER_INSTANCE,
          CONFIG1_KERNELS),
-        (5, "config3", config3_model, INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3,
+        ("5", "config3", config3_model, INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3,
          CONFIG3_KERNELS),
+        ("5b", "config2", config2_model, INSTANCES_C2, TRANSITIONS_PER_INSTANCE_C2,
+         CONFIG1_KERNELS),
     ):
-        run = drive_path(model_fn, instances, per_instance, path)
+        run = drive_path(label, model_fn, instances, per_instance, path)
         report[label] = run
         by_path[label] = run["launches"]
         log(f"[{phase}] {label}: {instances} instances, wave {WAVE}, capacity "
             f"{CAP_FACTOR * WAVE}: processed {run['totals']['processed']}, completed "
             f"{run['totals']['completed_roots']}, rounds {run['totals']['rounds']}, "
-            f"no overflow; {run['transitions_per_sec']:.1f} transitions/s over the "
+            f"no overflow, exact launches per round; "
+            f"{run['transitions_per_sec']:.1f} transitions/s over the "
             f"{run['waves'] - 1} waves after the first ({run['timed_seconds']:.3f} s); "
             f"launches {run['launches']}")
     # phase 6: the serving path. The first engine built in this process
@@ -1246,22 +1670,31 @@ def main(argv) -> int:
     try:
         if ops._SELFCHECK_PASSED:
             raise AssertionError("the boot self-check ran before the first engine")
-        ops.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         CudaPartitionEngine(0, 1, capacity=SERVE_CAPACITY)
         boot_s = time.perf_counter() - t0
-        by_path["selfcheck"] = dict(ops.LAUNCHES)
+        by_path["selfcheck"] = launch_counts()
         zero = [k for k in SELFCHECK_KERNELS if by_path["selfcheck"][k] <= 0]
         if not ops._SELFCHECK_PASSED or zero:
             raise AssertionError(f"the boot self-check did not run its kernels: {zero}")
         report["selfcheck"] = {"seconds": boot_s, "launches": by_path["selfcheck"]}
         log(f"[6] first engine on the card: boot self-check bit-equal in "
             f"{boot_s:.3f} s; launches {by_path['selfcheck']}")
-        for label, model_fn, instances, per_instance in (
-            ("config1", config1_model, SERVE_INSTANCES, TRANSITIONS_PER_INSTANCE),
-            ("config3", config3_model, SERVE_INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3),
+        served = {}
+        for label, model_fn, instances, per_instance, payload, advance_ms in (
+            ("config1", config1_model, SERVE_INSTANCES, TRANSITIONS_PER_INSTANCE,
+             order_payload, 0),
+            ("config3", config3_model, SERVE_INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3,
+             order_payload, 0),
+            ("config2", config2_model, SERVE_INSTANCES_C2, TRANSITIONS_PER_INSTANCE_C2,
+             alternating_payload, 0),
+            ("timers", timer_model, SERVE_INSTANCES_TIMER, SIGNATURE_PER_TIMER_INSTANCE,
+             order_payload, 2 * TIMER_MS),
         ):
-            run = serve_checked(label, model_fn, instances, per_instance, workdir)
+            run = serve_checked(label, model_fn, instances, per_instance, workdir,
+                                payload=payload, advance_ms=advance_ms)
+            served[label] = (model_fn, payload, advance_ms, run.pop("signature"))
             report["serving_" + label] = run
             by_path["serving_" + label] = run["launches"]
             log(f"[6a] {label} served through the Broker: {instances} instances, "
@@ -1277,6 +1710,18 @@ def main(argv) -> int:
             f"(a credit drought): cuda == cpu, equal log signatures "
             f"({par['signature_records']} records; cuda {par['cuda_seconds']:.3f} s, "
             f"cpu {par['cpu_seconds']:.3f} s)")
+        for label in ("config2", "timers"):
+            model_fn, payload, advance_ms, sig = served[label]
+            par = serve_parity_with_oracle(
+                label, model_fn, sig, report["serving_" + label]["instances"],
+                workdir, payload=payload, advance_ms=advance_ms)
+            report["serving_parity_" + label] = par
+            log(f"[6b] {label}, {par['instances']} instances: the card's log "
+                f"signature ({par['signature_records']} records) equal on cpu "
+                f"({par['cpu_seconds']:.3f} s); with {par['instances']} credits the "
+                f"card's ({par['cuda_full_credit_seconds']:.3f} s) equal to the "
+                f"port's host oracle's ({par['oracle_full_credit_seconds']:.3f} s, "
+                f"{par['full_credit_signature_records']} records)")
         if args.profile:
             report["profile_selfcheck"] = profile_selfcheck()
             for row in report["profile_selfcheck"]:
@@ -1292,9 +1737,26 @@ def main(argv) -> int:
                 log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    # phase 7: the primitive-cost probe (python -m zeebe_tpu_torch.probe)
+    from zeebe_tpu_torch import probe
+
+    reset_launches()
+    report["probe"] = probe.main()
+    by_path["probe"] = launch_counts()
+    zero = [k for k in PROBE_KERNELS if by_path["probe"][k] <= 0]
+    if zero:
+        raise AssertionError(f"the probe never launched {zero}")
+    log(f"[7] probe benchmark: {report['probe']}; launches {by_path['probe']}")
+
     if args.profile:
+        report["profile_eval_programs"] = profile_eval_programs(WAVE)
+        ev = report["profile_eval_programs"]
+        log(f"[p] eval_programs, one call at B={WAVE}: {ev['ms']:.4f} ms, device "
+            f"{ev['device_ms']:.4f} ms in {ev['device_launches']} device ops")
         for label, name, model_fn in (("profile", "config 1", config1_model),
-                                      ("profile_config3", "config 3", config3_model)):
+                                      ("profile_config3", "config 3", config3_model),
+                                      ("profile_config2", "config 2", config2_model)):
             prof = profile_config(WAVE, model_fn=model_fn)
             report[label] = prof
             log(f"[p] {name}, one wave of {WAVE}: {prof['rounds']} "
@@ -1303,9 +1765,10 @@ def main(argv) -> int:
                 f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops")
             for row in prof["top"]:
                 log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
-    # launches: the sum over the main-path runs (phases 4, 5 and 6: the boot
-    # self-check and the two served configs), each run's own count beside
-    # it; masked_row_add, which no path calls, stays at 0
+    # launches: the sum over the main-path runs (phases 4, 5 and 5b, 6: the
+    # boot self-check and the four served runs, and 7: the probe), each
+    # run's own count beside it; masked_row_add, which no path calls, stays
+    # at 0
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

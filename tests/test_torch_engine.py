@@ -1,10 +1,12 @@
 """``CudaPartitionEngine`` (on the CPU) against the JAX package's
 ``TpuPartitionEngine`` (on the CPU), each under its own package's
-in-process ``Broker`` with the same commands: the credit-drought burst
-writes the same log and leaves the same state tables, bit for bit; a
-snapshot written by either engine restores into the other and the run
-finishes with the same log; the tick probe and the device backlog agree;
-and the boot self-check refuses to serve on a mismatch.
+in-process ``Broker`` with the same commands: the credit-drought bursts of
+config 1 and config 2 write the same log and leave the same state tables,
+bit for bit; a snapshot written by either engine (with live device timers
+in it) restores into the other and the run finishes with the same log; a
+CANCEL of an instance waiting on a device timer writes the host oracle's
+log; the tick probe and the device backlog agree; and the boot self-check
+refuses to serve on a mismatch.
 """
 
 import itertools
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench
 import zeebe_tpu.gateway as jax_gateway
 import zeebe_tpu.gateway.workers as jax_workers
 import zeebe_tpu.runtime as jax_runtime
@@ -26,6 +29,7 @@ from zeebe_tpu.protocol.records import WorkflowInstanceRecord as JaxWIRecord
 from zeebe_tpu.tpu import engine as jax_engine_mod
 from zeebe_tpu.tpu import TpuPartitionEngine
 from test_tpu_parity import order_process, record_signature
+from test_torch_serving import timer_process
 
 import zeebe_tpu_torch.gateway as port_gateway
 import zeebe_tpu_torch.gateway.workers as port_workers
@@ -103,13 +107,29 @@ def open_broker(ns, data_dir, credits=16, handler=_pay):
     return broker
 
 
-def burst(ns, broker, n):
-    """Deploy the order-process and write ``n`` CREATE commands at once,
-    then drain once."""
-    ns.deploy(ns.gateway.ZeebeClient(broker), order_process())
+def xor_process():
+    """Config 2 (``bench.build_graph_xor``): an exclusive gateway sends
+    orderValue > 50 to one service task and the rest, by default, to the
+    other."""
+    from zeebe_tpu.models.bpmn.builder import Bpmn
+
+    builder = Bpmn.create_process("xor-process").start_event("start").exclusive_gateway("split")
+    builder.branch("$.orderValue > 50").service_task(
+        "big", type="payment-service").end_event("end-big")
+    builder.branch(default=True).service_task(
+        "small", type="payment-service").end_event("end-small")
+    return builder.done()
+
+
+def burst(ns, broker, n, model=order_process,
+          payload=lambda i: {"orderId": i}):
+    """Deploy ``model`` (the order-process) and write ``n`` CREATE
+    commands at once, then drain once."""
+    process_id = model().processes[0].id
+    ns.deploy(ns.gateway.ZeebeClient(broker), model())
     for i in range(n):
         broker.write_command(
-            0, ns.WIRecord(bpmn_process_id="order-process", payload={"orderId": i}),
+            0, ns.WIRecord(bpmn_process_id=process_id, payload=payload(i)),
             ns.WI.CREATE,
         )
     broker.run_until_idle()
@@ -147,6 +167,111 @@ def test_drought_burst_equals_the_jax_engine(tmp_path):
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     for b in brokers:
         b.close()
+
+
+def test_config2_burst_equals_the_jax_engine(tmp_path):
+    """Config 2 with orderValue alternating above and below 50 (and absent
+    in every tenth instance: the condition-error incident) through both
+    engines: equal logs and equal snapshot arrays."""
+    assert bench.build_graph_xor()[0].has_conditions
+
+    def payload(i):
+        return {"orderId": i} if i % 10 == 9 else {"orderId": i, "orderValue": (99, 10)[i % 2]}
+
+    brokers = []
+    for ns in (JAX, PORT):
+        broker = open_broker(ns, tmp_path / ns.runtime.__name__)
+        burst(ns, broker, 40, model=xor_process, payload=payload)
+        finish(broker)
+        brokers.append(broker)
+    jax_sig, port_sig = (record_signature(b.records(0)) for b in brokers)
+    for i, (a, b) in enumerate(zip(jax_sig, port_sig)):
+        assert a == b, f"record {i} mismatch:\n  jax:  {a}\n  port: {b}"
+    assert len(jax_sig) == len(port_sig)
+    completed = [s for s in port_sig if s[2] == 5 and s[3] == 9 and s[8] == "xor-process"]
+    incidents = [s for s in port_sig if s[2] == 6 and s[1] == 0]  # INCIDENT events
+    assert len(completed) == 36 and len(incidents) == 4
+    engine = brokers[1].partitions[0].engine
+    assert engine.host_only_reasons == {} and engine.device_records_processed > 0
+    jax_snap, port_snap = (b.partitions[0].engine.snapshot_state() for b in brokers)
+    assert jax_snap["meta"] == port_snap["meta"]
+    for name, a in jax_snap["arrays"].items():
+        b = port_snap["arrays"][name]
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    for b in brokers:
+        b.close()
+
+
+@pytest.mark.parametrize("first,then", [(JAX, PORT), (PORT, JAX)],
+                         ids=["jax_snapshot_into_port", "port_snapshot_into_jax"])
+def test_live_device_timers_carry_across_engines(tmp_path, first, then):
+    """Instances waiting on device timers are snapshotted by one engine and
+    reopened by the other; the clock passes the due date and the timers
+    fire there: the same log as reopening under the first engine."""
+    src = tmp_path / "src"
+    broker = open_broker(first, src)
+    burst(first, broker, 24, model=timer_process)
+    engine = broker.partitions[0].engine
+    assert int((np.asarray(engine.state.timer_key) >= 0).sum()) == 24
+    broker.snapshot()
+    broker.close()
+    logs = []
+    for ns in (first, then):
+        copy = tmp_path / f"copy-{len(logs)}"
+        shutil.copytree(src, copy)
+        reopened = open_broker(ns, copy)
+        reopened.run_until_idle()
+        reopened.partitions[0].engine.clock.advance(20_000)
+        finish(reopened)
+        logs.append(record_signature(reopened.records(0)))
+        if ns is PORT:
+            engine = reopened.partitions[0].engine
+            assert engine.device_records_processed > 0 and not engine._host.timers
+        reopened.close()
+    own, crossed = logs
+    assert crossed == own
+    triggered = [s for s in own if s[2] == 14 and s[3] == 3]  # TimerIntent.TRIGGERED
+    caught = [s for s in own if s[2] == 5 and s[3] == 9 and s[8] == "wait"]
+    assert len(triggered) == 24 and len(caught) == 24
+
+
+def _cancel_waiting_on_timers(ns, broker):
+    client = ns.gateway.ZeebeClient(broker)
+    ns.deploy(client, timer_process())
+    first = client.create_instance("timed", payload={"n": 1})
+    client.create_instance("timed", payload={"n": 2})
+    broker.run_until_idle()
+    client.cancel_instance(first.workflow_instance_key)
+    broker.run_until_idle()
+
+
+def test_cancel_of_an_instance_waiting_on_a_device_timer_equals_the_oracle(tmp_path):
+    """The CANCEL demotes the instance with its device timer to the
+    embedded host oracle, which cancels the timer; the other instance's
+    timer still fires on the device."""
+    logs = []
+    for ns, make in ((JAX, lambda clock: jax_runtime.Broker(num_partitions=1, clock=clock)),
+                     (PORT, lambda clock: _port_broker(clock, str(tmp_path / "port")))):
+        clock = ns.runtime.ControlledClock(start_ms=1_000_000)
+        broker = make(clock)
+        ns.gateway.JobWorker(broker, "payment-service", _pay)
+        _cancel_waiting_on_timers(ns, broker)
+        if ns is PORT:
+            engine = broker.partitions[0].engine
+            # the demoted timer left the device and the oracle cancelled it;
+            # the other instance's timer stays on the device
+            assert not engine._host.timers
+            assert int((engine.state.timer_key >= 0).sum()) == 1
+        clock.advance(20_000)
+        finish(broker)
+        logs.append(record_signature(broker.records(0)))
+        broker.close()
+    oracle, port = logs
+    for i, (a, b) in enumerate(zip(oracle, port)):
+        assert a == b, f"record {i} mismatch:\n  oracle: {a}\n  port:   {b}"
+    assert len(oracle) == len(port)
+    canceled = [s for s in port if s[2] == 14 and s[3] == 5]  # TimerIntent.CANCELED
+    assert len(canceled) == 1
 
 
 def test_probe_and_device_backlog_equal_the_jax_engine(tmp_path):

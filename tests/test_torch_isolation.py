@@ -108,6 +108,18 @@ def test_no_jax_and_no_zeebe_tpu_imports_at_any_depth():
     assert offenders == []
 
 
+def test_the_probe_benchmark_imports_no_jax_and_nothing_of_zeebe_tpu():
+    """``zeebe_tpu_torch/probe.py``, the counterpart of
+    ``benchmarks/pallas_probe.py``, is its own copy: no JAX, nothing of
+    the JAX package or of ``benchmarks``, at any depth."""
+    path = os.path.join(PORT, "probe.py")
+    assert path in _port_sources()
+    with open(path) as f:
+        mods = {m.split(".")[0] for m in _imported_modules(ast.parse(f.read(), path))}
+    assert mods & {"jax", "jaxlib", "zeebe_tpu", "benchmarks"} == set()
+    assert "zeebe_tpu_torch" in mods
+
+
 def _module_file(parts):
     """The file of module ``zeebe_tpu_torch.<...>``, or None."""
     base = os.path.join(ROOT, *parts)
@@ -209,6 +221,7 @@ def test_copied_module_equals_its_source_but_imports(rel):
 
 
 def _entry_points():
+    from zeebe_tpu_torch import probe
     from zeebe_tpu_torch.models.bpmn.builder import Bpmn
     from zeebe_tpu_torch.models.transform.transformer import transform_model
     from zeebe_tpu_torch.tpu import batch, drive, graph, state
@@ -226,11 +239,13 @@ def _entry_points():
         "make_queue": lambda: drive.make_queue(8, 2),
         "state_from_numpy": lambda: state.state_from_numpy(cpu_state),
         "engine": lambda: CudaPartitionEngine(0, 1, capacity=16),
+        "probe": lambda: probe.main(),
     }
 
 
 @pytest.mark.parametrize("name", ["make_state", "compile_graph", "empty",
-                                  "make_queue", "state_from_numpy", "engine"])
+                                  "make_queue", "state_from_numpy", "engine",
+                                  "probe"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default is the card")
@@ -252,13 +267,13 @@ def test_importing_the_package_needs_no_nvcc_or_gpu():
     from zeebe_tpu_torch import _build
 
     for mod in ("zeebe_tpu_torch.tpu.ops", "zeebe_tpu_torch.tpu.kernel",
-                "zeebe_tpu_torch.tpu.drive"):
+                "zeebe_tpu_torch.tpu.drive", "zeebe_tpu_torch.probe"):
         importlib.import_module(mod)
     assert _build._libs == {}
     assert sorted(os.listdir(os.path.join(PORT, "csrc"))) == [
-        "gather_rows.cu", "hash_lookup.cu", "hash_update.cu", "table_commit.cu",
-        "zb_hash.cuh",
+        "gather_rows.cu", "hash_lookup.cu", "hash_update.cu", "probe.cu",
+        "table_commit.cu", "zb_hash.cuh",
     ]
     assert sorted(_build.SOURCES) == [
-        "gather_rows", "hash_lookup", "hash_update", "table_commit",
+        "gather_rows", "hash_lookup", "hash_update", "probe", "table_commit",
     ]

@@ -155,11 +155,15 @@ def test_run_to_quiescence_config3_three_waves():
 
 
 def test_other_gates_still_raise():
-    builder = Bpmn.create_process("xor").start_event("start").exclusive_gateway("split")
-    builder.branch("$.x > 1").end_event("a")
-    builder.branch(default=True).end_event("b")
-    graph, _meta = tg.compile_graph(transform_model(builder.done()), device="cpu")
-    assert graph.gates_on() == ["has_conditions"]
+    """A gate the port does not run yet (here a message catch event:
+    has_messages) raises, naming it."""
+    model = (
+        Bpmn.create_process("msg").start_event("start")
+        .message_catch_event("wait", message_name="go", correlation_key="$.key")
+        .end_event("end").done()
+    )
+    graph, _meta = tg.compile_graph(transform_model(model), device="cpu")
+    assert graph.gates_on() == ["has_messages"]
     state = ts.make_state(capacity=64, num_vars=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="has_conditions"):
+    with pytest.raises(NotImplementedError, match="has_messages"):
         tk.step_kernel(graph, state, tb.empty(8, 8, device="cpu"), 0)

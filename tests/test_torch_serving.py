@@ -189,11 +189,91 @@ def cancel_and_update_live_instances(ns, broker, client, clock):
     client.cancel_instance(joined.workflow_instance_key)
 
 
+# -- TestExclusiveGatewayParity, TestTimerParity, TestMappingParity -------
+
+
+def _decision(ns, broker, client, payload):
+    ns.deploy(client, gateway_process())
+    ns.JobWorker(broker, "priority-service", lambda ctx: None)
+    ns.JobWorker(broker, "normal-service", lambda ctx: None)
+    client.create_instance("decision", payload=payload)
+
+
+def condition_routes_high(ns, broker, client, clock):
+    _decision(ns, broker, client, {"orderValue": 250})
+
+
+def condition_routes_default(ns, broker, client, clock):
+    _decision(ns, broker, client, {"orderValue": 42})
+
+
+def condition_error_incident(ns, broker, client, clock):
+    ns.deploy(client, gateway_process())
+    client.create_instance("decision", payload={"unrelated": 1})
+
+
+def string_and_mixed_conditions(ns, broker, client, clock):
+    b = Bpmn.create_process("strings").start_event("start").exclusive_gateway("split")
+    b.branch('$.kind == "express" && $.weight < 10').service_task(
+        "a", type="svc-a"
+    ).end_event("end-a")
+    b.branch(default=True).service_task("b", type="svc-b").end_event("end-b")
+    ns.deploy(client, b.done())
+    ns.JobWorker(broker, "svc-a", lambda ctx: None)
+    ns.JobWorker(broker, "svc-b", lambda ctx: None)
+    client.create_instance("strings", payload={"kind": "express", "weight": 5})
+    client.create_instance("strings", payload={"kind": "bulk", "weight": 5})
+
+
+def timer_catch_event(ns, broker, client, clock):
+    model = (
+        Bpmn.create_process("timed")
+        .start_event("start")
+        .timer_catch_event("wait", duration_ms=60_000)
+        .end_event("end")
+        .done()
+    )
+    ns.deploy(client, model)
+    client.create_instance("timed", payload={"x": 1})
+    broker.run_until_idle()
+    clock.advance(120_000)
+    broker.tick()
+
+
+def io_mappings(ns, broker, client, clock):
+    model = (
+        Bpmn.create_process("mapped")
+        .start_event("start")
+        .service_task("work", type="svc", inputs=[("$.total", "$.amount")],
+                      outputs=[("$.result", "$.outcome")])
+        .end_event("end")
+        .done()
+    )
+    ns.deploy(client, model)
+    ns.JobWorker(broker, "svc", lambda ctx: {"result": 41})
+    client.create_instance("mapped", payload={"total": 99, "noise": 1})
+
+
+def input_mapping_error_incident(ns, broker, client, clock):
+    model = (
+        Bpmn.create_process("mapped-err")
+        .start_event("start")
+        .service_task("work", type="svc", inputs=[("$.missing", "$.amount")])
+        .end_event("end")
+        .done()
+    )
+    ns.deploy(client, model)
+    client.create_instance("mapped-err", payload={"total": 99})
+
+
 SCENARIOS = [
     happy_path, multiple_instances, job_fail_and_retry,
     job_no_retries_incident, job_timeout_reactivation,
     complete_unknown_job_rejected, create_unknown_workflow_rejected,
     fork_join, fork_join_many, cancel_and_update_live_instances,
+    condition_routes_high, condition_routes_default, condition_error_incident,
+    string_and_mixed_conditions, timer_catch_event, io_mappings,
+    input_mapping_error_incident,
 ]
 
 
@@ -230,17 +310,40 @@ def timer_process():
     )
 
 
+def message_process():
+    return (
+        Bpmn.create_process("msg")
+        .start_event("start")
+        .message_catch_event("wait", message_name="go", correlation_key="$.key")
+        .end_event("end")
+        .done()
+    )
+
+
+def boundary_process():
+    return (
+        Bpmn.create_process("bounded")
+        .start_event("start")
+        .service_task("slow", type="slow-service")
+        .boundary_event("deadline", duration_ms=5_000)
+        .end_event("expired")
+        .move_to("slow")
+        .end_event("done")
+        .done()
+    )
+
+
 def host_routed(ns, broker, client, clock):
     ns.deploy(client, order_process())
-    ns.deploy(client, gateway_process())
-    ns.deploy(client, timer_process())
-    for job_type in ("payment-service", "priority-service", "normal-service",
-                     "after-service"):
-        ns.JobWorker(broker, job_type, lambda ctx: {"done": True})
+    ns.deploy(client, message_process())
+    ns.deploy(client, boundary_process())
+    ns.JobWorker(broker, "payment-service", lambda ctx: {"done": True})
+    ns.JobWorker(broker, "slow-service", _hang)
     client.create_instance("order-process", payload={"orderId": 1})
-    client.create_instance("decision", payload={"orderValue": 250})
-    client.create_instance("decision", payload={"orderValue": 5})
-    client.create_instance("timed", payload={"t": 1})
+    client.create_instance("msg", payload={"key": "k-1"})
+    client.create_instance("bounded", payload={"t": 1})
+    broker.run_until_idle()
+    client.publish_message("go", correlation_key="k-1")
     broker.run_until_idle()
     clock.advance(11_000)
     broker.tick()
@@ -257,14 +360,14 @@ def test_unported_gates_route_their_workflows_to_the_host_oracle():
     }
     assert reasons == {
         "order-process": None,
-        "decision": "has_conditions",
-        "timed": "has_timers",
+        "msg": "has_messages",
+        "bounded": "has_boundaries",
     }
     completed = [
         s for s in port
-        if s[2] == 5 and s[3] == 8 and s[8] in ("order-process", "decision", "timed")
+        if s[2] == 5 and s[3] == 9 and s[8] in ("order-process", "msg", "bounded")
     ]
-    assert len(completed) == 4  # every process element completed
+    assert len(completed) == 3  # every process element completed
     assert engine.device_records_processed > 0
     assert engine.host_records_processed > 0
 

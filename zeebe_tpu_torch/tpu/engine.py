@@ -17,9 +17,11 @@ Workflows the device cannot execute fall back per workflow: their instance
 records route to the embedded host oracle, so the engine serves every
 deployed workflow. Two things put a workflow there: what
 ``graph.check_device_compatible`` refuses (as in the JAX engine), and a
-feature gate the port's step kernel does not run yet (every gate but
-``has_parallel_joins``) — ``host_only_reasons`` names each. The message
-store stays on the host in this engine.
+feature gate the port's step kernel does not run yet (``has_messages``,
+``has_boundaries``, ``has_multi_instance``) — ``host_only_reasons`` names
+each. The message store stays on the host in this engine. Device timers
+fire through the broker tick's host sweep (``check_timer_deadlines``),
+whose TRIGGER commands come back through the step kernel.
 
 Unlike JAX arrays, the state tables are updated IN PLACE by the step
 kernel; every host read below that must outlive a later step copies.
@@ -85,7 +87,7 @@ _MESSAGE_VALUE_TYPES = {
 
 # the feature gates the port's step kernel runs; a workflow that turns on
 # any other gate is served by the embedded host oracle
-PORTED_GATES = ("has_parallel_joins",)
+PORTED_GATES = kernel.PORTED_GATES
 
 PROBE_DEADLINES = 1  # bit0: some job/timer/message deadline is due
 PROBE_JOB_BACKLOG = 2  # bit1: assignable jobs exist AND credits are free
@@ -367,10 +369,10 @@ class CudaPartitionEngine:
         return int(hits[0]) if len(hits) else -1
 
     def _demote_instance(self, root_key: int) -> None:
-        """Migrate a live instance's scope tree (+ its jobs and in-flight
-        joins) from the device tables into the embedded host oracle, which
-        then runs the exact reference cascade for CANCEL / UPDATE_PAYLOAD.
-        (Device timers and the device message store are empty here: their
+        """Migrate a live instance's scope tree (+ its jobs, timers and
+        in-flight joins) from the device tables into the embedded host
+        oracle, which then runs the exact reference cascade for CANCEL /
+        UPDATE_PAYLOAD. (The device message store is empty here: message
         workflows are host-served.)"""
         self._mark_device_dirty()
         self._host.snapshot_mark_dirty(None)
@@ -459,6 +461,34 @@ class CudaPartitionEngine:
                 deadline=int(job_i64[sl, state_mod.JBL_DEADLINE]),
             )
 
+        # migrate this tree's timers
+        from zeebe_tpu_torch.engine.interpreter import TimerState
+
+        timer_keys = _np_copy(s.timer_key)
+        timer_aik = _np_copy(s.timer_aik)
+        timer_due = _np_copy(s.timer_due)
+        timer_ik = _np_copy(s.timer_instance_key)
+        timer_wf = _np_copy(s.timer_wf)
+        timer_elem = _np_copy(s.timer_elem)
+        timer_slots = [
+            int(sl)
+            for sl in np.nonzero(timer_keys >= 0)[0]
+            if int(timer_aik[sl]) in tree_keys
+        ]
+        for sl in timer_slots:
+            self._host.timers[int(timer_keys[sl])] = TimerState(
+                due_date=int(timer_due[sl]),
+                activity_instance_key=int(timer_aik[sl]),
+                record=TimerRecord(
+                    activity_instance_key=int(timer_aik[sl]),
+                    workflow_instance_key=int(timer_ik[sl]),
+                    due_date=int(timer_due[sl]),
+                    handler_element_id=self.meta.element_id(
+                        int(timer_wf[sl]), int(timer_elem[sl])
+                    ) if self.meta else "",
+                ),
+            )
+
         # migrate in-flight parallel joins: device join rows are keyed by
         # (scope_key << 10 | gateway element), payloads merged eagerly
         join_keys = _np_copy(s.join_key)
@@ -504,6 +534,13 @@ class CudaPartitionEngine:
             s.job_i64[j_idx, state_mod.JBL_KEY] = -1
             ops.delete(s.job_map, j_keys,
                        torch.ones(j_keys.shape, dtype=torch.bool, device=dev))
+        if timer_slots:
+            t_idx = idx(timer_slots)
+            t_keys = idx([int(timer_keys[sl]) for sl in timer_slots])
+            s.timer_key[t_idx] = -1
+            s.timer_due[t_idx] = -1
+            ops.delete(s.timer_map, t_keys,
+                       torch.ones(t_keys.shape, dtype=torch.bool, device=dev))
         if join_slots:
             jo_idx = idx(join_slots)
             jo_keys = idx([int(join_keys[sl]) for sl in join_slots])

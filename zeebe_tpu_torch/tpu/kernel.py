@@ -17,19 +17,24 @@ Phases (as in the JAX kernel):
   D. key assignment (strided counters + prefix sums — KeyGenerator parity)
   E. emissions → compaction; table commits
 
-The port covers the kernel with every ``graph.has_*`` feature gate off —
-the order-process path (start → service task → end) — and with
-``has_parallel_joins`` on (the fork/join path). A graph that turns any
-other gate on raises ``NotImplementedError`` naming the gate; no gated
-branch is half ported. Where a gate being off makes a JAX value constant
-(no timer table lookup ⇒ no timer hit), the constant is used directly.
+The port covers the kernel with the feature gates ``has_conditions``
+(exclusive gateways with json-el conditions), ``has_mappings`` (input and
+output mappings), ``has_timers`` (timer catch events) and
+``has_parallel_joins`` (the fork/join path), each on or off. A graph that
+turns on ``has_messages``, ``has_boundaries`` or ``has_multi_instance``
+raises ``NotImplementedError`` naming the gate; no gated branch is half
+ported. Where a gate being off makes a JAX value constant (no timer table
+lookup ⇒ no timer hit), the constant is used directly.
 
 The table primitives go through ``ops``: one fused gather launch per read
 stage (8 per step), ``ops.lookup`` for index misses (2 per step) and one
 ``ops.fused_table_commit`` per table group (2 per step), which updates the
 element-instance and job tables IN PLACE. The join path adds, per step,
 2 lookups, 1 insert and 1 delete on the join map and 9 masked scatters
-into the join tables, all IN PLACE as well.
+into the join tables; the timer path 1 lookup on the timer map, one more
+table commit (the six timer tables) and 1 insert and 1 delete on the
+timer map — all IN PLACE as well. The condition programs run as plain
+PyTorch (``conditions.eval_programs``).
 """
 
 from __future__ import annotations
@@ -54,13 +59,15 @@ from zeebe_tpu_torch.tpu import batch as rb
 from zeebe_tpu_torch.tpu import graph as graph_mod
 from zeebe_tpu_torch.tpu import ops
 from zeebe_tpu_torch.tpu.batch import RecordBatch
-from zeebe_tpu_torch.tpu.conditions import VT_ABSENT
+from zeebe_tpu_torch.tpu.conditions import ERROR as TRI_ERROR
+from zeebe_tpu_torch.tpu.conditions import TRUE as TRI_TRUE
+from zeebe_tpu_torch.tpu.conditions import VT_ABSENT, eval_programs
 from zeebe_tpu_torch.tpu.graph import DeviceGraph
 from zeebe_tpu_torch.tpu.state import (
     EngineState,
     pack_payload, unpack_payload,
     EI_ELEM, EI_STATE, EI_WF, EI_SCOPE, EI_TOKENS, EI_PENDING_BD,
-    EIL_KEY, EIL_JOB_KEY,
+    EIL_KEY, EIL_IKEY, EIL_JOB_KEY,
     JB_STATE, JB_ELEM, JB_WF, JB_TYPE, JB_RETRIES, JB_WORKER,
     JBL_KEY, JBL_IKEY, JBL_AIK, JBL_DEADLINE,
 )
@@ -77,6 +84,8 @@ VT_MSUB = int(ValueType.MESSAGE_SUBSCRIPTION)
 VT_WISUB = int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION)
 
 _KEY_STEP = keyspace.STEP_SIZE
+# the feature gates step_kernel runs; any other gate raises
+PORTED_GATES = ("has_conditions", "has_parallel_joins", "has_timers", "has_mappings")
 _I32, _I64, _BOOL = torch.int32, torch.int64, torch.bool
 
 
@@ -225,6 +234,40 @@ def _put_payload(em, mask, vt, num, sid):
     return em
 
 
+def _apply_mappings(m_src: torch.Tensor, m_dst: torch.Tensor, src_vt: torch.Tensor):
+    """Vectorized MappingProcessor.extract source selection over the
+    records' gathered mapping rows ``m_src``/``m_dst`` [B, K].
+
+    Returns (dst_from [B, V]: the source column per target column, or -1;
+    err [B]: a listed source is absent). The K mappings apply in order, so
+    a later mapping to the same target wins; an inactive slot (src -1)
+    writes nothing."""
+    b, v = src_vt.shape
+    cols = torch.arange(v, dtype=_I32, device=src_vt.device)
+    dst_from = torch.full((b, v), -1, dtype=_I32, device=src_vt.device)
+    err = torch.zeros((b,), dtype=_BOOL, device=src_vt.device)
+    for k in range(m_src.shape[1]):
+        src, dst = m_src[:, k], m_dst[:, k]
+        active = src >= 0
+        src_c = src.clamp(0, v - 1).to(_I64)
+        err = err | (active & (torch.gather(src_vt, 1, src_c[:, None])[:, 0] == VT_ABSENT))
+        hit = active[:, None] & (cols[None, :] == dst[:, None])
+        dst_from = torch.where(hit, src[:, None], dst_from)
+    return dst_from, err
+
+
+def _select_by_map(dst_from, vt, num, sid):
+    """payload'[v] = payload[dst_from[v]] (absent where dst_from = -1)."""
+    c = dst_from.clamp(0, vt.shape[1] - 1).to(_I64)
+    got = dst_from >= 0
+    zero = torch.zeros((), dtype=vt.dtype, device=vt.device)
+    return (
+        torch.where(got, torch.gather(vt, 1, c), zero + VT_ABSENT),
+        torch.where(got, torch.gather(num, 1, c), zero.to(num.dtype)),
+        torch.where(got, torch.gather(sid, 1, c), zero.to(sid.dtype)),
+    )
+
+
 def step_kernel(
     graph: DeviceGraph, state: EngineState, batch: RecordBatch, now,
     synthetic_workers: bool = False, partition_id=0,
@@ -239,7 +282,7 @@ def step_kernel(
     instant COMPLETE command — the worker round trip without leaving the
     device.
     """
-    gates = [g for g in graph.gates_on() if g != "has_parallel_joins"]
+    gates = [g for g in graph.gates_on() if g not in PORTED_GATES]
     if gates:
         raise NotImplementedError(
             "step_kernel: feature gate(s) not ported to the PyTorch engine "
@@ -267,22 +310,36 @@ def step_kernel(
     wf_c = batch.wf.clamp(0, n_wfs - 1)
     el_c = batch.elem.clamp(0, n_elems - 1)
     # hot-path per-element graph reads: the meta row, the step row, the
-    # parallel fork fan and the timer duration all index by (workflow,
-    # element) — one fused gather over the flattened tables (the condition
-    # fans are read by the has_conditions slice only)
+    # parallel fork fan, the timer duration and, with their gates on, the
+    # conditioned flows with their programs and the mapping columns all
+    # index by (workflow, element) — one fused gather over the flattened
+    # tables
     n_intents = graph.step_table.shape[2]
     fork_fan = graph.out_flows.shape[2]
+    cond_fan = graph.cond_flows.shape[2]
     em_cols = graph.elem_meta.shape[2]
     g_idx = wf_c * n_elems + el_c
-    emeta, step_row, fork_flows, timer_dur_rec = ops.fused_gather_rows(
-        [
-            graph.elem_meta.reshape(-1, em_cols),
-            graph.step_table.reshape(-1, n_intents),
-            graph.out_flows.reshape(-1, fork_fan),
-            graph.timer_dur.reshape(-1),
-        ],
-        [ops.GatherOp(i, g_idx) for i in range(4)],
+    g_tables = [
+        graph.elem_meta.reshape(-1, em_cols),
+        graph.step_table.reshape(-1, n_intents),
+        graph.out_flows.reshape(-1, fork_fan),
+        graph.timer_dur.reshape(-1),
+    ]
+    if graph.has_conditions:
+        g_tables += [graph.cond_flows.reshape(-1, cond_fan),
+                     graph.cond_prog.reshape(-1, cond_fan)]
+    if graph.has_mappings:
+        n_maps = graph.in_map_src.shape[2]
+        g_tables += [t.reshape(-1, n_maps) for t in (
+            graph.in_map_src, graph.in_map_dst, graph.out_map_src, graph.out_map_dst)]
+    g_rows = ops.fused_gather_rows(
+        g_tables, [ops.GatherOp(i, g_idx) for i in range(len(g_tables))]
     )
+    emeta, step_row, fork_flows, timer_dur_rec = g_rows[:4]
+    if graph.has_conditions:
+        cflow, cprog = g_rows[4:6]
+    if graph.has_mappings:
+        in_src, in_dst, out_src, out_dst = g_rows[-4:]
 
     # ---------------- A. lookups ----------------
     is_wi = valid & (vt_ == VT_WI)
@@ -315,25 +372,42 @@ def step_kernel(
     ei_found, ei_slot = ei3_found[:b], ei3_slot[:b]
     sc_found, sc_slot = ei3_found[b : 2 * b], ei3_slot[b : 2 * b]
     aik_found, aik_slot = ei3_found[2 * b :], ei3_slot[2 * b :]
-    # has_timers is off: no timer table probe, so no timer record is found
+    t_cap = state.timer_key.shape[0]
+    if graph.has_timers:
+        # the timer map as it was before this step (the insert and delete
+        # of this step come after every read)
+        tm_found, tm_slot = ops.lookup(
+            state.timer_map, batch.key, timer_cmd & (batch.key >= 0)
+        )
+    else:
+        tm_found, tm_slot = zeros_b(), zeros_b(_I32)
     ei_clip = ei_slot.clamp(0, n_cap - 1)
     sc_clip = sc_slot.clamp(0, n_cap - 1)
     aik_clip = aik_slot.clamp(0, n_cap - 1)
     jb_clip = jb_slot.clamp(0, m_cap - 1)
+    tm_clip = tm_slot.clamp(0, t_cap - 1)
 
-    # ONE fused gather feeds every phase-B/C state read (the instance's own
-    # int64 and payload rows are read by the timer/message/boundary slices
-    # only)
+    # ONE fused gather feeds every phase-B/C state read (the timer slice
+    # adds the timer rows and the timed instance's int64 and payload rows;
+    # the instance's own int64 and payload rows are read by the message and
+    # boundary slices only)
+    b_tables = [state.ei_i32, state.ei_pay, state.job_i32, state.job_i64,
+                state.job_pay]
+    b_ops = [
+        ops.GatherOp(0, ei_clip), ops.GatherOp(0, sc_clip),
+        ops.GatherOp(0, aik_clip), ops.GatherOp(1, sc_clip),
+        ops.GatherOp(2, jb_clip), ops.GatherOp(3, jb_clip),
+        ops.GatherOp(4, jb_clip),
+    ]
+    if graph.has_timers:
+        b_tables += [state.timer_elem, state.timer_wf, state.ei_i64]
+        b_ops += [ops.GatherOp(5, tm_clip), ops.GatherOp(6, tm_clip),
+                  ops.GatherOp(7, aik_clip), ops.GatherOp(1, aik_clip)]
+    b_rows = ops.fused_gather_rows(b_tables, b_ops)
     (ei_rows, sc_rows, aik_rows, sc_pay_rows,
-     jb_i32_rows, jb_i64_rows, jb_pay_rows) = ops.fused_gather_rows(
-        [state.ei_i32, state.ei_pay, state.job_i32, state.job_i64, state.job_pay],
-        [
-            ops.GatherOp(0, ei_clip), ops.GatherOp(0, sc_clip),
-            ops.GatherOp(0, aik_clip), ops.GatherOp(1, sc_clip),
-            ops.GatherOp(2, jb_clip), ops.GatherOp(3, jb_clip),
-            ops.GatherOp(4, jb_clip),
-        ],
-    )
+     jb_i32_rows, jb_i64_rows, jb_pay_rows) = b_rows[:7]
+    if graph.has_timers:
+        tm_elem_rows, tm_wf_rows, aik_i64_rows, aik_pay_rows = b_rows[7:]
     inst_state = torch.where(ei_found, ei_rows[:, EI_STATE], -1)
     scope_state = torch.where(sc_found, sc_rows[:, EI_STATE], -1)
 
@@ -457,18 +531,77 @@ def step_kernel(
     ) & (batch.retries > 0)
     jev_fail_noretry = job_ev & (it == int(JI.FAILED)) & (batch.retries <= 0)
 
-    # timer commands: with no timer table (has_timers off) a TRIGGER finds
-    # no timer and is rejected; TRIGGER-ok and CANCEL-ok never fire
+    # timer commands (with has_timers off there is no timer table: a
+    # TRIGGER finds no timer and is rejected; TRIGGER-ok and CANCEL-ok
+    # never fire)
     m_tcreate = timer_cmd & (it == int(TI.CREATE))
-    ttrig_rej = timer_cmd & (it == int(TI.TRIGGER))
+    m_ttrigger = timer_cmd & (it == int(TI.TRIGGER))
+    ttrig_ok = m_ttrigger & tm_found
+    ttrig_rej = m_ttrigger & ~tm_found
+    if graph.has_timers:
+        # two CANCELs for one timer key may share a batch; the oracle pops
+        # the timer on the first and the second is a silent no-op, while
+        # tm_found sees the pre-step table: only the FIRST cancel row per
+        # key stays eligible
+        m_tcancel = timer_cmd & (it == int(TI.CANCEL))
+        tcan_ok = m_tcancel & tm_found & _first_per_key(batch.key, m_tcancel)
+        # a trigger resumes the catch event while it is still active (no
+        # boundary events here: every trigger is its own catch event's)
+        ttrig_catch = ttrig_ok & aik_found & (
+            torch.where(aik_found, aik_rows[:, EI_STATE], -1) == int(WI.ELEMENT_ACTIVATED)
+        )
+        # the handler element comes from the timer table (a host-staged
+        # TRIGGER command carries no element columns)
+        trig_elem = torch.where(tm_found, tm_elem_rows, batch.elem)
+        trig_wf = torch.where(tm_found, tm_wf_rows, 0)
 
     # ---------------- C. per-step compute ----------------
-    # exclusive split without conditions: the default flow
-    taken_flow = emeta[:, graph_mod.EM_DEFAULT_FLOW]
-    xs_ok = m_xsplit & (taken_flow >= 0)
-    xs_nofl = m_xsplit & (taken_flow < 0)
+    # exclusive split: the first conditioned flow whose program is TRUE,
+    # else the default flow; an ERROR before the first TRUE is an incident
+    default_f = emeta[:, graph_mod.EM_DEFAULT_FLOW]
+    if graph.has_conditions:
+        tri = eval_programs(
+            graph.progs, graph.lit_nums, cprog,
+            batch.v_vt[:, None, :].expand(b, cond_fan, v),
+            batch.v_num[:, None, :].expand(b, cond_fan, v),
+            batch.v_str[:, None, :].expand(b, cond_fan, v),
+        )
+        tri = torch.where(cprog >= 0, tri, -1)
+        fidx = torch.arange(cond_fan, dtype=_I32, device=dev)
+        first_true = torch.min(torch.where(tri == TRI_TRUE, fidx, cond_fan), dim=1).values
+        first_err = torch.min(torch.where(tri == TRI_ERROR, fidx, cond_fan), dim=1).values
+        cond_errored = first_err < first_true
+        picked = torch.gather(
+            cflow, 1, first_true.clamp(0, cond_fan - 1).to(_I64)[:, None]
+        )[:, 0]
+        taken_flow = torch.where(first_true < cond_fan, picked, default_f)
+        xs_ok = m_xsplit & ~cond_errored & (taken_flow >= 0)
+        xs_nofl = m_xsplit & ~cond_errored & (taken_flow < 0)
+        xs_err = m_xsplit & cond_errored
+    else:
+        taken_flow = default_f
+        xs_ok = m_xsplit & (taken_flow >= 0)
+        xs_nofl = m_xsplit & (taken_flow < 0)
+        xs_err = zeros_b()
 
-    # output mapping (no mappings deployed): merge record payload → scope
+    # input mapping (identity pass-through when none is deployed)
+    if graph.has_mappings:
+        in_from, in_err = _apply_mappings(in_src, in_dst, batch.v_vt)
+        in_has = emeta[:, graph_mod.EM_IN_MAP_N] > 0
+        in_root = emeta[:, graph_mod.EM_IN_ROOT] != 0
+        im_vt, im_num, im_sid = _select_by_map(in_from, batch.v_vt, batch.v_num, batch.v_str)
+        sel_in = (in_has & ~in_root)[:, None]
+        in_vt = torch.where(sel_in, im_vt, batch.v_vt)
+        in_num = torch.where(sel_in, im_num, batch.v_num)
+        in_sid = torch.where(sel_in, im_sid, batch.v_str)
+        inmap_ok = m_inmap & ~(in_has & in_err)
+        inmap_err = m_inmap & in_has & in_err
+    else:
+        in_vt, in_num, in_sid = batch.v_vt, batch.v_num, batch.v_str
+        inmap_ok = m_inmap
+        inmap_err = zeros_b()
+
+    # output mapping: merge record payload → scope payload
     scope_vt, scope_sid, scope_num = unpack_payload(sc_pay_rows)
     scope_vt = torch.where(sc_found[:, None], scope_vt.to(torch.int8),
                            torch.tensor(VT_ABSENT, dtype=torch.int8, device=dev))
@@ -477,18 +610,35 @@ def step_kernel(
     src_present = batch.v_vt != VT_ABSENT
     overwrite = (behavior == B_OVERWRITE)[:, None]
     keep_scope = (behavior == B_NONE)[:, None]
+    if graph.has_mappings:
+        out_from, out_err = _apply_mappings(out_src, out_dst, batch.v_vt)
+        out_has = emeta[:, graph_mod.EM_OUT_MAP_N] > 0
+        out_root = emeta[:, graph_mod.EM_OUT_ROOT] != 0
+        om_vt, om_num, om_sid = _select_by_map(out_from, batch.v_vt, batch.v_num, batch.v_str)
+        outmap_ok = m_outmap & ~(out_has & out_err)
+        outmap_err = m_outmap & out_has & out_err
+    else:
+        om_vt = om_num = om_sid = None
+        outmap_ok = m_outmap
+        outmap_err = zeros_b()
 
-    def _merge_one(scope_a, src_a):
+    def _merge_one(scope_a, src_a, mapped_a, fill):
         without = torch.where(
             overwrite, src_a, torch.where(src_present, src_a, scope_a)
         )
+        if graph.has_mappings:
+            with_maps = torch.where(
+                out_from >= 0, mapped_a, torch.where(overwrite, fill, scope_a)
+            )
+            without = torch.where(
+                (out_has & ~out_root)[:, None], with_maps,
+                torch.where(out_root[:, None], src_a, without),
+            )
         return torch.where(keep_scope, scope_a, without)
 
-    out_vt = _merge_one(scope_vt, batch.v_vt)
-    out_num = _merge_one(scope_num, batch.v_num)
-    out_sid = _merge_one(scope_sid, batch.v_str)
-    inmap_ok = m_inmap
-    outmap_ok = m_outmap
+    out_vt = _merge_one(scope_vt, batch.v_vt, om_vt, VT_ABSENT)
+    out_num = _merge_one(scope_num, batch.v_num, om_num, 0.0)
+    out_sid = _merge_one(scope_sid, batch.v_str, om_sid, 0)
 
     # parallel join: composite key (scope_key, gateway element); the join
     # tables and map are updated IN PLACE (no later read wants their old
@@ -708,10 +858,10 @@ def step_kernel(
         intent=int(WI.SEQUENCE_FLOW_TAKEN), key=key0, elem=taken_flow,
     )
     _put(
-        e0, xs_nofl,
+        e0, xs_nofl | xs_err,
         valid=True, rtype=RT_CMD, vtype=VT_INCIDENT, intent=0,  # IncidentIntent.CREATE
         key=-1, elem=batch.elem, aux_key=batch.key,
-        rej=rb.ERR_CONDITION_NO_FLOW,
+        rej=torch.where(xs_nofl, rb.ERR_CONDITION_NO_FLOW, rb.ERR_CONDITION_EVAL),
     )
     _put(
         e0, m_createjob,
@@ -725,12 +875,21 @@ def step_kernel(
         valid=True, rtype=RT_EVENT, vtype=VT_WI,
         intent=int(WI.ELEMENT_ACTIVATED), key=batch.key, elem=batch.elem,
     )
+    if graph.has_mappings:
+        _put_payload(e0, inmap_ok, in_vt, in_num, in_sid)
     _put(
         e0, outmap_ok,
         valid=True, rtype=RT_EVENT, vtype=VT_WI,
         intent=int(WI.ELEMENT_COMPLETED), key=batch.key, elem=batch.elem,
     )
     _put_payload(e0, outmap_ok, out_vt, out_num, out_sid)
+    if graph.has_mappings:
+        _put(
+            e0, inmap_err | outmap_err,
+            valid=True, rtype=RT_CMD, vtype=VT_INCIDENT, intent=0,
+            key=-1, elem=batch.elem, aux_key=batch.key,
+            rej=torch.where(inmap_err, rb.ERR_IO_MAPPING_IN, rb.ERR_IO_MAPPING_OUT),
+        )
     ftarget = emeta[:, graph_mod.EM_FLOW_TGT]
     _put(
         e0, m_actgw,
@@ -900,18 +1059,42 @@ def step_kernel(
         aux2_key=batch.key, rej=rb.ERR_JOB_NO_RETRIES,
     )
 
-    # --- slot 0: timer commands
+    # --- slot 0/1: timer commands
     _put(
         e0, m_tcreate,
         valid=True, rtype=RT_EVENT, vtype=VT_TIMER, intent=int(TI.CREATED),
         key=key0, elem=batch.elem, aux_key=batch.aux_key, deadline=batch.deadline,
     )
+    if graph.has_timers:
+        _put(
+            e0, ttrig_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_TIMER, intent=int(TI.TRIGGERED),
+            key=batch.key, elem=trig_elem, wf=trig_wf, aux_key=batch.aux_key,
+            deadline=batch.deadline,
+        )
+        # the catch event completes with the instance's own payload
+        _put(
+            e1, ttrig_catch,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.ELEMENT_COMPLETING), key=batch.aux_key,
+            elem=inst_elem, wf=inst_wf, scope_key=inst_scope_key,
+            instance_key=aik_i64_rows[:, EIL_IKEY],
+        )
+        inst_vt, inst_sid, inst_num = unpack_payload(aik_pay_rows)
+        _put_payload(e1, ttrig_catch, inst_vt, inst_num, inst_sid)
     _put(
         e0, ttrig_rej,
         valid=True, rtype=RT_REJ, vtype=vt_, intent=it, key=batch.key,
         rej=rb.REJ_TIMER_NOT_EXIST, req=batch.req, req_stream=batch.req_stream,
         resp=resp,
     )
+    if graph.has_timers:
+        _put(
+            e0, tcan_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_TIMER, intent=int(TI.CANCELED),
+            key=batch.key, elem=batch.elem, aux_key=batch.aux_key,
+            deadline=batch.deadline,
+        )
 
     # --- assemble [B, E] (slots >= 2 are all-zero rows until the fork fills
     # them) + parallel-split fork slots
@@ -979,12 +1162,16 @@ def step_kernel(
     # is exactly one step kind; the guards exclude two records transitioning
     # one instance row in a round)
     ei_remove = outmap_ok | m_complete_proc
-    own_slot = torch.where(jev_completed, aik_clip, ei_clip)
-    own_state_m = inmap_ok | jev_completed | ei_remove
+    # a job completion or a timer trigger completes the instance it names
+    completing = jev_completed
+    if graph.has_timers:
+        completing = completing | ttrig_catch
+    own_slot = torch.where(completing, aik_clip, ei_clip)
+    own_state_m = inmap_ok | completing | ei_remove
     own_state_v = torch.where(
         ei_remove, -1,                                     # removal wins last
         torch.where(
-            jev_completed, int(WI.ELEMENT_COMPLETING), int(WI.ELEMENT_ACTIVATED)
+            completing, int(WI.ELEMENT_COMPLETING), int(WI.ELEMENT_ACTIVATED)
         ),
     )
     own_vals, own_mask = _col_op(ei_k32, EI_STATE, own_state_v)
@@ -992,11 +1179,16 @@ def step_kernel(
     ei_ops.append(ops.TableOp(
         T_EI32, "set", own_slot, own_state_m, own_vals, own_mask
     ))
-    # own-row payloads: input mapping (identity here) and job completion
-    # write the record payload
+    # own-row payloads: input mapping writes the mapped document, job
+    # completion the record payload
     own_pay_m = inmap_ok | jev_completed
+    own_pay = b_pay
+    if graph.has_mappings:
+        own_pay = torch.where(
+            inmap_ok[:, None], pack_payload(in_vt, in_sid, in_num), b_pay
+        )
     ei_ops.append(ops.TableOp(
-        T_EIPAY, "set", own_slot, _last_writer(own_slot, own_pay_m, n_cap), b_pay,
+        T_EIPAY, "set", own_slot, _last_writer(own_slot, own_pay_m, n_cap), own_pay,
     ))
 
     # own-row int64 columns (job-key attach/detach, removal key clear)
@@ -1134,9 +1326,44 @@ def step_kernel(
         job_ops,
     )
 
+    # ---------------- timer table (fused commit, in place) ----------------
+    overflow = ei_overflow | job_overflow
+    if graph.has_timers:
+        # the six timer tables as one group: the int64 columns as [TM, 2]
+        # int32 planes, elem/wf as 1D lanes; a slot past the table (t_cap,
+        # the free-slot scan's overflow answer) is dropped by the commit
+        t_ins = m_tcreate
+        tfree = _first_true_indices(state.timer_key < 0, b)
+        t_rank = _excl_cumsum(t_ins)
+        t_slot = tfree[t_rank.clamp(0, b - 1).to(_I64)]
+        timer_overflow = torch.any(t_ins & (t_slot >= t_cap))
+        t_rm = ttrig_ok | tcan_ok
+        tneg = _planes(full_b(-1, _I64))
+        T_TK, T_TD, T_TA, T_TIK, T_TE, T_TW = range(6)
+        ops.fused_table_commit(
+            [state.timer_key.view(_I32).view(t_cap, 2),
+             state.timer_due.view(_I32).view(t_cap, 2),
+             state.timer_aik.view(_I32).view(t_cap, 2),
+             state.timer_instance_key.view(_I32).view(t_cap, 2),
+             state.timer_elem, state.timer_wf],
+            [
+                ops.TableOp(T_TK, "set", t_slot, t_ins, _planes(key0)),
+                ops.TableOp(T_TD, "set", t_slot, t_ins, _planes(batch.deadline)),
+                ops.TableOp(T_TA, "set", t_slot, t_ins, _planes(batch.aux_key)),
+                ops.TableOp(T_TIK, "set", t_slot, t_ins, _planes(batch.instance_key)),
+                ops.TableOp(T_TE, "set", t_slot, t_ins, batch.elem),
+                ops.TableOp(T_TW, "set", t_slot, t_ins, batch.wf),
+                ops.TableOp(T_TK, "set", tm_clip, t_rm, tneg),
+                ops.TableOp(T_TD, "set", tm_clip, t_rm, tneg),
+            ],
+        )
+        # the insert precedes the delete, both on the map in place
+        ops.insert(state.timer_map, key0, t_slot, t_ins)
+        ops.delete(state.timer_map, batch.key, t_rm)
+        overflow = overflow | timer_overflow
+
     # ---------------- join cleanup ----------------
     join_arrived = state.join_arrived
-    overflow = ei_overflow | job_overflow
     if graph.has_parallel_joins:
         ops.masked_vec64_update(state.join_key, arr_slot, completer, full_b(-1, _I64))
         ops.masked_lane_update(state.join_nin, arr_slot, completer, zeros_b(_I32))
