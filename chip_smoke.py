@@ -3,27 +3,31 @@
 
 Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc`` (phase
 1), holds each of the 13 kernel wrappers against its plain PyTorch
-version on the card at the main paths' shapes (phase 2), checks the drive
-loop on the card bit-equal to the same loop on the CPU on configs 1, 3
-and 2 and an I/O-mapping graph, and one mixed and one timer step (phase
-3), then drives, at the benchmark's accelerator width and through the
-package's own entry points, config 1 (the order-process: start → service
-task "payment-service" → end; phase 4), config 3 (parallel fork/join;
-phase 5) and config 2 (an exclusive gateway with a json-el condition;
-phase 5b), all with synthetic instant workers, and shows from the launch
-counters that each run went through every kernel of its path, exactly as
-often as its rounds and rebuilds ask. Phase 6 serves through the port's
-in-process ``Broker`` with ``CudaPartitionEngine`` — client → log →
-engine → job pushed to a worker → completion → log: the first engine's
-construction runs the boot self-check (insert, lookup, delete, row
-update, lane update and lane accumulate against their plain versions,
-bit for bit); 6a serves configs 1, 3 and 2 and a timer-catch workflow
-(the clock moved past the timers) and checks every instance completed
-device-served with every kernel of the path launched; 6b checks
-credit-drought logs on the card equal to the same runs' on the CPU, and
-config 2's and the timers' equal to the port's host oracle at full
-credit. Phase 7 runs the primitive-cost probe (``zeebe_tpu_torch.probe``:
-the row loop and the hash probe against ``index_put_``).
+version on the card at the main paths' shapes and times it: around one
+wrapper call (host work inside), and for the gather and the table
+commits also on the host alone and on the device alone, back to back
+(phase 2). It checks the drive loop on the card bit-equal to the same
+loop on the CPU on configs 1, 3 and 2 and an I/O-mapping graph, and one
+mixed and one timer step (phase 3), then drives, at the benchmark's
+accelerator width and through the package's own entry points, config 1
+(the order-process: start → service task "payment-service" → end; phase
+4), config 3 (parallel fork/join; phase 5) and config 2 (an exclusive
+gateway with a json-el condition; phase 5b), all with synthetic instant
+workers, and shows from the launch counters that each run went through
+every kernel of its path, exactly as often as its rounds and rebuilds
+ask, and that no table commit enqueued more than 3 device launches (5 a
+drive round). Phase 6 serves through the port's in-process ``Broker``
+with ``CudaPartitionEngine`` — client → log → engine → job pushed to a
+worker → completion → log: the first engine's construction runs the boot
+self-check (insert, lookup, delete, row update, lane update and lane
+accumulate against their plain versions, bit for bit); 6a serves configs
+1, 3 and 2 and a timer-catch workflow (the clock moved past the timers)
+and checks every instance completed device-served with every kernel of
+the path launched; 6b checks credit-drought logs on the card equal to
+the same runs' on the CPU, and config 2's and the timers' equal to the
+port's host oracle at full credit. Phase 7 runs the primitive-cost probe
+(``zeebe_tpu_torch.probe``: the row loop and the hash probe against
+``index_put_``).
 
     python3 chip_smoke.py                     # the full check, one CUDA card
     python3 chip_smoke.py --profile --out F   # + one wave of each config and one
@@ -41,6 +45,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -73,9 +78,11 @@ MAPPING_PER_INSTANCE = 20
 MAPPING_PER_STOPPED = 8
 REBUILD_EVERY = 3
 # the device functions of zeebe_tpu_torch/csrc, as the profiler names them
-OUR_KERNELS = ("gather_rows_kernel", "set_claim_kernel", "set_write_kernel",
-               "accumulate_kernel", "hash_lookup_kernel", "hash_insert_kernel",
-               "hash_delete_kernel")
+OUR_KERNELS = ("gather_rows_kernel", "commit_pass_kernel", "hash_lookup_kernel",
+               "hash_insert_kernel", "hash_delete_kernel")
+# a spin of this many clock cycles (about 11 ms at 1.98 GHz) holds the
+# stream while the host enqueues the launches device_us times
+SPIN_CYCLES = 20_000_000
 
 
 def log(msg: str) -> None:
@@ -113,6 +120,44 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(launch, reps: int = 100) -> float:
+    """Device time of one launch in microseconds: CUDA events around
+    ``reps`` back-to-back calls of ``launch`` (a C entry with prebuilt
+    arguments), all enqueued behind a spin kernel, so the host's work stays
+    off the timed span."""
+    import torch
+
+    if launch() < 0:
+        raise AssertionError("the C entry reported a CUDA error")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def host_us(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median host time of one call of ``fn`` in microseconds
+    (``time.perf_counter``, no synchronisation inside the span)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def max_abs_err(got, want) -> float:
@@ -528,6 +573,16 @@ def check_gather(dev, gen):
     err = max_abs_err(got, want)
     if err != 0.0:
         raise AssertionError(f"gather_rows differs from its plain version: {err}")
+    # int64 slots beyond the int32 range (checked, not timed): clamped into
+    # it before the cast, they read the plain version's rows
+    wide = torch.tensor([2**31, -2**31, 2**31 - 1, -2**31 - 1, 2**32 + 5, -2**32 + 3,
+                         2**40, -2**40, -1, 0], dtype=torch.int64)
+    wide = torch.cat([wide, torch.randint(-n, n, (b,), generator=gen)]).to(dev)
+    wops = [ops.GatherOp(t, wide) for t in (0, 2, 4, 6, 9)]
+    werr = max_abs_err(ops.fused_gather_rows(tables, wops),
+                       ops.fused_gather_rows_reference(tables, wops))
+    if werr != 0.0:
+        raise AssertionError(f"gather_rows with int64 slots differs: {werr}")
     nbytes = 0
     for op in gops:
         t = tables[op.table]
@@ -537,19 +592,46 @@ def check_gather(dev, gen):
         ops._wrap_slots(op.slots, tables[op.table].shape[0])
         .clamp(0, tables[op.table].shape[0] - 1) for op in gops
     ]
+
+    def library():
+        return [tables[op.table].index_select(0, ix) for op, ix in zip(gops, idx64)]
+
+    args, _outs, _keep = ops._gather_args(tables, gops)
+    fn, stream = ops._gather_fn(), ops._stream()
+    # the outputs' allocation: one torch.empty per op, or one arena split
+    # into views (the wrapper's choice rests on these two numbers)
+    shapes = [((op.slots.shape[0],) + tuple(tables[op.table].shape[1:]),
+               tables[op.table].dtype) for op in gops]
+    sizes = [-(-torch.Size(sh).numel() * torch.empty((), dtype=dt).element_size() // 16) * 16
+             for sh, dt in shapes]
+
+    def arena():
+        flat = torch.empty((sum(sizes),), dtype=torch.uint8, device=dev)
+        return [part.view(dt).view(sh) for part, (sh, dt)
+                in zip(flat.split(sizes), shapes)]
+
     return {
         "name": "fused_gather_rows", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/gather_rows.cu",
         "replaces": "zeebe_tpu/tpu/pallas_ops.py:789",
-        "max_abs_err": err,
+        "max_abs_err": max(err, werr),
         "ms": time_ms(lambda: ops.fused_gather_rows(tables, gops)),
         "plain_ms": time_ms(lambda: ops.fused_gather_rows_reference(tables, gops)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         # yardstick: one index_select per op on pre-clamped int64 slots
-        "library_ms": time_ms(lambda: [
-            tables[op.table].index_select(0, ix) for op, ix in zip(gops, idx64)
-        ]),
-        "shape": f"{len(gops)} ops, B={b}, N=M={n}, V={v}",
+        "library_ms": time_ms(library),
+        "device_us": device_us(lambda: fn(ctypes.byref(args), stream)),
+        "host_us": host_us(lambda: ops.fused_gather_rows(tables, gops)),
+        "device_launches": 1,
+        "library_device_us": device_us(lambda: (library(), 0)[1]),
+        "library_host_us": host_us(library),
+        "alloc_us": {
+            "per_op": host_us(lambda: [torch.empty(sh, dtype=dt, device=dev)
+                                       for sh, dt in shapes]),
+            "arena": host_us(arena),
+        },
+        "shape": f"{len(gops)} ops, B={b}, N=M={n}, V={v} (+{len(wops)} ops of "
+                 f"{wide.numel()} int64 slots, checked only)",
     }
 
 
@@ -616,6 +698,9 @@ def check_commit(dev, gen):
                                           .reshape(b, k))).sum())
         nbytes += lanes * 4 * (2 if op.kind != "set" else 1)  # RMW for add/max
     work = tables_copy()
+    descs, _keep = ops._commit_descs(work, cops)
+    fn, stream = ops._commit_fn(), ops._stream()
+    plan = ops.commit_plan(work, cops)
     return {
         "name": "fused_table_commit", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/table_commit.cu",
@@ -625,7 +710,10 @@ def check_commit(dev, gen):
         "plain_ms": time_ms(lambda: ops.fused_table_commit_reference(work, cops)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call orders duplicate writes
-        "shape": f"{len(cops)} ops, B={b}, N={n}, V={v}",
+        "device_us": device_us(lambda: fn(descs, len(cops), stream)),
+        "host_us": host_us(lambda: ops.fused_table_commit(work, cops)),
+        "device_launches": fn(descs, len(cops), stream),
+        "shape": f"{len(cops)} ops in {plan.stages[-1] + 1} stages, B={b}, N={n}, V={v}",
     }
 
 
@@ -772,6 +860,7 @@ def check_scatters(dev, gen):
         nbytes += cells * es * (1 if kind == "set" else 2)
         work, plain = table.clone(), table.clone()
         library_ms = None  # no PyTorch call orders duplicate writes (set)
+        library = {}  # the library call's device and host time, where it has one
         if kind != "set":
             # one PyTorch call on prepared inputs: dropped records parked on
             # an extra row of a padded copy
@@ -782,9 +871,23 @@ def check_scatters(dev, gen):
             v = vals if mask is None else torch.where(mask, vals, 0)
             if kind == "max":
                 idx2 = idx[:, None].expand(-1, width).contiguous()
-                library_ms = time_ms(lambda: pad.scatter_reduce_(0, idx2, v, reduce="amax"))
+
+                def lib():
+                    return pad.scatter_reduce_(0, idx2, v, reduce="amax")
             else:
-                library_ms = time_ms(lambda: pad.index_add_(0, idx, v))
+                def lib():
+                    return pad.index_add_(0, idx, v)
+            library_ms = time_ms(lib)
+            library = {"library_device_us": device_us(lambda: (lib(), 0)[1]),
+                       "library_host_us": host_us(lib)}
+        # the C entry on the wrapper's own descriptor (vec64: lo/hi planes)
+        if dtype == torch.int64:
+            d, _keep = ops._scatter_desc(name, work.view(torch.int32).view(-1, 2), kind,
+                                         slots, active, vals.view(torch.int32).view(-1, 2),
+                                         None)
+        else:
+            d, _keep = ops._scatter_desc(name, work, kind, slots, active, vals, mask)
+        entry, stream = ops._commit_fn(), ops._stream()
         out.append({
             "name": name, "route": "cuda",
             "source": "zeebe_tpu_torch/csrc/table_commit.cu",
@@ -795,6 +898,10 @@ def check_scatters(dev, gen):
                 plain, kind, slots, active, vals, mask)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms,
+            "device_us": device_us(lambda: entry(ctypes.byref(d), 1, stream)),
+            "host_us": host_us(lambda: fn(work, slots, active, vals, *extra)),
+            "device_launches": entry(ctypes.byref(d), 1, stream),
+            **library,
             "shape": "; ".join(
                 f"[{', '.join(map(str, c[0]))}] {c[1]}{' lane-masked' if c[2] else ''}"
                 f", B={c[3] if len(c) > 3 else WAVE}" for c in cases),
@@ -1067,6 +1174,11 @@ PER_ROUND = {
 }
 PER_ROUND["config2"] = PER_ROUND["config1"]
 INSERTS_PER_REBUILD = 6
+# device launches of the table commits: a round's element-instance commit
+# is 3 (the token add's pass, the sets' claim and write passes), its job
+# commit 2; no commit of any path takes more than 3
+COMMIT_DEVICE_PER_ROUND = 5
+COMMIT_DEVICE_MAX = 3
 
 
 def reset_launches() -> None:
@@ -1084,6 +1196,19 @@ def launch_counts() -> dict:
     from zeebe_tpu_torch.tpu import ops
 
     return {**ops.LAUNCHES, **probe.LAUNCHES}
+
+
+def commit_device_launches(label) -> dict:
+    """The device kernels the table commits enqueued since the last reset,
+    beside their wrapper calls; no commit may take more than
+    COMMIT_DEVICE_MAX launches (the main path's take 3, 2 and 2)."""
+    from zeebe_tpu_torch.tpu import ops
+
+    calls = ops.LAUNCHES["fused_table_commit"]
+    device = ops.DEVICE_LAUNCHES["fused_table_commit"]
+    if device > COMMIT_DEVICE_MAX * calls:
+        raise AssertionError(f"{label}: {device} commit launches for {calls} commits")
+    return {"calls": calls, "device": device, "all": dict(ops.DEVICE_LAUNCHES)}
 
 
 def drive_path(label, model_fn, instances, per_instance, path):
@@ -1114,12 +1239,17 @@ def drive_path(label, model_fn, instances, per_instance, path):
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want} "
                              f"({totals['rounds']} rounds, {rebuilds} rebuilds)")
+    commits = commit_device_launches(label)
+    if commits["device"] != COMMIT_DEVICE_PER_ROUND * totals["rounds"]:
+        raise AssertionError(f"{label}: {commits['device']} commit launches in "
+                             f"{totals['rounds']} rounds")
     timed = (waves - 1) * WAVE * per_instance
     return {
         "waves": waves, "wave": WAVE, "instances": instances,
         "totals": totals, "timed_seconds": elapsed, "timed_transitions": timed,
         "transitions_per_sec": timed / elapsed if elapsed > 0 else float("nan"),
-        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "commit_launches": commits,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
     }
 
 
@@ -1464,6 +1594,7 @@ def serve_checked(label, model_fn, instances, per_instance, workdir,
     engine, records, wall, ticks = serve(model_fn, instances, "cuda", workdir,
                                          payload=payload, advance_ms=advance_ms)
     launches = launch_counts()
+    commits = commit_device_launches(label)
     sig = record_signature(records)
     completed = sum(
         1 for r in records
@@ -1492,8 +1623,8 @@ def serve_checked(label, model_fn, instances, per_instance, workdir,
         "device_records": engine.device_records_processed,
         "host_records": engine.host_records_processed, "ticks": ticks,
         "wall_seconds": wall, "records_per_sec": len(records) / wall,
-        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
-        "signature": sig,
+        "launches": launches, "commit_launches": commits,
+        "peak_bytes": torch.cuda.max_memory_allocated(), "signature": sig,
     }
 
 
@@ -1596,6 +1727,15 @@ def main(argv) -> int:
             log(f"[2] {row['name']}: bit-equal to plain ({row['shape']}); "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"library {row['library_ms']}, bound {row['bound_ms']:.4f} ms")
+            if "device_us" in row:
+                log(f"    device {row['device_us']:.2f} us in {row['device_launches']} "
+                    f"launches (back to back), wrapper host {row['host_us']:.2f} us"
+                    + (f"; library device {row['library_device_us']:.2f} us, host "
+                       f"{row['library_host_us']:.2f} us" if "library_device_us" in row
+                       else "")
+                    + (f", outputs allocated per op {row['alloc_us']['per_op']:.2f} us"
+                       f" / as one arena {row['alloc_us']['arena']:.2f} us"
+                       if "alloc_us" in row else ""))
             if "rebuild_ms" in row:
                 log(f"    rebuild shape: kernel {row['rebuild_ms']:.4f} ms, "
                     f"plain {row['rebuild_plain_ms']:.4f} ms")
@@ -1656,7 +1796,10 @@ def main(argv) -> int:
             f"no overflow, exact launches per round; "
             f"{run['transitions_per_sec']:.1f} transitions/s over the "
             f"{run['waves'] - 1} waves after the first ({run['timed_seconds']:.3f} s); "
-            f"launches {run['launches']}")
+            f"launches {run['launches']}; table-commit device launches "
+            f"{run['commit_launches']['device']} for {run['commit_launches']['calls']} "
+            f"commits ({run['commit_launches']['device'] / run['totals']['rounds']:.0f} "
+            f"a round); device launches {run['commit_launches']['all']}")
     # phase 6: the serving path. The first engine built in this process
     # runs the boot self-check inside its constructor
     import shutil
@@ -1675,12 +1818,14 @@ def main(argv) -> int:
         CudaPartitionEngine(0, 1, capacity=SERVE_CAPACITY)
         boot_s = time.perf_counter() - t0
         by_path["selfcheck"] = launch_counts()
+        boot_commits = commit_device_launches("selfcheck")
         zero = [k for k in SELFCHECK_KERNELS if by_path["selfcheck"][k] <= 0]
         if not ops._SELFCHECK_PASSED or zero:
             raise AssertionError(f"the boot self-check did not run its kernels: {zero}")
         report["selfcheck"] = {"seconds": boot_s, "launches": by_path["selfcheck"]}
         log(f"[6] first engine on the card: boot self-check bit-equal in "
-            f"{boot_s:.3f} s; launches {by_path['selfcheck']}")
+            f"{boot_s:.3f} s; launches {by_path['selfcheck']}; device launches "
+            f"{boot_commits['all']}")
         served = {}
         for label, model_fn, instances, per_instance, payload, advance_ms in (
             ("config1", config1_model, SERVE_INSTANCES, TRANSITIONS_PER_INSTANCE,
@@ -1703,7 +1848,10 @@ def main(argv) -> int:
                 f"{run['device_records']} through the step kernel, "
                 f"{run['host_records']} host-side) in {run['wall_seconds']:.3f} s "
                 f"= {run['records_per_sec']:.1f} records/s, {run['ticks']} ticks; "
-                f"launches {run['launches']}")
+                f"launches {run['launches']}; table-commit device launches "
+                f"{run['commit_launches']['device']} for "
+                f"{run['commit_launches']['calls']} commits; device launches "
+                f"{run['commit_launches']['all']}")
         par = serve_parity(workdir)
         report["serving_parity"] = par
         log(f"[6b] config 1, {par['instances']} instances, {SERVE_CREDITS} credits "
@@ -1780,9 +1928,10 @@ def main(argv) -> int:
             json.dump(report, f, indent=1)
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_us", "host_us")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}),
+    print(json.dumps({"kernels": [{k: row.get(k) for k in keys} for row in kernels]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

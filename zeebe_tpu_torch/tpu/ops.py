@@ -17,8 +17,11 @@ parallel fork/join graph):
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain PyTorch version beside each kernel (``*_reference``); CUDA tensors
 launch the hand-written kernel, or the call raises. There is no fallback
-from a CUDA tensor to the plain version. ``LAUNCHES`` counts kernel
-launches per wrapper (one per wrapper call that reaches the GPU).
+from a CUDA tensor to the plain version. ``LAUNCHES`` counts the wrapper
+calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
+(a table commit is a pass or two per stage of ``commit_plan``). The
+launch plans (``gather_plan``, ``commit_plan``) are built here, in
+Python, so the CPU tests reach them.
 
 Aliasing: unlike their JAX counterparts, every table write here updates
 the caller's tensors IN PLACE on both devices and returns them.
@@ -36,7 +39,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Sequence
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,34 +48,52 @@ from zeebe_tpu_torch import _build
 from zeebe_tpu_torch.tpu import hashmap
 from zeebe_tpu_torch.tpu.hashmap import HashTable
 
-# kernel launches per wrapper; chip_smoke.py zeroes these before driving
-# the main path and reads them after
+# kernel launches per wrapper (one per wrapper call that reaches the GPU);
+# chip_smoke.py zeroes these before driving the main path and reads them
+# after
 LAUNCHES: Dict[str, int] = {
     "fused_gather_rows": 0, "fused_table_commit": 0, "lookup": 0,
     "masked_row_update": 0, "masked_row_max": 0, "masked_row_add": 0,
     "masked_lane_update": 0, "masked_lane_accum": 0, "masked_vec64_update": 0,
     "insert": 0, "delete": 0,
 }
+# device kernel launches the same calls enqueued: one a call, but for the
+# table commits (a pass or two per stage of the op list: commit_plan)
+DEVICE_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DEVICE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, launched: int) -> None:
+    """Count a call that reached the GPU and the ``launched`` kernels its C
+    entry enqueued; a negative ``launched`` is minus a CUDA error."""
+    if launched < 0:
+        raise RuntimeError(f"{name}: CUDA error {-launched} at launch")
+    LAUNCHES[name] += 1
+    DEVICE_LAUNCHES[name] += launched
 
 
 def _on_cuda(tensors: Sequence[torch.Tensor], what: str) -> bool:
     """True when every tensor is on a CUDA device, False when every one is
     on the CPU; a mix raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
+    cuda = [t.is_cuda for t in tensors]
+    if all(cuda):
         return True
+    if not any(cuda) and all(t.device.type == "cpu" for t in tensors):
+        return False
+    kinds = sorted({t.device.type for t in tensors})
     raise ValueError(f"{what}: tensors on mixed or unsupported devices {kinds}")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream() -> int:
+    """The raw handle of the current device's current stream, the one
+    PyTorch launches its own kernels on (CUDA is initialised: the caller
+    holds CUDA tensors)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,6 +110,27 @@ def _wrap_slots(slots: torch.Tensor, rows: int) -> torch.Tensor:
     """int64 slots with one wrap of negatives (XLA index normalization)."""
     s = slots.to(torch.int64)
     return torch.where(s < 0, s + rows, s)
+
+
+_I32_MIN, _I32_MAX = -2**31, 2**31 - 1
+
+
+def _slots_i32(slots: torch.Tensor) -> torch.Tensor:
+    """``slots`` as the kernels read them: contiguous int32. Other dtypes
+    are clamped into int32 range before the cast: a cast alone wraps
+    2^32 + 5 to 5, where the gather's clamp reads the last row and a
+    scatter drops the record; the clamped value gives both kernels the
+    plain versions' answer."""
+    if slots.dtype is not torch.int32:
+        slots = slots.to(torch.int64).clamp(_I32_MIN, _I32_MAX).to(torch.int32)
+    return slots if slots.is_contiguous() else slots.contiguous()
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype``, converted only if it is not."""
+    if t.dtype is not dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -118,49 +161,115 @@ def fused_gather_rows_reference(
 
 class _GatherDesc(ctypes.Structure):
     _fields_ = [
-        ("table", ctypes.c_void_p), ("row_stride", ctypes.c_int64),
-        ("row_bytes", ctypes.c_int64), ("rows", ctypes.c_int64),
-        ("slots", ctypes.c_void_p), ("n", ctypes.c_int64),
-        ("out", ctypes.c_void_p),
+        ("table", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("row_stride", ctypes.c_int32),
+        ("rows", ctypes.c_int32), ("n", ctypes.c_int32),
+        ("vecs", ctypes.c_int32), ("vec_bytes", ctypes.c_int32),
+        ("lanes", ctypes.c_int32),
     ]
 
 
 _MAX_GATHER_OPS = 32
+# csrc/gather_rows.cu's ZB_GATHER_THREADS and ZB_GATHER_UNROLL: a block's
+# threads, and the rows each group of lanes copies at once
+_GATHER_THREADS = 256
+_GATHER_UNROLL = 4
+
+
+# _GatherDesc's bytes, packed in one call (cheaper than nine field sets)
+_GATHER_LAYOUT = struct.Struct("<3Q6i")
+
+
+class _GatherArgs(ctypes.Structure):
+    _fields_ = [
+        ("d", _GatherDesc * _MAX_GATHER_OPS),
+        ("start", ctypes.c_int32 * (_MAX_GATHER_OPS + 1)),
+        ("n_ops", ctypes.c_int32),
+    ]
+
+
+def _copy_unit(*quantities: int) -> int:
+    """The widest copy (16, 8, 4, 2 or 1 bytes) that divides every address,
+    stride and width given: the lowest set bit of their OR with 16."""
+    q = 16
+    for x in quantities:
+        q |= x
+    return q & -q
+
+
+def gather_plan(rows: Sequence[int], vecs: Sequence[int]):
+    """The gather kernel's block plan, for ops of ``rows[j]`` rows of
+    ``vecs[j]`` copy units each. Returns (lanes, starts): per op the
+    threads that copy one row (a power of two, at least ``vecs[j]`` up to
+    32), and its first block. Op j has ceil(rows / rows a block copies)
+    blocks, none when it has no rows; ``starts`` has one entry more than
+    the ops, the grid."""
+    lanes, starts, block = [], [], 0
+    for n, v in zip(rows, vecs):
+        g = 1
+        while g < v and g < 32:
+            g *= 2
+        lanes.append(g)
+        starts.append(block)
+        block += -(-n // (_GATHER_THREADS // g * _GATHER_UNROLL))
+    starts.append(block)
+    return lanes, starts
+
+
+def _gather_args(tables, ops):
+    """The kernel's argument block for ``ops``, their outputs, and the
+    converted slots the block points at (keep them alive to the launch)."""
+    if len(ops) > _MAX_GATHER_OPS:
+        raise ValueError(f"fused_gather_rows: at most {_MAX_GATHER_OPS} ops")
+    keep, outs, descs = [], [], []
+    for op in ops:
+        t = tables[op.table]
+        dim = t.dim()
+        if dim not in (1, 2) or t.shape[0] == 0:
+            raise ValueError("fused_gather_rows: tables must be non-empty 1D/2D")
+        if dim == 2 and t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError("fused_gather_rows: 2D rows must be contiguous")
+        es = t.element_size()
+        stride = es * t.stride(0)
+        if t.shape[0] > _I32_MAX or stride > _I32_MAX:
+            raise ValueError("fused_gather_rows: at most 2^31 - 1 rows and row bytes")
+        slots = _slots_i32(op.slots)
+        n = slots.shape[0]
+        # one output per op, by new_empty (the table's dtype and device, fewer
+        # arguments to parse): one arena split into views cost more on the
+        # card (chip_smoke.py phase 2, alloc_us)
+        if dim == 2:
+            out = t.new_empty((n, t.shape[1]))
+            row_bytes = es * t.shape[1]
+        else:
+            out = t.new_empty((n,))
+            row_bytes = es
+        keep.append(slots)
+        outs.append(out)
+        base, dst = t.data_ptr(), out.data_ptr()
+        unit = _copy_unit(base, stride, row_bytes, dst)
+        descs.append((base, slots.data_ptr(), dst, stride, t.shape[0], n,
+                      row_bytes // unit, unit))
+    lanes, starts = gather_plan([d[5] for d in descs], [d[6] for d in descs])
+    args = _GatherArgs()
+    for j, (d, g) in enumerate(zip(descs, lanes)):
+        _GATHER_LAYOUT.pack_into(args, j * _GATHER_LAYOUT.size, *d, g)
+    args.start[: len(starts)] = starts
+    args.n_ops = len(ops)
+    return args, outs, keep
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_fn():
+    return _entry("gather_rows", "zb_gather_rows",
+                  (ctypes.POINTER(_GatherArgs), ctypes.c_void_p))
 
 
 def _gather_cuda(tables, ops) -> List[torch.Tensor]:
-    if len(ops) > _MAX_GATHER_OPS:
-        raise ValueError(f"fused_gather_rows: at most {_MAX_GATHER_OPS} ops")
-    fn = _entry("gather_rows", "zb_gather_rows",
-                (ctypes.POINTER(_GatherDesc), ctypes.c_int, ctypes.c_int64,
-                 ctypes.c_void_p))
-    descs = (_GatherDesc * len(ops))()
-    keep = []
-    outs = []
-    max_units = 0
-    for j, op in enumerate(ops):
-        t = tables[op.table]
-        if t.dim() not in (1, 2) or t.shape[0] == 0:
-            raise ValueError("fused_gather_rows: tables must be non-empty 1D/2D")
-        if t.dim() == 2 and t.shape[1] > 1 and t.stride(1) != 1:
-            raise ValueError("fused_gather_rows: 2D rows must be contiguous")
-        slots = op.slots.to(torch.int32).contiguous()
-        keep.append(slots)
-        n = slots.shape[0]
-        es = t.element_size()
-        row_bytes = es * (t.shape[1] if t.dim() == 2 else 1)
-        out = torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
-                          device=t.device)
-        outs.append(out)
-        descs[j] = _GatherDesc(
-            t.data_ptr(), es * t.stride(0), row_bytes, t.shape[0],
-            slots.data_ptr(), n, out.data_ptr(),
-        )
-        max_units = max(max_units, n * row_bytes)
-    if max_units > 0:
-        _build.check(fn(descs, len(ops), max_units, _stream()),
-                     "fused_gather_rows")
-        LAUNCHES["fused_gather_rows"] += 1
+    args, outs, _keep = _gather_args(tables, ops)
+    launched = _gather_fn()(ctypes.byref(args), _stream())
+    if launched:
+        _count("fused_gather_rows", launched)
     return outs
 
 
@@ -213,20 +322,20 @@ def _last_active(keys: torch.Tensor, live: torch.Tensor, size: int) -> torch.Ten
     return live & (best[torch.where(live, keys, size)] == rank)
 
 
-def _kind(tbl: torch.Tensor, op: TableOp) -> str:
-    """The op's effective kind: the JAX chain routes a 1D table's op to a
+def _kind(tbl: torch.Tensor, kind: str) -> str:
+    """An op's effective kind: the JAX chain routes a 1D table's op to a
     lane accumulate for "add" and to a lane SET for anything else."""
-    if op.kind not in _KINDS:
-        raise ValueError(f"fused_table_commit: unknown op kind {op.kind!r}")
-    if tbl.dim() == 1 and op.kind != "add":
+    if kind not in _KINDS:
+        raise ValueError(f"fused_table_commit: unknown op kind {kind!r}")
+    if tbl.dim() == 1 and kind != "add":
         return "set"
-    return op.kind
+    return kind
 
 
 def _apply_op_reference(tbl: torch.Tensor, op: TableOp) -> None:
     """One TableOp, in place, with the XLA op chain's semantics."""
     rows = tbl.shape[0]
-    kind = _kind(tbl, op)
+    kind = _kind(tbl, op.kind)
     s = _wrap_slots(op.slots, rows)
     keep = op.active.to(torch.bool) & (s >= 0) & (s < rows)
     vals = op.vals.to(tbl.dtype)
@@ -271,17 +380,76 @@ def fused_table_commit_reference(
     return list(tables)
 
 
+_KINDS = {"set": 0, "add": 1, "max": 2}
+# csrc/table_commit.cu's ZB_MAX_COMMIT_OPS: the ops one pass can take
+_MAX_COMMIT_OPS = 32
+
+
+@dataclasses.dataclass
+class CommitPlan:
+    """How the commit kernel runs an op list (csrc/table_commit.cu). Per op:
+    its effective kind (``_kind``), whether its lane mask applies (a 1D
+    table's op and a 2D "max" ignore it), its stage, and for a "set" the
+    scratch offsets, in words, of its table's row and lane claim regions
+    (-1 where the table has none). ``words``: the scratch the regions take."""
+
+    kinds: List[str]
+    masked: List[bool]
+    stages: List[int]
+    regions: List[Tuple[int, int]]
+    words: int
+
+
+def commit_plan(tables: Sequence[torch.Tensor], ops: Sequence[TableOp]) -> CommitPlan:
+    """Split ``ops`` into stages, in list order: an op opens a new stage when
+    its table already took another kind in the current one. Inside a stage
+    each table takes one kind, so its ops are all sets (ordered by their
+    epochs) or all commuting adds or maxes, and the ops of different tables
+    are independent. A table that a set writes gets a row region (unmasked
+    sets claim rows) and a lane region (lane-masked sets claim cells)."""
+    kinds, masked, stages = [], [], []
+    stage, size, seen = 0, 0, {}
+    for op in ops:
+        t = tables[op.table]
+        kind = _kind(t, op.kind)
+        if seen.get(op.table, kind) != kind:
+            stage, size, seen = stage + 1, 0, {}
+        seen[op.table] = kind
+        size += 1
+        if size > _MAX_COMMIT_OPS:
+            raise ValueError(f"fused_table_commit: at most {_MAX_COMMIT_OPS} ops a stage")
+        kinds.append(kind)
+        masked.append(op.mask is not None and t.dim() == 2 and kind != "max")
+        stages.append(stage)
+    offsets: Dict[Tuple[int, bool], int] = {}
+    words = 0
+    for op, kind, m in zip(ops, kinds, masked):
+        if kind == "set" and (op.table, m) not in offsets:
+            offsets[(op.table, m)] = words
+            words += tables[op.table].numel() if m else tables[op.table].shape[0]
+    regions = [
+        (offsets.get((op.table, False), -1), offsets.get((op.table, True), -1))
+        if kind == "set" else (-1, -1)
+        for op, kind in zip(ops, kinds)
+    ]
+    return CommitPlan(kinds, masked, stages, regions, words)
+
+
 class _CommitDesc(ctypes.Structure):
     _fields_ = [
         ("table", ctypes.c_void_p), ("slots", ctypes.c_void_p),
         ("active", ctypes.c_void_p), ("vals", ctypes.c_void_p),
-        ("mask", ctypes.c_void_p), ("rows", ctypes.c_int64),
-        ("width", ctypes.c_int64), ("n", ctypes.c_int64),
-        ("kind", ctypes.c_int64), ("epoch", ctypes.c_uint64),
+        ("mask", ctypes.c_void_p), ("row_claims", ctypes.c_void_p),
+        ("lane_claims", ctypes.c_void_p), ("rows", ctypes.c_int32),
+        ("width", ctypes.c_int32), ("n", ctypes.c_int32),
+        ("kind", ctypes.c_int32), ("epoch", ctypes.c_uint32),
+        ("stage", ctypes.c_int32),
     ]
 
 
-_KINDS = {"set": 0, "add": 1, "max": 2}
+# _CommitDesc's bytes, packed in one call (cheaper than its field sets)
+_COMMIT_LAYOUT = struct.Struct("<7Q4iIi")
+
 # per-device claim scratch for "set" ops: [words] int64, and the last epoch
 # handed out (see csrc/table_commit.cu); zeroed only when (re)allocated or
 # when the 32-bit epoch space wraps
@@ -301,61 +469,82 @@ def _claim_scratch(device: torch.device, words: int, epochs: int):
     return entry[0], first
 
 
-def _commit_cuda(tables, ops, name: str = "fused_table_commit") -> List[torch.Tensor]:
-    fn = _entry("table_commit", "zb_table_commit",
-                (ctypes.POINTER(_CommitDesc), ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p))
-    for t in tables:
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() not in (1, 2):
-            raise ValueError(
-                f"{name}: tables must be contiguous int32 1D/2D "
-                "(int64 tables enter as .view(torch.int32) planes)"
-            )
-    kinds = [_kind(tables[op.table], op) for op in ops]
-    sets = [op for op, kind in zip(ops, kinds) if kind == "set"]
-    words = max(
-        (tables[op.table].numel() if op.mask is not None else tables[op.table].shape[0]
-         for op in sets), default=1,
-    )
-    device = tables[ops[0].table].device
-    scratch, epoch = _claim_scratch(device, words, len(sets))
-    descs = (_CommitDesc * len(ops))()
-    keep = []
-    for k, (op, kind) in enumerate(zip(ops, kinds)):
-        t = tables[op.table]
-        width = t.shape[1] if t.dim() == 2 else 1
-        n = op.slots.shape[0]
-        slots = op.slots
-        if slots.dtype != torch.int32:  # out of int32 range is dropped anyway
-            slots = slots.to(torch.int64).clamp(-2**31, 2**31 - 1)
-        slots = slots.to(torch.int32).contiguous()
-        active = op.active.to(torch.bool).contiguous()
-        vals = op.vals.to(torch.int32).reshape(n, width).contiguous()
-        mask = None
-        if op.mask is not None and kind != "max":  # max merges whole rows
-            mask = op.mask.to(torch.bool).reshape(n, width).contiguous()
-        keep += [slots, active, vals, mask]
-        op_epoch = 0
-        if kind == "set":
-            op_epoch = epoch
-            epoch += 1
-        descs[k] = _CommitDesc(
-            t.data_ptr(), slots.data_ptr(), active.data_ptr(), vals.data_ptr(),
-            None if mask is None else mask.data_ptr(), t.shape[0], width, n,
-            _KINDS[kind], op_epoch,
+def _check_table(t: torch.Tensor, name: str) -> None:
+    if (t.dtype is not torch.int32 or not t.is_contiguous() or t.dim() not in (1, 2)
+            or t.numel() > _I32_MAX):
+        raise ValueError(
+            f"{name}: tables must be contiguous int32 1D/2D of under 2^31 "
+            "elements (int64 tables enter as .view(torch.int32) planes)"
         )
-    _build.check(fn(descs, len(ops), scratch.data_ptr(), _stream()), name)
-    LAUNCHES[name] += 1
+
+
+def _inputs(width: int, slots, active, vals, mask, keep: list):
+    """One op's input pointers (slots, active, vals, and mask or None) and
+    its record count. Inputs already of the kernel's dtype and layout are
+    taken as they are; the tensors go to ``keep`` (alive until the launch
+    is enqueued)."""
+    n = slots.shape[0]
+    slots, active, vals = _slots_i32(slots), _as(active, torch.bool), _as(vals, torch.int32)
+    if mask is not None:
+        mask = _as(mask, torch.bool)
+    if (active.numel() != n or vals.numel() != n * width or n * width > _I32_MAX
+            or (mask is not None and mask.numel() != n * width)):
+        raise ValueError("fused_table_commit: slots, active, vals and mask disagree "
+                         "on the batch or the table width")
+    keep += (slots, active, vals, mask)
+    return (slots.data_ptr(), active.data_ptr(), vals.data_ptr(),
+            None if mask is None else mask.data_ptr(), n)
+
+
+@functools.lru_cache(maxsize=None)
+def _commit_fn():
+    return _entry("table_commit", "zb_table_commit",
+                  (ctypes.POINTER(_CommitDesc), ctypes.c_int, ctypes.c_void_p))
+
+
+def _commit_descs(tables, ops):
+    """The descriptors of ``ops`` in list order, and the converted inputs
+    they point at (keep them alive to the launch)."""
+    for t in tables:
+        _check_table(t, "fused_table_commit")
+    plan = commit_plan(tables, ops)
+    epoch = base = 0
+    sets = plan.kinds.count("set")
+    if sets:
+        scratch, epoch = _claim_scratch(tables[ops[0].table].device, plan.words, sets)
+        base = scratch.data_ptr()
+    descs = (_CommitDesc * len(ops))()
+    keep: list = []
+    for k, op in enumerate(ops):
+        t, kind = tables[op.table], plan.kinds[k]
+        rows, width = (t.shape[0], t.shape[1]) if t.dim() == 2 else (t.shape[0], 1)
+        s, a, v, m, n = _inputs(width, op.slots, op.active, op.vals,
+                                op.mask if plan.masked[k] else None, keep)
+        row_claims = lane_claims = op_epoch = 0
+        if kind == "set":
+            row, lane = plan.regions[k]
+            row_claims = base + 8 * row if row >= 0 else 0
+            lane_claims = base + 8 * lane if lane >= 0 else 0
+            op_epoch, epoch = epoch, epoch + 1
+        _COMMIT_LAYOUT.pack_into(descs, k * _COMMIT_LAYOUT.size, t.data_ptr(), s, a, v,
+                                 m or 0, row_claims, lane_claims, rows, width, n,
+                                 _KINDS[kind], op_epoch, plan.stages[k])
+    return descs, keep
+
+
+def _commit_cuda(tables, ops) -> List[torch.Tensor]:
+    descs, _keep = _commit_descs(tables, ops)
+    _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream()))
     return list(tables)
 
 
 def fused_table_commit(
     tables: Sequence[torch.Tensor], ops: Sequence[TableOp]
 ) -> List[torch.Tensor]:
-    """Apply ``ops`` to ``tables`` (all int32; int64 state enters as
-    ``.view(torch.int32)`` planes) in list order, IN PLACE; returns the
-    tables in input order. One kernel-launch call for the whole list on
-    CUDA tensors."""
+    """Apply ``ops`` to ``tables`` (all int32, none overlapping another;
+    int64 state enters as ``.view(torch.int32)`` planes) in list order, IN
+    PLACE; returns the tables in input order. On CUDA tensors one C call
+    enqueues the whole list: a pass or two per stage of ``commit_plan``."""
     ops = list(ops)
     if not ops:
         return list(tables)
@@ -389,7 +578,7 @@ def _lookup_cuda(table: HashTable, keys: torch.Tensor, valid: torch.Tensor):
            vals.data_ptr(), _stream()),
         "lookup",
     )
-    LAUNCHES["lookup"] += 1
+    _count("lookup", 1)
     return found, vals
 
 
@@ -415,12 +604,46 @@ def masked_scatter_reference(table: torch.Tensor, kind: str, slots: torch.Tensor
     return table
 
 
+def _scatter_desc(name, table, kind, slots, active, vals, mask):
+    """A one-op commit's descriptor, built directly: no stage plan, and
+    claim scratch only for a "set". Returns it and the tensors it points at
+    (keep them alive to the launch)."""
+    _check_table(table, name)
+    kind = _kind(table, kind)
+    if table.dim() == 2:
+        rows, width = table.shape
+        if kind == "max":  # as commit_plan: a max merges whole rows
+            mask = None
+    else:
+        rows, width, mask = table.shape[0], 1, None
+    keep: list = []
+    s, a, v, m, n = _inputs(width, slots, active, vals, mask, keep)
+    row_claims = lane_claims = epoch = 0
+    if kind == "set":
+        scratch, epoch = _claim_scratch(table.device, rows if m is None else rows * width, 1)
+        if m is None:
+            row_claims = scratch.data_ptr()
+        else:
+            lane_claims = scratch.data_ptr()
+    d = _CommitDesc()
+    _COMMIT_LAYOUT.pack_into(d, 0, table.data_ptr(), s, a, v, m or 0, row_claims,
+                             lane_claims, rows, width, n, _KINDS[kind], epoch, 0)
+    return d, keep
+
+
+def _scatter_cuda(name, table, kind, slots, active, vals, mask) -> None:
+    d, _keep = _scatter_desc(name, table, kind, slots, active, vals, mask)
+    _count(name, _commit_fn()(ctypes.byref(d), 1, _stream()))
+
+
 def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
     """One masked scatter into one int32 table, in place: a one-op table
     commit, its launches counted under ``name``."""
-    if _on_cuda([table, slots, active, vals] + ([] if mask is None else [mask]), name):
-        _commit_cuda([table], [TableOp(0, kind, slots, active, vals, mask)], name)
+    if (table.is_cuda and slots.is_cuda and active.is_cuda and vals.is_cuda
+            and (mask is None or mask.is_cuda)):
+        _scatter_cuda(name, table, kind, slots, active, vals, mask)
         return table
+    _on_cuda([table, slots, active, vals] + ([] if mask is None else [mask]), name)
     return masked_scatter_reference(table, kind, slots, active, vals, mask)
 
 
@@ -516,7 +739,7 @@ def _insert_cuda(table: HashTable, keys, vals, valid) -> torch.Tensor:
            scratch.data_ptr(), epoch, counters.data_ptr(), _stream()),
         "insert",
     )
-    LAUNCHES["insert"] += 1
+    _count("insert", 1)
     return ok
 
 
@@ -548,7 +771,7 @@ def _delete_cuda(table: HashTable, keys, valid) -> None:
                 (p, ctypes.c_int64, p, p, ctypes.c_int64, p))
     _build.check(fn(tkeys.data_ptr(), size, keys.data_ptr(), valid.data_ptr(), n,
                     _stream()), "delete")
-    LAUNCHES["delete"] += 1
+    _count("delete", 1)
 
 
 def delete(table: HashTable, keys: torch.Tensor, valid: torch.Tensor) -> HashTable:
