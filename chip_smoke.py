@@ -4,9 +4,11 @@
 Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc`` (phase
 1), holds each of the 13 kernel wrappers against its plain PyTorch
 version on the card at the main paths' shapes and times it: around one
-wrapper call (host work inside), and for the gather and the table
-commits also on the host alone and on the device alone, back to back
-(phase 2). It checks the drive loop on the card bit-equal to the same
+wrapper call (host work inside), and for the gather, the table commits
+and the hash lookup, insert and delete also on the host alone and on
+the device alone, back to back (phase 2; the lookup also as a config-1
+step's fused fallback probes against two calls, the insert also at the
+rebuild shape, round 1 alone, and captured in a CUDA graph). It checks the drive loop on the card bit-equal to the same
 loop on the CPU on configs 1, 3 and 2 and an I/O-mapping graph, and one
 mixed and one timer step (phase 3), then drives, at the benchmark's
 accelerator width and through the package's own entry points, config 1
@@ -34,6 +36,10 @@ port's host oracle at full credit. Phase 7 runs the primitive-cost probe
                                               #   eval_programs call under
                                               #   torch.profiler, every number
                                               #   written to F (JSON)
+    python3 chip_smoke.py --hash-only         # only phase 2's lookup, insert
+                                              #   and delete cases: run it in
+                                              #   an unpacked parent commit and
+                                              #   here, in one call, for an A/B
 
 Every phase passes or the script exits non-zero. The last line of standard
 output is ``{"ok": true, "device": {...}}``; before it come the card's name
@@ -158,6 +164,35 @@ def host_us(fn, reps: int = 25, warmup: int = 3) -> float:
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return statistics.median(times) * 1e6
+
+
+def device_us_calls(calls) -> float:
+    """Device time of one call in microseconds: ``calls`` are zero-argument
+    calls (each on inputs of its own where a call changes them: an insert,
+    a delete); the first warms up, the rest are enqueued back to back
+    behind a spin kernel, so the host's work stays off the timed span.
+    Counts every kernel a call enqueues. Raises if the host took longer to
+    enqueue them than the spin held the stream (the device would have
+    waited on the host)."""
+    import torch
+
+    calls[0]()
+    torch.cuda.synchronize()
+    spun = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spun.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for call in calls[1:]:
+        call()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if enqueue_ms >= spun.elapsed_time(start):
+        raise AssertionError(f"enqueueing took {enqueue_ms:.2f} ms, longer than the spin")
+    return start.elapsed_time(end) * 1e3 / (len(calls) - 1)
 
 
 def max_abs_err(got, want) -> float:
@@ -396,7 +431,9 @@ def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
 def profile_config(wave, warm_waves=2, model_fn=config1_model):
     """One config-1 (or 3) wave at full width under torch.profiler, after
     ``warm_waves`` unprofiled ones: wall time, summed device kernel time,
-    the device's idle share and the kernels that take the device time."""
+    the device's idle share and the kernels that take the device time; and
+    the lookup-state rebuild after it, profiled alone: our kernels' device
+    time there (the six map inserts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -423,6 +460,13 @@ def profile_config(wave, warm_waves=2, model_fn=config1_model):
     top = sorted(events, key=dev_us, reverse=True)[:15]
     top += [e for e in events
             if e not in top and any(k in e.key for k in OUR_KERNELS)]
+    # the lookup-state rebuild that follows the wave (six map inserts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as rprof:
+        t0 = time.perf_counter()
+        state = state_mod.rebuild_lookup_state(state)
+        torch.cuda.synchronize()
+        rwall = time.perf_counter() - t0
+    revents, _ = _device_events(rprof)
     return {
         "wave": wave, "rounds": totals["rounds"], "wall_ms": wall * 1e3,
         "device_busy_ms": busy_ms,
@@ -430,6 +474,12 @@ def profile_config(wave, warm_waves=2, model_fn=config1_model):
         "device_launches": sum(e.count for e in events),
         "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
                 for e in top],
+        "rebuild": {
+            "wall_ms": rwall * 1e3,
+            "device_busy_ms": sum(dev_us(e) for e in revents) / 1e3,
+            "ours": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
+                     for e in revents if any(k in e.key for k in OUR_KERNELS)],
+        },
     }
 
 
@@ -717,26 +767,48 @@ def check_commit(dev, gen):
     }
 
 
-def check_lookup(dev, gen):
-    """The element-instance map (T = 2^19 buckets for N = 2^16) probed with
-    3B = 3·2^14 keys: hits, misses, tombstones, invalid keys."""
+def _filled_map(dev, gen, keys):
+    """A map of 8 buckets a key (``state.make_state``'s element-instance and
+    job maps: 2^19 buckets for 2^16 rows) holding ``keys``, a fifth of them
+    deleted again."""
     import torch
 
-    from zeebe_tpu_torch.tpu import hashmap, ops
+    from zeebe_tpu_torch.tpu import hashmap
 
-    n = CAP_FACTOR * WAVE
-    b = WAVE
+    n = keys.shape[0]
     t = 1
     while t < 8 * n:
         t *= 2
-    keys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 1
     table, ok = hashmap.insert(
         hashmap.make(t, device=dev), keys, torch.arange(n, dtype=torch.int32, device=dev),
         torch.ones(n, dtype=torch.bool, device=dev),
     )
     assert bool(ok.all())
     dead = (torch.rand((n,), generator=gen) < 0.2).to(dev)
-    table = hashmap.delete(table, keys, dead)
+    return hashmap.delete(table, keys, dead)
+
+
+def _lookup_bytes(n, valid) -> int:
+    """Flag, found and value per key; per valid key its key and at least
+    one bucket (key and value): an invalid key's key is never read."""
+    return n * (1 + 1 + 4) + int(valid.sum()) * (8 + 12)
+
+
+def check_lookup(dev, gen):
+    """The element-instance map (T = 2^19 buckets for N = 2^16) probed with
+    3B = 3·2^14 keys: hits, misses, tombstones, invalid keys. And the main
+    path's case: a config-1 step's two fallback probes (3B keys into the
+    element-instance map, B into the job map), ~7.5 % of the keys valid in
+    one run, as one ``fused_lookup`` and as two ``lookup`` calls."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    n = CAP_FACTOR * WAVE
+    b = WAVE
+    keys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 1
+    table = _filled_map(dev, gen, keys)
+    t = table.keys.shape[0]
     pick = torch.randint(0, n, (3 * b,), generator=gen).to(dev)
     q = keys[pick]
     q[::3] += 2**33          # absent keys ≥ 2^32
@@ -749,18 +821,62 @@ def check_lookup(dev, gen):
     err = max_abs_err(got, want)
     if err != 0.0:
         raise AssertionError(f"hash_lookup differs from its plain version: {err}")
-    nv = int(valid.sum())
-    nbytes = 3 * b * (8 + 1 + 1 + 4) + nv * 12  # ≥ one bucket per valid key
+
+    # the main path: the fallbacks find almost no key valid (a direct-index
+    # hit needs none); the valid ones come in runs (a wave's new keys before
+    # the next rebuild), 9 in 10 of them present
+    jkeys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 3
+    job = _filled_map(dev, gen, jkeys)
+    q_ei = keys[torch.randint(0, n, (3 * b,), generator=gen).to(dev)]
+    q_ei[::10] += 2**33
+    v_ei = torch.zeros((3 * b,), dtype=torch.bool, device=dev)
+    run = round(0.075 * 4 * b)
+    v_ei[2 * b: 2 * b + run] = True
+    q_job = jkeys[torch.randint(0, n, (b,), generator=gen).to(dev)]
+    v_job = torch.zeros((b,), dtype=torch.bool, device=dev)
+    pairs = ((table, q_ei, v_ei), (job, q_job, v_job))
+
+    def two():
+        return [ops.lookup(m, k, v) for m, k, v in pairs]
+
+    main = {"two_lookups": {"device_us": device_us_calls([two] * 101),
+                            "host_us": host_us(two), "launches": 2}}
+    probes = [ops.LookupOp(0, q_ei, v_ei), ops.LookupOp(1, q_job, v_job),
+              ops.LookupOp(0, strided, valid)]
+    want = [r for m, k, v in pairs + ((table, q, valid),)
+            for r in ops.lookup_reference(m, k, v)]
+    got = [r for pair in ops.fused_lookup([table, job], probes) for r in pair]
+    torch.cuda.synchronize()
+    fused_err = max_abs_err(got, want)
+    if fused_err != 0.0:
+        raise AssertionError(f"fused_lookup differs from its plain version: {fused_err}")
+
+    def fused():
+        return ops.fused_lookup([table, job], probes[:2])
+
+    main["fused"] = {"device_us": device_us_calls([fused] * 101),
+                     "host_us": host_us(fused), "launches": 1}
+    main_bytes = _lookup_bytes(3 * b, v_ei) + _lookup_bytes(b, v_job)
+    main["bound_us"] = main_bytes / HBM_BYTES_PER_S * 1e6
+    main["shape"] = (f"{3 * b} + {b} keys, {int(v_ei.sum()) + int(v_job.sum())} valid "
+                     f"in one run, into T={t} and T={job.keys.shape[0]}")
+
+    def one():
+        return ops.lookup(table, q, valid)
+
     return {
         "name": "lookup", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/hash_lookup.cu",
         "replaces": "zeebe_tpu/tpu/pallas_ops.py:972",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: ops.lookup(table, q, valid)),
+        "max_abs_err": max(err, fused_err),
+        "ms": time_ms(one),
         "plain_ms": time_ms(lambda: ops.lookup_reference(table, q, valid)),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": _lookup_bytes(3 * b, valid) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
         "library_ms": None,  # no PyTorch call probes an open-addressing map
-        "shape": f"{3 * b} keys ({nv} valid), T={t}",
+        "device_us": device_us_calls([one] * 101), "host_us": host_us(one),
+        "device_launches": 1, "main_path": main,
+        "shape": f"{3 * b} keys ({int(valid.sum())} valid), T={t}",
     }
 
 
@@ -936,10 +1052,57 @@ def _copies(table, k):
     return [hashmap.HashTable(table.keys.clone(), table.vals.clone()) for _ in range(k)]
 
 
+def insert_rounds(before, after, ok, valid) -> int:
+    """The rounds the plain insert's loop ran, read from its result: every
+    pending key advances its probe each round, so a key placed in round r
+    sits r buckets past its hash; the loop stops at the first round that
+    leaves no key pending, or after MAX_PROBES rounds."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap
+
+    if not bool(valid.any()):
+        return 0
+    if not bool((ok == valid).all()):
+        return hashmap.MAX_PROBES
+    t = after.keys.shape[0]
+    placed = torch.nonzero(after.keys != before.keys).flatten()
+    off = (placed - hashmap._hash(after.keys[placed], t).to(torch.int64)) & (t - 1)
+    return int(off.max()) + 1
+
+
+def _captured_insert(base, keys, vals, valid):
+    """The insert captured in a CUDA graph (one cluster launch) and replayed
+    once on a copy of ``base``: bit-equal to the plain version. Capture
+    runs nothing; a replay reuses its capture's claim epochs, so only the
+    first replay is right (ROADMAP Queue 1 item 6)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap, ops
+
+    warm, work = _copies(base, 2)
+    ops.insert(warm, keys, vals, valid)  # built, scratch allocated
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _t, ok = ops.insert(work, keys, vals, valid)
+    unchanged = max_abs_err([work.keys, work.vals], [base.keys, base.vals]) == 0.0
+    graph.replay()
+    want, want_ok = hashmap.insert(base, keys, vals, valid)
+    torch.cuda.synchronize()
+    err = max_abs_err([work.keys, work.vals, ok.to(torch.int32)],
+                      [want.keys, want.vals, want_ok.to(torch.int32)])
+    if err != 0.0 or not unchanged:
+        raise AssertionError(f"the captured insert differs from its plain version: {err}")
+    return {"max_abs_err": err, "replays": 1}
+
+
 def check_insert(dev, gen):
     """The join map (2^18 buckets) preloaded to ~40% live with tombstones
     mixed in, taking B = 2^14 new keys; and the rebuild shape, 2^16 keys
-    into a fresh 2^18-bucket map. Bit-equal buckets, values and ``ok``."""
+    into a fresh 2^18-bucket map. Bit-equal buckets, values and ``ok``.
+    Timed over fresh copies of the table (a call changes its table), with
+    the rounds each case takes, and round 1 of the rebuild shape alone."""
     import torch
 
     from zeebe_tpu_torch.tpu import hashmap, ops
@@ -960,8 +1123,9 @@ def check_insert(dev, gen):
     fresh = hashmap.make(t, device=dev)
 
     err = 0.0
-    placed = []
-    for tbl, k, v, ok_in in ((base, keys, vals, valid), (fresh, rkeys, rvals, rlive)):
+    placed, rounds = [], []
+    cases = ((base, keys, vals, valid), (fresh, rkeys, rvals, rlive))
+    for tbl, k, v, ok_in in cases:
         (got,) = _copies(tbl, 1)
         got, got_ok = ops.insert(got, k, v, ok_in)
         want, want_ok = hashmap.insert(tbl, k, v, ok_in)
@@ -969,26 +1133,50 @@ def check_insert(dev, gen):
         err = max(err, max_abs_err([got.keys, got.vals, got_ok.to(torch.int32)],
                                    [want.keys, want.vals, want_ok.to(torch.int32)]))
         placed.append(int(want_ok.sum()))
+        rounds.append(insert_rounds(tbl, want, want_ok, ok_in))
     if err != 0.0:
         raise AssertionError(f"insert differs from its plain version: {err}")
-    reps = 28  # time_ms's warmup + reps: one fresh table per call
     nv = int(valid.sum())
     # flags in and ok out per key; per valid key its key, value and at least
     # one bucket read; per placed key one bucket (key, value) written
     nbytes = b * 2 + nv * (8 + 4 + 8) + placed[0] * 12
-    tables = iter(_copies(base, reps))
-    fresh_tables = iter(_copies(fresh, reps))
+
+    def fresh_calls(tbl, k, v, ok_in, count):
+        return [lambda c=c: ops.insert(c, k, v, ok_in) for c in _copies(tbl, count)]
+
+    def one_each(calls):  # time_ms and host_us make 28 calls
+        return lambda: calls.pop()()
+
+    timed = {}
+    for label, case in (("join", cases[0]), ("rebuild", cases[1])):
+        timed[label] = {
+            "ms": time_ms(one_each(fresh_calls(*case, 28))),
+            "device_us": device_us_calls(fresh_calls(*case, 101)),
+            "host_us": host_us(one_each(fresh_calls(*case, 28))),
+        }
+    rebuild = {**timed["rebuild"], "rounds": rounds[1], "placed": placed[1],
+               "plain_ms": time_ms(lambda: hashmap.insert(fresh, rkeys, rvals, rlive))}
+    captured = _captured_insert(base, keys, vals, valid)
+    # round 1 alone: the C entry told to stop after one round; the argument
+    # blocks point into the copies, which live until the calls are done
+    entry, stream = ops._insert_fn(), ops._stream()
+    copies = _copies(fresh, 101)
+    blocks = [ops._insert_args(c, rkeys, rvals, rlive, rounds=1) for c in copies]
+    rebuild["round1_device_us"] = device_us_calls(
+        [lambda a=a: entry(ctypes.byref(a), stream) for a, _ok, _keep in blocks])
+    del blocks, copies
     return {
         "name": "insert", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/hash_update.cu",
         "replaces": "zeebe_tpu/tpu/pallas_ops.py:1043",
         "max_abs_err": err,
-        "ms": time_ms(lambda: ops.insert(next(tables), keys, vals, valid)),
+        "ms": timed["join"]["ms"],
         "plain_ms": time_ms(lambda: hashmap.insert(base, keys, vals, valid)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,  # no PyTorch call inserts into an open-addressing map
-        "rebuild_ms": time_ms(lambda: ops.insert(next(fresh_tables), rkeys, rvals, rlive)),
-        "rebuild_plain_ms": time_ms(lambda: hashmap.insert(fresh, rkeys, rvals, rlive)),
+        "device_us": timed["join"]["device_us"], "host_us": timed["join"]["host_us"],
+        "device_launches": 1, "rounds": rounds[0], "rebuild": rebuild,
+        "captured": captured,
         "shape": f"{b} keys ({nv} valid) into T={t} with {live} live, {tomb} "
                  f"tombstones; rebuild: {n} keys ({int(rlive.sum())} live) into a fresh T={t}",
     }
@@ -1018,16 +1206,24 @@ def check_delete(dev, gen):
     # flags in; per valid key its key and at least one bucket read; per
     # deleted key one tombstone written
     nbytes = b + nv * (8 + 8) + deleted * 8
-    tables = iter(_copies(base, 28))
+
+    def fresh_calls(count):
+        return [lambda c=c: ops.delete(c, keys, valid) for c in _copies(base, count)]
+
+    def one_each(calls):  # time_ms and host_us make 28 calls
+        return lambda: calls.pop()()
+
     return {
         "name": "delete", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/hash_update.cu",
         "replaces": "zeebe_tpu/tpu/pallas_ops.py:1130",
         "max_abs_err": err,
-        "ms": time_ms(lambda: ops.delete(next(tables), keys, valid)),
+        "ms": time_ms(one_each(fresh_calls(28))),
         "plain_ms": time_ms(lambda: hashmap.delete(base, keys, valid)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,  # no PyTorch call deletes from an open-addressing map
+        "device_us": device_us_calls(fresh_calls(101)),
+        "host_us": host_us(one_each(fresh_calls(28))), "device_launches": 1,
         "shape": f"{b} keys ({nv} valid, {deleted} deleted) out of T={t}",
     }
 
@@ -1165,10 +1361,11 @@ TIMER_KERNELS = CONFIG1_KERNELS + ("delete",)
 PROBE_KERNELS = ("row_loop", "probe")
 # exact launches of a drive: per round of the step, and per lookup-state
 # rebuild (one insert for each of the six maps); config 2 runs config 1's
-# kernels (the condition programs are plain PyTorch)
+# kernels (the condition programs are plain PyTorch). A step's fallback
+# probes are one fused lookup; config 3 adds the join path's two
 PER_ROUND = {
-    "config1": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 2},
-    "config3": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 4,
+    "config1": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 1},
+    "config3": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 3,
                 "masked_row_update": 3, "masked_row_max": 2, "masked_lane_update": 2,
                 "masked_vec64_update": 2, "insert": 1, "delete": 1},
 }
@@ -1683,6 +1880,8 @@ def main(argv) -> int:
     ap.add_argument("--out", help="also write every measured number here (JSON)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width wave (torch.profiler)")
+    ap.add_argument("--hash-only", action="store_true",
+                    help="only build and run phase 2's lookup, insert and delete cases")
     args = ap.parse_args(argv)
 
     import torch
@@ -1717,11 +1916,14 @@ def main(argv) -> int:
                 log(f"    {name}: {line.strip()}")
     report["build_seconds"] = build_s
 
-    gen = torch.Generator().manual_seed(1234)
     kernels = []
-    for check in (check_gather, check_commit, check_lookup, check_scatters,
-                  check_insert, check_delete, check_row_loop, check_probe):
-        rows = check("cuda", gen)
+    checks = (check_gather, check_commit, check_lookup, check_scatters,
+              check_insert, check_delete, check_row_loop, check_probe)
+    for k, check in enumerate(checks):
+        if args.hash_only and check not in (check_lookup, check_insert, check_delete):
+            continue
+        # a generator of its own: a check's data is the same in every mode
+        rows = check("cuda", torch.Generator().manual_seed(1234 + k))
         for row in rows if isinstance(rows, list) else [rows]:
             kernels.append(row)
             log(f"[2] {row['name']}: bit-equal to plain ({row['shape']}); "
@@ -1736,12 +1938,21 @@ def main(argv) -> int:
                     + (f", outputs allocated per op {row['alloc_us']['per_op']:.2f} us"
                        f" / as one arena {row['alloc_us']['arena']:.2f} us"
                        if "alloc_us" in row else ""))
-            if "rebuild_ms" in row:
-                log(f"    rebuild shape: kernel {row['rebuild_ms']:.4f} ms, "
-                    f"plain {row['rebuild_plain_ms']:.4f} ms")
+            for extra in ("rounds", "rebuild", "main_path"):
+                if extra in row:
+                    log(f"    {extra}: {json.dumps(row[extra])}")
             for extra in ("ms_w10", "ms_script_table"):
                 if extra in row:
                     log(f"    {extra}: kernel {row[extra]:.4f} ms")
+
+    if args.hash_only:
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "package": ops.__file__, "kernels": kernels}, f,
+                          indent=1)
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     ptot = parity()
@@ -1913,6 +2124,11 @@ def main(argv) -> int:
                 f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops")
             for row in prof["top"]:
                 log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+            reb = prof["rebuild"]
+            log(f"[p] {name}, the lookup-state rebuild after it: wall "
+                f"{reb['wall_ms']:.3f} ms, device busy {reb['device_busy_ms']:.3f} ms; ours "
+                + "; ".join(f"{r['count']}x {r['name']} {r['device_ms']:.4f} ms"
+                            for r in reb["ours"]))
     # launches: the sum over the main-path runs (phases 4, 5 and 5b, 6: the
     # boot self-check and the four served runs, and 7: the probe), each
     # run's own count beside it; masked_row_add, which no path calls, stays

@@ -27,13 +27,14 @@ ported. Where a gate being off makes a JAX value constant (no timer table
 lookup ⇒ no timer hit), the constant is used directly.
 
 The table primitives go through ``ops``: one fused gather launch per read
-stage (8 per step), ``ops.lookup`` for index misses (2 per step) and one
+stage (8 per step), one ``ops.fused_lookup`` for every index-miss
+fallback (1 per step; the timer map's probe shares it) and one
 ``ops.fused_table_commit`` per table group (2 per step), which updates the
 element-instance and job tables IN PLACE. The join path adds, per step,
 2 lookups, 1 insert and 1 delete on the join map and 9 masked scatters
-into the join tables; the timer path 1 lookup on the timer map, one more
-table commit (the six timer tables) and 1 insert and 1 delete on the
-timer map — all IN PLACE as well. The condition programs run as plain
+into the join tables; the timer path one more table commit (the six
+timer tables) and 1 insert and 1 delete on the timer map — all IN PLACE
+as well. The condition programs run as plain
 PyTorch (``conditions.eval_programs``).
 """
 
@@ -169,14 +170,18 @@ def _first_per_key(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _indexed_lookup_multi(lookups):
+def _indexed_lookup_multi(lookups, probes=()):
     """Parallel key → (found, slot) resolutions via the direct-mapped indexes
     with hashmap fallback; both paths verify against the table's own key
     column, so stale index/map entries resolve to not-found.
 
     Each lookup is ``(index, key_col, fallback_map, keys, want, cap)``;
-    returns ``[(found, slot), ...]`` in input order. Each stage is one
-    fused gather over all lookups (3 launches) plus one hash probe each."""
+    ``probes`` are further map probes ``(map, keys, valid)`` independent of
+    these lookups, which share the fallbacks' launch. Returns
+    ``([(found, slot), ...], [(found, vals), ...])``: the lookups' and the
+    probes' results in input order. Each stage is one fused gather over
+    all lookups (3 launches), plus ONE fused hash probe for every fallback
+    and every further probe."""
     cands = ops.fused_gather_rows(
         [index for index, *_ in lookups],
         [
@@ -194,7 +199,11 @@ def _indexed_lookup_multi(lookups):
         for lk, cand, kc in zip(lookups, cands, kc_hit)
     ]
     misses = [lk[4] & ~hit for lk, hit in zip(lookups, hits)]
-    fbs = [ops.lookup(lk[2], lk[3], miss) for lk, miss in zip(lookups, misses)]
+    maps = [lk[2] for lk in lookups] + [m for m, _k, _v in probes]
+    keyed = ([(lk[3], miss) for lk, miss in zip(lookups, misses)]
+             + [(k, v) for _m, k, v in probes])
+    found = ops.fused_lookup(maps, [ops.LookupOp(i, k, v) for i, (k, v) in enumerate(keyed)])
+    fbs, probed = found[: len(lookups)], found[len(lookups):]
     fb_clips = [fb_slot.clamp(0, lk[5] - 1) for (_f, fb_slot), lk in zip(fbs, lookups)]
     kc_fb = ops.fused_gather_rows(
         key_cols, [ops.GatherOp(i, fc) for i, fc in enumerate(fb_clips)]
@@ -205,7 +214,7 @@ def _indexed_lookup_multi(lookups):
     ):
         fb_ok = miss & fb_found & (kc == lk[3])
         out.append((hit | fb_ok, torch.where(hit, cand_clip, fb_clip)))
-    return out
+    return out, probed
 
 
 def _planes(x: torch.Tensor) -> torch.Tensor:
@@ -364,21 +373,22 @@ def step_kernel(
     want3 = torch.cat(
         [wi_ev, wi_ev & (batch.scope_key >= 0), job_ev | timer_cmd | wisub_corr]
     )
-    (ei3_found, ei3_slot), (jb_found, jb_slot) = _indexed_lookup_multi([
+    # The timer map's probe (as the map was before this step: its insert
+    # and delete come after every read) shares the fallbacks' launch
+    timer_probes = []
+    if graph.has_timers:
+        timer_probes = [(state.timer_map, batch.key, timer_cmd & (batch.key >= 0))]
+    ((ei3_found, ei3_slot), (jb_found, jb_slot)), probed = _indexed_lookup_multi([
         (state.ei_index, state.ei_key, state.ei_map, keys3, want3, n_cap),
         (state.job_index, state.job_key, state.job_map,
          batch.key, job_cmd & (batch.key >= 0), m_cap),
-    ])
+    ], timer_probes)
     ei_found, ei_slot = ei3_found[:b], ei3_slot[:b]
     sc_found, sc_slot = ei3_found[b : 2 * b], ei3_slot[b : 2 * b]
     aik_found, aik_slot = ei3_found[2 * b :], ei3_slot[2 * b :]
     t_cap = state.timer_key.shape[0]
     if graph.has_timers:
-        # the timer map as it was before this step (the insert and delete
-        # of this step come after every read)
-        tm_found, tm_slot = ops.lookup(
-            state.timer_map, batch.key, timer_cmd & (batch.key >= 0)
-        )
+        ((tm_found, tm_slot),) = probed
     else:
         tm_found, tm_slot = zeros_b(), zeros_b(_I32)
     ei_clip = ei_slot.clamp(0, n_cap - 1)

@@ -6,7 +6,8 @@ parallel fork/join graph):
 
 - ``fused_gather_rows``  ↔ ``pallas_ops.fused_gather_rows`` (csrc/gather_rows.cu)
 - ``fused_table_commit`` ↔ ``pallas_ops.fused_table_commit`` (csrc/table_commit.cu)
-- ``lookup``             ↔ ``pallas_ops.lookup`` (csrc/hash_lookup.cu)
+- ``fused_lookup``, ``lookup`` ↔ ``pallas_ops.lookup``, every independent
+  probe of a step in one launch (csrc/hash_lookup.cu)
 - ``masked_row_update``, ``masked_row_max``, ``masked_row_add``,
   ``masked_lane_update``, ``masked_lane_accum``, ``masked_vec64_update``
   ↔ the ``pallas_ops`` functions of the same names: one-op table commits
@@ -20,8 +21,8 @@ launch the hand-written kernel, or the call raises. There is no fallback
 from a CUDA tensor to the plain version. ``LAUNCHES`` counts the wrapper
 calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
 (a table commit is a pass or two per stage of ``commit_plan``). The
-launch plans (``gather_plan``, ``commit_plan``) are built here, in
-Python, so the CPU tests reach them.
+launch plans (``gather_plan``, ``commit_plan``, ``lookup_plan``,
+``insert_plan``) are built here, in Python, so the CPU tests reach them.
 
 Aliasing: unlike their JAX counterparts, every table write here updates
 the caller's tensors IN PLACE on both devices and returns them.
@@ -561,33 +562,129 @@ def fused_table_commit(
 lookup_reference = hashmap.lookup
 
 
-def _lookup_cuda(table: HashTable, keys: torch.Tensor, valid: torch.Tensor):
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn = _entry("hash_lookup", "zb_hash_lookup", (p, p, i64, p, i64, p, i64, p, p, p))
-    if keys.dim() != 1 or keys.dtype != torch.int64:
-        raise ValueError("lookup: keys must be a 1D int64 tensor")
-    tkeys = table.keys.contiguous()
-    tvals = table.vals.to(torch.int32).contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    n = keys.shape[0]
-    found = torch.empty((n,), dtype=torch.bool, device=keys.device)
-    vals = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    _build.check(
-        fn(tkeys.data_ptr(), tvals.data_ptr(), tkeys.shape[0], keys.data_ptr(),
-           keys.stride(0), valid.data_ptr(), n, found.data_ptr(),
-           vals.data_ptr(), _stream()),
-        "lookup",
-    )
-    _count("lookup", 1)
-    return found, vals
+@dataclasses.dataclass
+class LookupOp:
+    """One probe inside a fused lookup: the ``valid`` keys of ``keys`` [B]
+    int64 (any stride: a column of a wider table is read in place) looked
+    up in ``tables[table]``."""
+
+    table: int
+    keys: torch.Tensor
+    valid: torch.Tensor
+
+
+def fused_lookup_reference(tables: Sequence[HashTable],
+                           probes: Sequence[LookupOp]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Plain version: ``hashmap.lookup`` per probe."""
+    return [lookup_reference(tables[p.table], p.keys, p.valid) for p in probes]
+
+
+class _LookupDesc(ctypes.Structure):
+    _fields_ = [
+        ("tkeys", ctypes.c_void_p), ("tvals", ctypes.c_void_p),
+        ("keys", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("found", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+        ("key_stride", ctypes.c_int64), ("mask", ctypes.c_uint32),
+        ("n", ctypes.c_int32),
+    ]
+
+
+# csrc/hash_lookup.cu's ZB_MAX_LOOKUPS and ZB_LOOKUP_THREADS: the probes
+# one launch takes, and a block's threads (one key each)
+_MAX_LOOKUPS = 8
+_LOOKUP_THREADS = 256
+# _LookupDesc's bytes, packed in one call
+_LOOKUP_LAYOUT = struct.Struct("<6QqIi")
+
+
+class _LookupArgs(ctypes.Structure):
+    _fields_ = [
+        ("d", _LookupDesc * _MAX_LOOKUPS),
+        ("start", ctypes.c_int32 * (_MAX_LOOKUPS + 1)),
+        ("n_probes", ctypes.c_int32),
+    ]
+
+
+def lookup_plan(lengths: Sequence[int]) -> List[int]:
+    """The lookup kernel's block plan for probes of ``lengths[j]`` keys: each
+    probe's first block, and one entry more, the grid. A block's
+    ``_LOOKUP_THREADS`` threads take one key each; a probe of no keys gets
+    no block."""
+    starts, block = [], 0
+    for n in lengths:
+        starts.append(block)
+        block += -(-n // _LOOKUP_THREADS)
+    starts.append(block)
+    return starts
+
+
+def _lookup_args(tables, probes):
+    """The kernel's argument block for ``probes``, their (found, vals)
+    outputs, and the converted flags the block points at (keep them alive
+    to the launch)."""
+    if len(probes) > _MAX_LOOKUPS:
+        raise ValueError(f"fused_lookup: at most {_MAX_LOOKUPS} probes")
+    keep, outs, descs = [], [], []
+    for p in probes:
+        tkeys, tvals, size = _table_on_cuda(tables[p.table], "lookup")
+        keys = p.keys
+        n = keys.shape[0]
+        if keys.dim() != 1 or keys.dtype is not torch.int64:
+            raise ValueError("lookup: keys must be a 1D int64 tensor")
+        valid = _as(p.valid, torch.bool)
+        if valid.shape != (n,) or n > _I32_MAX:
+            raise ValueError("lookup: keys and valid must be [B] tensors of one "
+                             "length under 2^31")
+        found = keys.new_empty((n,), dtype=torch.bool)
+        vals = keys.new_empty((n,), dtype=torch.int32)
+        keep.append(valid)
+        outs.append((found, vals))
+        descs.append((tkeys.data_ptr(), tvals.data_ptr(), keys.data_ptr(),
+                      valid.data_ptr(), found.data_ptr(), vals.data_ptr(),
+                      keys.stride(0), size - 1, n))
+    starts = lookup_plan([d[8] for d in descs])
+    args = _LookupArgs()
+    for j, d in enumerate(descs):
+        _LOOKUP_LAYOUT.pack_into(args, j * _LOOKUP_LAYOUT.size, *d)
+    args.start[: len(starts)] = starts
+    args.n_probes = len(probes)
+    return args, outs, keep
+
+
+@functools.lru_cache(maxsize=None)
+def _lookup_fn():
+    return _entry("hash_lookup", "zb_hash_lookup",
+                  (ctypes.POINTER(_LookupArgs), ctypes.c_void_p))
+
+
+def _lookup_cuda(tables, probes):
+    args, outs, _keep = _lookup_args(tables, probes)
+    launched = _lookup_fn()(ctypes.byref(args), _stream())
+    if launched:
+        _count("lookup", launched)
+    return outs
+
+
+def fused_lookup(tables: Sequence[HashTable],
+                 probes: Sequence[LookupOp]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``[hashmap.lookup(tables[p.table], p.keys, p.valid) for p in probes]``
+    — (found [B] bool, vals [B] int32, -1 where not found) per probe, one
+    kernel launch for all of them on CUDA tensors (at most 8 probes: the
+    independent probes of one step)."""
+    probes = list(probes)
+    if not probes:
+        return []
+    used = [t for p in probes
+            for t in (tables[p.table].keys, tables[p.table].vals, p.keys, p.valid)]
+    if _on_cuda(used, "lookup"):
+        return _lookup_cuda(tables, probes)
+    return fused_lookup_reference(tables, probes)
 
 
 def lookup(table: HashTable, keys: torch.Tensor, valid: torch.Tensor):
     """Batched probe; (found [B] bool, vals [B] int32, -1 where not found),
-    identical to ``hashmap.lookup``."""
-    if _on_cuda([table.keys, table.vals, keys, valid], "lookup"):
-        return _lookup_cuda(table, keys, valid)
-    return lookup_reference(table, keys, valid)
+    identical to ``hashmap.lookup``: the one-probe ``fused_lookup``."""
+    return fused_lookup([table], [LookupOp(0, keys, valid)])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -693,53 +790,97 @@ def masked_vec64_update(table1d, slots, active, vals64) -> torch.Tensor:
 insert_reference = hashmap.insert
 delete_reference = hashmap.delete
 
-# per-device [MAX_PROBES + 1] round counters of the insert kernel (see
-# csrc/hash_update.cu: the kernel zeroes each before its use)
-_insert_counters: Dict[torch.device, torch.Tensor] = {}
-
 
 def _table_on_cuda(table: HashTable, what: str):
     tkeys, tvals = table.keys, table.vals
     size = tkeys.shape[0]
     if (tkeys.dtype != torch.int64 or tvals.dtype != torch.int32
             or not tkeys.is_contiguous() or not tvals.is_contiguous()
-            or tvals.shape[0] != size or size & (size - 1)):
+            or tkeys.dim() != 1 or tvals.shape != (size,)
+            or size == 0 or size & (size - 1) or size > 2**32):
         raise ValueError(f"{what}: the table must be contiguous int64 keys and "
                          "int32 vals of one power-of-two size")
     return tkeys, tvals, size
 
 
-def _insert_cuda(table: HashTable, keys, vals, valid) -> torch.Tensor:
+# csrc/hash_update.cu's ZB_INSERT_BLOCKS: the blocks of the insert's cluster
+_INSERT_BLOCKS = 16
+
+
+def insert_plan(n: int) -> int:
+    """The insert kernel's split of ``n`` keys: block b of the cluster owns
+    keys [b * share, (b + 1) * share) (the last blocks fewer, or none), and
+    keeps its pending keys in two worklists of ``share`` (rank, bucket)
+    pairs each. Returns ``share``."""
+    return -(-n // _INSERT_BLOCKS)
+
+
+# per-device worklist scratch of the insert kernel, 2 * _INSERT_BLOCKS *
+# share pairs of int32 as int64 words; grown when a call needs more
+_worklists: Dict[torch.device, torch.Tensor] = {}
+
+
+def _worklist_scratch(device: torch.device, pairs: int) -> torch.Tensor:
+    buf = _worklists.get(device)
+    if buf is None or buf.numel() < pairs:
+        buf = torch.empty((max(pairs, 1),), dtype=torch.int64, device=device)
+        _worklists[device] = buf
+    return buf
+
+
+class _InsertArgs(ctypes.Structure):
+    _fields_ = [
+        ("tkeys", ctypes.c_void_p), ("tvals", ctypes.c_void_p),
+        ("keys", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p), ("ok", ctypes.c_void_p),
+        ("claims", ctypes.c_void_p), ("work", ctypes.c_void_p),
+        ("key_stride", ctypes.c_int64), ("epoch", ctypes.c_uint64),
+        ("mask", ctypes.c_uint32), ("n", ctypes.c_int32),
+        ("share", ctypes.c_int32), ("rounds", ctypes.c_int32),
+    ]
+
+
+# _InsertArgs's bytes, packed in one call
+_INSERT_LAYOUT = struct.Struct("<8QqQI3i")
+
+
+def _insert_args(table: HashTable, keys, vals, valid, rounds: int = hashmap.MAX_PROBES):
+    """The insert kernel's argument block (at most ``rounds`` rounds; the
+    wrapper runs MAX_PROBES), its ``ok`` output, and the converted inputs
+    the block points at (keep them alive to the launch)."""
     tkeys, tvals, size = _table_on_cuda(table, "insert")
     n = keys.shape[0]
     if keys.dim() != 1 or vals.shape != (n,) or valid.shape != (n,):
         raise ValueError("insert: keys, vals and valid must be [B] tensors of one length")
-    ok = torch.zeros((n,), dtype=torch.bool, device=keys.device)
-    if n == 0:
-        return ok
     if n >= 2**31:
         raise ValueError("insert: at most 2^31 - 1 keys per call")
-    keys = keys.to(torch.int64).contiguous()
-    vals = vals.to(torch.int32).contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    probe = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    scratch, epoch = _claim_scratch(keys.device, size, hashmap.MAX_PROBES)
-    counters = _insert_counters.get(keys.device)
-    if counters is None:
-        counters = torch.zeros((hashmap.MAX_PROBES + 1,), dtype=torch.int32,
-                               device=keys.device)
-        _insert_counters[keys.device] = counters
-    p = ctypes.c_void_p
-    fn = _entry("hash_update", "zb_hash_insert",
-                (p, p, ctypes.c_int64, p, p, p, ctypes.c_int64, p, p, p,
-                 ctypes.c_uint64, p, p))
-    _build.check(
-        fn(tkeys.data_ptr(), tvals.data_ptr(), size, keys.data_ptr(),
-           vals.data_ptr(), valid.data_ptr(), n, probe.data_ptr(), ok.data_ptr(),
-           scratch.data_ptr(), epoch, counters.data_ptr(), _stream()),
-        "insert",
-    )
-    _count("insert", 1)
+    if keys.dtype is not torch.int64:
+        keys = keys.to(torch.int64)  # the kernel reads any stride
+    vals, valid = _as(vals, torch.int32), _as(valid, torch.bool)
+    ok = keys.new_empty((n,), dtype=torch.bool)
+    share = insert_plan(n)
+    work = _worklist_scratch(keys.device, 2 * _INSERT_BLOCKS * share)
+    # two halves: round r claims into half r % 2 (csrc/hash_update.cu)
+    claims, epoch = _claim_scratch(keys.device, 2 * size, rounds)
+    args = _InsertArgs()
+    _INSERT_LAYOUT.pack_into(args, 0, tkeys.data_ptr(), tvals.data_ptr(), keys.data_ptr(),
+                             vals.data_ptr(), valid.data_ptr(), ok.data_ptr(),
+                             claims.data_ptr(), work.data_ptr(), keys.stride(0), epoch,
+                             size - 1, n, share, rounds)
+    return args, ok, (keys, vals, valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _insert_fn():
+    return _entry("hash_update", "zb_hash_insert",
+                  (ctypes.POINTER(_InsertArgs), ctypes.c_void_p))
+
+
+def _insert_cuda(table: HashTable, keys, vals, valid) -> torch.Tensor:
+    args, ok, _keep = _insert_args(table, keys, vals, valid)
+    launched = _insert_fn()(ctypes.byref(args), _stream())
+    if launched:
+        _count("insert", launched)
     return ok
 
 
