@@ -4,11 +4,14 @@
 Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc`` (phase
 1), holds each of the 13 kernel wrappers against its plain PyTorch
 version on the card at the main paths' shapes and times it: around one
-wrapper call (host work inside), and for the gather, the table commits
-and the hash lookup, insert and delete also on the host alone and on
-the device alone, back to back (phase 2; the lookup also as a config-1
-step's fused fallback probes against two calls, the insert also at the
-rebuild shape, round 1 alone, and captured in a CUDA graph). It checks the drive loop on the card bit-equal to the same
+wrapper call (host work inside), and for the gather, the table commits,
+the hash lookup, insert and delete and the probe's two kernels also on
+the host alone and on the device alone, back to back (phase 2; the
+lookup also as a config-1 step's fused fallback probes against two
+calls, the insert also at the rebuild shape, round 1 alone, and captured
+in a CUDA graph, the delete also on chains that wrap past the table's
+end or run out, and as the step's two and the demotion's four deletes in
+one ``fused_delete``). It checks the drive loop on the card bit-equal to the same
 loop on the CPU on configs 1, 3 and 2 and an I/O-mapping graph, and one
 mixed and one timer step (phase 3), then drives, at the benchmark's
 accelerator width and through the package's own entry points, config 1
@@ -36,10 +39,11 @@ port's host oracle at full credit. Phase 7 runs the primitive-cost probe
                                               #   eval_programs call under
                                               #   torch.profiler, every number
                                               #   written to F (JSON)
-    python3 chip_smoke.py --hash-only         # only phase 2's lookup, insert
-                                              #   and delete cases: run it in
-                                              #   an unpacked parent commit and
-                                              #   here, in one call, for an A/B
+    python3 chip_smoke.py --hash-only         # only phase 2's lookup, insert,
+                                              #   delete and probe cases: run it
+                                              #   in an unpacked parent commit
+                                              #   and here, in one call, for an
+                                              #   A/B
 
 Every phase passes or the script exits non-zero. The last line of standard
 output is ``{"ok": true, "device": {...}}``; before it come the card's name
@@ -1182,8 +1186,154 @@ def check_insert(dev, gen):
     }
 
 
+def _walk_lengths(table, keys, valid):
+    """Buckets the plain delete reads for each valid key: up to the first
+    bucket that holds the key or is EMPTY, or all MAX_PROBES; 0 for an
+    invalid key."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap
+
+    t = table.keys.shape[0]
+    h0 = hashmap._hash(keys, t).to(torch.int64)
+    length = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
+    done = ~valid
+    for j in range(hashmap.MAX_PROBES):
+        k = table.keys[(h0 + j) & (t - 1)]
+        stop = ~done & ((k == keys) | (k == hashmap.EMPTY))
+        length = torch.where(stop, j + 1, length)
+        done = done | stop
+    return torch.where(done, length, hashmap.MAX_PROBES)
+
+
+def _walk_stats(table, keys, valid) -> dict:
+    """The plain walk's lengths over the valid keys, and the dependent steps
+    the kernel's warps take for them: a warp's 32 keys walk side by side,
+    the first ZB_DELETE_GROUP buckets of each in one step and the rest in
+    a second, so a warp takes 1 step where its longest walk L is at most
+    G, else 2."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    length = _walk_lengths(table, keys, valid)
+    lv = length[valid].to(torch.float64)
+    g = ops._DELETE_GROUP
+    pad = (-keys.shape[0]) % 32
+    per_warp = torch.nn.functional.pad(length, (0, pad)).view(-1, 32).amax(dim=1)
+    steps = 1 + (per_warp > g).to(torch.int64)
+    walking = steps[per_warp > 0].to(torch.float64)
+    return {
+        "mean": float(lv.mean()), "p50": float(lv.quantile(0.5)),
+        "p99": float(lv.quantile(0.99)), "max": int(lv.max()),
+        "over_8": float((lv > 8).to(torch.float64).mean()),
+        "over_16": float((lv > 16).to(torch.float64).mean()),
+        "group": g, "warps": int(per_warp.shape[0]), "warps_walking": int(walking.numel()),
+        "warp_steps_mean": float(walking.mean()), "warp_steps_max": int(walking.max()),
+    }
+
+
+def _keys_to_delete(dev, gen, held, absent, b=WAVE):
+    """``b`` keys: half drawn from ``held`` (distinct; some of them deleted
+    already), half from ``absent``; about 90 % valid."""
+    import torch
+
+    pick = torch.randperm(held.shape[0], generator=gen)[: b // 2].to(dev)
+    keys = torch.cat([held[pick], absent[: b - b // 2]])
+    valid = (torch.rand((b,), generator=gen) < 0.9).to(dev)
+    return keys, valid
+
+
+def _wrap_case(dev):
+    """A map of 2^10 buckets holding 28 keys whose hash lands in its last 4
+    buckets, so their chains wrap past T - 1; delete 14 of them and 10
+    keys hashed there that it does not hold (chains of up to 32 buckets),
+    with 4 more held keys invalid."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap
+
+    t = 1 << 10
+    cand = torch.arange(1, 1 << 20, dtype=torch.int64, device=dev) * 7 + 3
+    near = cand[hashmap._hash(cand, t) >= t - 4][:38]
+    held = near[:28]
+    table, ok = hashmap.insert(hashmap.make(t, device=dev), held,
+                               torch.arange(28, dtype=torch.int32, device=dev),
+                               torch.ones(28, dtype=torch.bool, device=dev))
+    assert bool(ok.all())
+    assert bool((torch.nonzero(table.keys >= 0).flatten() < 32).any()), "no chain wrapped"
+    keys = torch.cat([held[:14], near[28:38], held[14:18]])
+    valid = torch.ones(keys.shape, dtype=torch.bool, device=dev)
+    valid[24:] = False
+    return table, keys, valid
+
+
+def _run_out_case(dev):
+    """A full map of 2^10 buckets (no EMPTY, some tombstones): one key
+    held in the 32nd bucket of its chain (deleted), one in the 33rd (out
+    of reach: nothing written) and one absent key (its 32 buckets read to
+    the end)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap
+
+    t = 1 << 10
+    tkeys = torch.arange(t, dtype=torch.int64, device=dev) + 10**9
+    tkeys[::37] = hashmap.TOMBSTONE
+    keys = torch.tensor([11, 12, 13], dtype=torch.int64, device=dev)
+    h = hashmap._hash(keys, t).tolist()
+    at = ((h[0] + 31) % t, (h[1] + 32) % t)
+    assert at[0] != at[1]
+    tkeys[at[0]] = keys[0]
+    tkeys[at[1]] = keys[1]
+    table = hashmap.HashTable(tkeys, torch.arange(t, dtype=torch.int32, device=dev))
+    return table, keys, torch.ones(3, dtype=torch.bool, device=dev)
+
+
+def _fused_cases(dev, gen, join):
+    """The step's two deletes (the timer map, 2^15 buckets a quarter live,
+    and the join map) and the demotion's four (the element-instance and
+    job maps, 2^19 buckets, the timer and join maps): B = 2^14 keys each,
+    half held, about 90 % valid. Returns (label, tables, DeleteOps)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap, ops
+
+    b = WAVE
+    jmap, jpre, jabsent = join
+    n_t = CAP_FACTOR * WAVE // 8  # make_state: timer capacity // 8, map 4x
+    tkeys = (torch.randperm(1 << 20, generator=gen)[: 2 * n_t].to(torch.int64) * 3 + 1).to(dev)
+    tmap, ok = hashmap.insert(hashmap.make(4 * n_t, device=dev), tkeys[:n_t],
+                              torch.arange(n_t, dtype=torch.int32, device=dev),
+                              torch.ones(n_t, dtype=torch.bool, device=dev))
+    assert bool(ok.all())
+    tmap = hashmap.delete(tmap, tkeys[:n_t], (torch.rand((n_t,), generator=gen) < 0.2).to(dev))
+    n = CAP_FACTOR * WAVE
+    ei_keys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 1
+    job_keys = torch.arange(n, dtype=torch.int64, device=dev) * 5 + 3
+    ei, job = _filled_map(dev, gen, ei_keys), _filled_map(dev, gen, job_keys)
+    t_del = _keys_to_delete(dev, gen, tkeys[:n_t], tkeys[n_t:], b)
+    j_del = _keys_to_delete(dev, gen, jpre, jabsent, b)
+    e_del = _keys_to_delete(dev, gen, ei_keys, ei_keys + 2**33, b)
+    b_del = _keys_to_delete(dev, gen, job_keys, job_keys + 2**33, b)
+    return [
+        ("fused_2", [tmap, jmap], [ops.DeleteOp(0, *t_del), ops.DeleteOp(1, *j_del)]),
+        ("fused_4", [ei, job, tmap, jmap],
+         [ops.DeleteOp(0, *e_del), ops.DeleteOp(1, *b_del), ops.DeleteOp(2, *t_del),
+          ops.DeleteOp(3, *j_del)]),
+    ]
+
+
+def _copies_of(tables, k):
+    return [_copies(t, k) for t in tables]
+
+
 def check_delete(dev, gen):
-    """B = 2^14 keys, half of them present, out of the ~40%-live join map."""
+    """B = 2^14 keys, half of them held, out of the ~40%-live join map,
+    with the plain walk's lengths; a map whose chains wrap past T - 1 and
+    a full map whose chains run out, bit-equal; and the step's two deletes
+    (timer and join maps) and the demotion's four as one ``fused_delete``
+    each, bit-equal to the plain deletes one after another, one launch."""
     import torch
 
     from zeebe_tpu_torch.tpu import hashmap, ops
@@ -1191,18 +1341,18 @@ def check_delete(dev, gen):
     b = WAVE
     base, pre, absent = _join_map(dev, gen, b)
     t = base.keys.shape[0]
-    pick = torch.randperm(pre.shape[0], generator=gen)[: b // 2].to(dev)
-    keys = torch.cat([pre[pick], absent[: b - b // 2]])
-    valid = (torch.rand((b,), generator=gen) < 0.9).to(dev)
-    (got,) = _copies(base, 1)
-    got = ops.delete(got, keys, valid)
-    want = hashmap.delete(base, keys, valid)
-    torch.cuda.synchronize()
-    err = max_abs_err([got.keys, got.vals], [want.keys, want.vals])
+    keys, valid = _keys_to_delete(dev, gen, pre, absent, b)
+    err = 0.0
+    for tbl, k, v in ((base, keys, valid), _wrap_case(dev), _run_out_case(dev)):
+        (got,) = _copies(tbl, 1)
+        got = ops.delete(got, k, v)
+        want = hashmap.delete(tbl, k, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([got.keys, got.vals], [want.keys, want.vals]))
     if err != 0.0:
         raise AssertionError(f"delete differs from its plain version: {err}")
     nv = int(valid.sum())
-    deleted = int((got.keys != base.keys).sum())
+    deleted = int((hashmap.delete(base, keys, valid).keys != base.keys).sum())
     # flags in; per valid key its key and at least one bucket read; per
     # deleted key one tombstone written
     nbytes = b + nv * (8 + 8) + deleted * 8
@@ -1213,6 +1363,30 @@ def check_delete(dev, gen):
     def one_each(calls):  # time_ms and host_us make 28 calls
         return lambda: calls.pop()()
 
+    fused = {}
+    for label, tables, deletes in _fused_cases(dev, gen, (base, pre, absent)):
+        got = [c[0] for c in _copies_of(tables, 1)]
+        before = ops.DEVICE_LAUNCHES["delete"]
+        ops.fused_delete(got, deletes)
+        launches = ops.DEVICE_LAUNCHES["delete"] - before
+        want = [_copies(t, 1)[0] for t in tables]
+        for op in deletes:
+            want[op.table] = hashmap.delete(want[op.table], op.keys, op.valid)
+        torch.cuda.synchronize()
+        ferr = max_abs_err([x for g in got for x in (g.keys, g.vals)],
+                           [x for w in want for x in (w.keys, w.vals)])
+        if ferr != 0.0 or launches != 1:
+            raise AssertionError(f"{label}: fused_delete differs from the plain deletes "
+                                 f"one after another ({ferr}) or took {launches} launches")
+        err = max(err, ferr)
+        sets = list(zip(*_copies_of(tables, 101)))
+        fused[label] = {
+            "ops": len(deletes), "device_launches": launches, "max_abs_err": ferr,
+            "device_us": device_us_calls(
+                [lambda c=c: ops.fused_delete(list(c), deletes) for c in sets]),
+            "valid": [int(op.valid.sum()) for op in deletes],
+        }
+        del sets
     return {
         "name": "delete", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/hash_update.cu",
@@ -1224,7 +1398,9 @@ def check_delete(dev, gen):
         "library_ms": None,  # no PyTorch call deletes from an open-addressing map
         "device_us": device_us_calls(fresh_calls(101)),
         "host_us": host_us(one_each(fresh_calls(28))), "device_launches": 1,
-        "shape": f"{b} keys ({nv} valid, {deleted} deleted) out of T={t}",
+        "walk": _walk_stats(base, keys, valid), "fused": fused,
+        "shape": f"{b} keys ({nv} valid, {deleted} deleted) out of T={t}; "
+                 "wrap-around and run-out maps of T=1024",
     }
 
 
@@ -1265,6 +1441,11 @@ def check_row_loop(dev, gen):
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         # one index_put_ row scatter (it orders no duplicates: timed only)
         "library_ms": time_ms(lambda: probe.index_put_chain(lib, idx, rows, 1)),
+        # the profiler records no device time for a window of ctypes kernels
+        # alone (§7 of PERF.md): CUDA events around calls back to back
+        "device_us": device_us_calls([lambda: probe.row_loop(work, idx, rows, 1)] * 101),
+        "host_us": host_us(lambda: probe.row_loop(work, idx, rows, 1)),
+        "device_launches": 2,
         "shape": f"B={b} into [{cap}, {k}] i32 ({b - distinct} repeats), n_writes 1 and 10",
     }
 
@@ -1341,6 +1522,8 @@ def check_probe(dev, gen):
         "plain_ms": time_ms(lambda: probe.probe_reference(keys, tkeys)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,  # no PyTorch call probes a linear-probe table
+        "device_us": device_us_calls([lambda: probe.probe(keys, tkeys)] * 101),
+        "host_us": host_us(lambda: probe.probe(keys, tkeys)), "device_launches": 1,
         "shape": f"B={b} keys into T={tkeys.shape[0]} i32; hits {hits}",
     }
 
@@ -1881,7 +2064,8 @@ def main(argv) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width wave (torch.profiler)")
     ap.add_argument("--hash-only", action="store_true",
-                    help="only build and run phase 2's lookup, insert and delete cases")
+                    help="only build and run phase 2's lookup, insert, delete and "
+                         "probe cases")
     args = ap.parse_args(argv)
 
     import torch
@@ -1920,7 +2104,8 @@ def main(argv) -> int:
     checks = (check_gather, check_commit, check_lookup, check_scatters,
               check_insert, check_delete, check_row_loop, check_probe)
     for k, check in enumerate(checks):
-        if args.hash_only and check not in (check_lookup, check_insert, check_delete):
+        if args.hash_only and check not in (check_lookup, check_insert, check_delete,
+                                            check_probe):
             continue
         # a generator of its own: a check's data is the same in every mode
         rows = check("cuda", torch.Generator().manual_seed(1234 + k))
@@ -1938,7 +2123,7 @@ def main(argv) -> int:
                     + (f", outputs allocated per op {row['alloc_us']['per_op']:.2f} us"
                        f" / as one arena {row['alloc_us']['arena']:.2f} us"
                        if "alloc_us" in row else ""))
-            for extra in ("rounds", "rebuild", "main_path"):
+            for extra in ("rounds", "rebuild", "main_path", "walk", "fused"):
                 if extra in row:
                     log(f"    {extra}: {json.dumps(row[extra])}")
             for extra in ("ms_w10", "ms_script_table"):

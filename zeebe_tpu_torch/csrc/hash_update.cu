@@ -17,9 +17,10 @@
 // which no key is pending changes nothing, so the loop stops at the first
 // such round.
 //
-// delete: per valid key, probe from h0; a bucket holding the key (checked
-// first, as the XLA loop does) becomes TOMBSTONE, an EMPTY bucket ends
-// the chain. Values are untouched.
+// delete: per valid key, probe from h0 over at most MAX_PROBES buckets; a
+// bucket holding the key (checked first, as the XLA loop does) becomes
+// TOMBSTONE, an EMPTY bucket ends the chain. Values are untouched. One
+// launch takes up to ZB_MAX_DELETES independent deletes (a step's maps).
 //
 // What bounds them on this card: latency and the rate of random accesses
 // per SM, not bytes. The rounds are serial; each is a claim, a barrier, a
@@ -28,8 +29,11 @@
 // tombstones) a call takes 26-32 rounds, at the rebuild shape (2^16 keys
 // into a fresh 2^18-bucket map) about 10, and after round 2 under a tenth
 // of the keys are pending; round 1, which touches every key (five random
-// accesses each), is bound by how many SMs issue them. A delete is one
-// dependent chain of 8-byte reads per key, 1-3 buckets long at that load.
+// accesses each), is bound by how many SMs issue them. A delete is a
+// dependent chain of 8-byte reads per key: 2.7 buckets on average at that
+// load, but up to 32, and a launch lasts as long as its longest chain
+// (a thread walking each key alone took 10.9 us on an H100 at
+// chip_smoke.py's delete case, 0.01 of its byte bound's rate).
 //
 // Design. insert is ONE launch of ONE thread-block cluster of
 // ZB_INSERT_BLOCKS = 16 blocks of 1,024 threads (the non-portable cluster
@@ -68,11 +72,29 @@
 // may come strided (a column of a wider table). A launch of one cluster by
 // cudaLaunchKernelEx can be captured in a CUDA graph (chip_smoke.py
 // replays one).
-// delete is one thread per key, in place: a tombstone that another thread
-// writes during the pass neither matches a live key nor ends a chain, so
-// a single pass gives the XLA result (for keys held at most once, as the
-// engine's are; deleting the EMPTY sentinel twice in one batch is the one
-// case that would differ, and no caller does it).
+// delete walks the chains warp-cooperatively (zb_hash.cuh
+// zb_window_walk): a warp takes 32 consecutive keys, reads their valid
+// flags with one load a lane, and leaves at once when none is valid (most
+// of the step kernel's deletes find no valid key); else each group of
+// ZB_DELETE_GROUP = 8 lanes walks 8 of the warp's keys side by side, a
+// window of 8 consecutive buckets a key in one step, then the other 24
+// buckets of the keys still walking in a second: a chain of up to 32
+// buckets takes two dependent steps instead of up to 32 (97 % of
+// chip_smoke.py's keys end in the first), and the lane that read the key
+// writes the tombstone. Of the widths and step plans tried, G = 8 with
+// every remaining window read at once was the fastest on cold maps
+// (PERF.md §6). Keys are read only where valid, through their stride.
+// In place, in one pass: a tombstone that another group writes during
+// the pass neither matches a live key nor ends a chain, whichever of the
+// old key and the tombstone a group reads, so the result is the XLA one,
+// which finds every slot in the table as it stood before the call (for
+// keys held at most once, as the engine's are; deleting the EMPTY
+// sentinel twice in one call is the one case that would differ, and no
+// caller does it). The launch takes the step's deletes as descriptors
+// passed by value (__grid_constant__, as hash_lookup.cu's probes), a
+// block templated on 1, 2, 4 or 8 of them reading its own at a constant
+// index; the block plan is tpu/ops.py `lookup_plan` (ZB_DELETE_THREADS
+// keys a block).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,6 +109,12 @@ namespace cg = cooperative_groups;
 #define ZB_INSERT_THREADS 1024
 // keys (or worklist entries) a thread takes at once in a phase
 #define ZB_INSERT_UNROLL 4
+// keep equal to tpu/ops.py _MAX_DELETES, _DELETE_THREADS and _DELETE_GROUP:
+// the deletes one launch takes, a block's threads (one key each), and the
+// lanes that walk one key together
+#define ZB_MAX_DELETES 8
+#define ZB_DELETE_THREADS 256
+#define ZB_DELETE_GROUP 8
 
 struct InsertArgs {
   int64_t* tkeys;              // [T], updated in place
@@ -266,21 +294,54 @@ hash_insert_kernel(const __grid_constant__ InsertArgs a) {
   // no block touches another's shared memory after its last barrier
 }
 
-__global__ void hash_delete_kernel(int64_t* tkeys, int64_t tsize, const int64_t* keys,
-                                   const uint8_t* valid, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !valid[i]) return;
-  const int64_t key = keys[i];
-  const uint32_t mask = (uint32_t)(tsize - 1);
-  const uint32_t h0 = zb_hash(key, mask);
-  for (int j = 0; j < ZB_MAX_PROBES; ++j) {
-    const uint32_t idx = (h0 + (uint32_t)j) & mask;
-    const int64_t k = __ldcg(tkeys + idx);
-    if (k == key) {
-      tkeys[idx] = ZB_TOMBSTONE;
-      return;
-    }
-    if (k == ZB_EMPTY) return;
+struct DeleteDesc {
+  int64_t* tkeys;        // [T] the map's keys, updated in place
+  const int64_t* keys;   // the delete's keys, key i at keys[i * key_stride]
+  const uint8_t* valid;  // [n] bool
+  int64_t key_stride;    // in elements
+  uint32_t mask;         // T - 1, T a power of two
+  int32_t n;             // keys
+};
+
+// The argument block of up to N deletes (the wrapper fills the largest;
+// each launch passes the smallest that holds its deletes).
+template <int N>
+struct DeleteArgs {
+  DeleteDesc d[N];
+  int32_t start[N + 1];  // first block of each delete; [n_ops] = grid
+  int32_t n_ops;
+};
+
+// The warp's 32 consecutive keys of delete ``d`` from key ``i0``.
+__device__ __forceinline__ void delete_keys(const DeleteDesc& d, int64_t i0) {
+  const int64_t i = i0 + (threadIdx.x & 31u);
+  const bool v = i < d.n && d.valid[i];
+  const uint32_t todo = __ballot_sync(ZB_FULL_WARP, v);
+  if (todo == 0u) return;  // the whole warp: no valid key
+  const int64_t key = v ? d.keys[i * d.key_stride] : 0;
+  int64_t* const tkeys = d.tkeys;
+  const uint32_t mask = d.mask;
+  zb_window_walk<ZB_DELETE_GROUP, ZB_MAX_PROBES>(
+      tkeys, mask, todo, key, [mask](int64_t k) { return zb_hash(k, mask); },
+      [tkeys](int, int64_t slot) {
+        if (slot >= 0) tkeys[slot] = ZB_TOMBSTONE;
+      });
+}
+
+template <int N>
+__global__ void __launch_bounds__(ZB_DELETE_THREADS)
+hash_delete_kernel(const __grid_constant__ DeleteArgs<N> a) {
+  const int b = (int)blockIdx.x;
+  int p = 0;
+#pragma unroll
+  for (int k = 1; k < N; ++k) {
+    if (k < a.n_ops && b >= a.start[k]) p = k;
+  }
+  const int warp_key = (int)(threadIdx.x & ~31u);
+  // one inlined copy of the walk per descriptor, each at a constant index
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (k == p) delete_keys(a.d[k], (int64_t)(b - a.start[k]) * ZB_DELETE_THREADS + warp_key);
   }
 }
 
@@ -331,15 +392,35 @@ extern "C" int zb_hash_insert(const InsertArgs* args, void* stream) {
   return err ? -err : 1;
 }
 
-// Deletes ``n`` keys from the table in place, one thread per key, on
-// ``stream``. Returns cudaGetLastError() after the launch.
-extern "C" int zb_hash_delete(int64_t* tkeys, int64_t tsize, const int64_t* keys,
-                              const uint8_t* valid, int64_t n, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  if (!valid_size(tsize)) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  hash_delete_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(tkeys, tsize, keys,
-                                                                    valid, n);
-  return (int)cudaGetLastError();
+template <int N>
+static int launch_delete(const DeleteArgs<ZB_MAX_DELETES>* args, int blocks,
+                         cudaStream_t stream) {
+  DeleteArgs<N> a;
+  for (int p = 0; p < args->n_ops; ++p) {
+    a.d[p] = args->d[p];
+    a.start[p] = args->start[p];
+  }
+  a.start[args->n_ops] = blocks;
+  a.n_ops = args->n_ops;
+  hash_delete_kernel<N><<<(unsigned)blocks, ZB_DELETE_THREADS, 0, stream>>>(a);
+  const int err = (int)cudaGetLastError();
+  return err ? -err : 1;
+}
+
+// Deletes the planned keys from their tables in place, one launch on
+// ``stream``. Returns the launches enqueued (1, or 0 when the plan has no
+// block), or minus a CUDA error.
+extern "C" int zb_hash_delete(const DeleteArgs<ZB_MAX_DELETES>* args, void* stream) {
+  const int n = args->n_ops;
+  if (n <= 0 || n > ZB_MAX_DELETES) return -(int)cudaErrorInvalidValue;
+  for (int p = 0; p < n; ++p) {
+    if (!valid_size((int64_t)args->d[p].mask + 1)) return -(int)cudaErrorInvalidValue;
+  }
+  const int blocks = args->start[n];
+  if (blocks <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 1) return launch_delete<1>(args, blocks, s);
+  if (n == 2) return launch_delete<2>(args, blocks, s);
+  if (n <= 4) return launch_delete<4>(args, blocks, s);
+  return launch_delete<ZB_MAX_DELETES>(args, blocks, s);
 }

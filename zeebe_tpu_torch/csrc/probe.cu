@@ -30,10 +30,23 @@
 //   Bound on this card: the latency of up to 8 dependent 4-byte reads per
 //   key; the bytes are tiny. The TPU kernel read a [CAP/128, 128] table
 //   row by row and picked the lane with a masked reduce (a TPU layout
-//   constraint); here one thread per key reads the flat table.
+//   constraint). Design: the window walk of zb_hash.cuh (zb_window_walk,
+//   as the map's delete runs it), ZB_PROBE_GROUP = 8 lanes a key: the 8
+//   lanes read the key's whole 8-bucket window, 32 B, in one step, a
+//   ballot finds its first bucket holding the key or EMPTY, and the lane
+//   that read it writes the slot (the group's lowest lane writes -1 for a
+//   window that holds neither). A warp takes 32 keys, 4 groups of 8 keys
+//   each, and each lane has its 8 reads in flight at once, so a key costs
+//   one dependent read instead of up to 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "zb_hash.cuh"
+
+// the probe's linear probes, and the lanes that read one key's window
+#define ZB_PROBE_LEN 8
+#define ZB_PROBE_GROUP 8
 
 __global__ void row_claim_kernel(const int32_t* __restrict__ idx, int64_t b,
                                  int64_t cap, unsigned long long epoch,
@@ -68,20 +81,14 @@ __global__ void probe_kernel(const int32_t* __restrict__ keys,
                              const int32_t* __restrict__ tkeys, int64_t b,
                              uint32_t mask, int32_t* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  const int32_t key = keys[i];
-  const uint32_t h = ((uint32_t)key * 0x9E3779B1u) & mask;
-  int32_t slot = -1;
-  for (uint32_t j = 0; j < 8; ++j) {
-    const uint32_t at = (h + j) & mask;
-    const int32_t tk = tkeys[at];
-    if (tk == key) {
-      slot = (int32_t)at;
-      break;
-    }
-    if (tk == -1) break;
-  }
-  out[i] = slot;
+  const bool v = i < b;
+  const uint32_t todo = __ballot_sync(ZB_FULL_WARP, v);
+  if (todo == 0u) return;  // the whole warp lies past the keys
+  const int32_t key = v ? keys[i] : 0;
+  int32_t* const warp_out = out + (i - (int64_t)(threadIdx.x & 31u));
+  zb_window_walk<ZB_PROBE_GROUP, ZB_PROBE_LEN>(
+      tkeys, mask, todo, key, [mask](int32_t k) { return ((uint32_t)k * 0x9E3779B1u) & mask; },
+      [warp_out](int q, int64_t slot) { warp_out[q] = (int32_t)slot; });
 }
 
 static inline unsigned blocks_for(int64_t units, int threads) {
@@ -112,7 +119,7 @@ extern "C" int zb_probe(const int32_t* keys, const int32_t* tkeys, int64_t b,
                         int64_t cap, int32_t* out, void* stream) {
   if (b <= 0) return (int)cudaGetLastError();
   if (cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  const int threads = 256;  // whole warps: the walk takes 32 keys at once
   probe_kernel<<<blocks_for(b, threads), threads, 0, (cudaStream_t)stream>>>(
       keys, tkeys, b, (uint32_t)(cap - 1), out);
   return (int)cudaGetLastError();

@@ -525,22 +525,27 @@ class CudaPartitionEngine:
         ei_del_keys = idx([int(ei_i64[sl, 0]) for sl in sorted(tree)])
         s.ei_i32[ei_idx, state_mod.EI_STATE] = -1
         s.ei_i64[ei_idx, 0] = -1
-        ops.delete(s.ei_map, ei_del_keys,
-                   torch.ones(ei_del_keys.shape, dtype=torch.bool, device=dev))
+        # the four maps' deletes in one launch, after the table writes
+        maps, deletes = [], []
+
+        def delete(table, keys):
+            maps.append(table)
+            deletes.append(ops.DeleteOp(len(deletes), keys, torch.ones(
+                keys.shape, dtype=torch.bool, device=dev)))
+
+        delete(s.ei_map, ei_del_keys)
         if job_slots:
             j_idx = idx(job_slots)
             j_keys = idx([int(job_i64[sl, state_mod.JBL_KEY]) for sl in job_slots])
             s.job_i32[j_idx, state_mod.JB_STATE] = -1
             s.job_i64[j_idx, state_mod.JBL_KEY] = -1
-            ops.delete(s.job_map, j_keys,
-                       torch.ones(j_keys.shape, dtype=torch.bool, device=dev))
+            delete(s.job_map, j_keys)
         if timer_slots:
             t_idx = idx(timer_slots)
             t_keys = idx([int(timer_keys[sl]) for sl in timer_slots])
             s.timer_key[t_idx] = -1
             s.timer_due[t_idx] = -1
-            ops.delete(s.timer_map, t_keys,
-                       torch.ones(t_keys.shape, dtype=torch.bool, device=dev))
+            delete(s.timer_map, t_keys)
         if join_slots:
             jo_idx = idx(join_slots)
             jo_keys = idx([int(join_keys[sl]) for sl in join_slots])
@@ -548,8 +553,8 @@ class CudaPartitionEngine:
             s.join_nin[jo_idx] = 0
             s.join_arrived[jo_idx] = False
             s.join_pos_stamp[jo_idx] = -1
-            ops.delete(s.join_map, jo_keys,
-                       torch.ones(jo_keys.shape, dtype=torch.bool, device=dev))
+            delete(s.join_map, jo_keys)
+        ops.fused_delete(maps, deletes)
         # the host-side frees bypass the kernel's free-slot ring: re-derive
         # it (and the lookup structures) now
         self.state = state_mod.rebuild_lookup_state(s)

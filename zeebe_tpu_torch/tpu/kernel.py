@@ -31,10 +31,11 @@ stage (8 per step), one ``ops.fused_lookup`` for every index-miss
 fallback (1 per step; the timer map's probe shares it) and one
 ``ops.fused_table_commit`` per table group (2 per step), which updates the
 element-instance and job tables IN PLACE. The join path adds, per step,
-2 lookups, 1 insert and 1 delete on the join map and 9 masked scatters
-into the join tables; the timer path one more table commit (the six
-timer tables) and 1 insert and 1 delete on the timer map — all IN PLACE
-as well. The condition programs run as plain
+2 lookups and 1 insert on the join map and 9 masked scatters into the
+join tables; the timer path one more table commit (the six timer tables)
+and 1 insert on the timer map; the two maps' deletes are one
+``ops.fused_delete`` at the end of the step — all IN PLACE as well.
+The condition programs run as plain
 PyTorch (``conditions.eval_programs``).
 """
 
@@ -1338,6 +1339,9 @@ def step_kernel(
 
     # ---------------- timer table (fused commit, in place) ----------------
     overflow = ei_overflow | job_overflow
+    # the maps whose deletes the step issues as one fused delete, at its end
+    map_tables: List[ops.HashTable] = []
+    map_deletes: List[ops.DeleteOp] = []
     if graph.has_timers:
         # the six timer tables as one group: the int64 columns as [TM, 2]
         # int32 planes, elem/wf as 1D lanes; a slot past the table (t_cap,
@@ -1367,9 +1371,11 @@ def step_kernel(
                 ops.TableOp(T_TD, "set", tm_clip, t_rm, tneg),
             ],
         )
-        # the insert precedes the delete, both on the map in place
+        # the insert precedes the delete (below, with the join map's), both
+        # on the map in place
         ops.insert(state.timer_map, key0, t_slot, t_ins)
-        ops.delete(state.timer_map, batch.key, t_rm)
+        map_tables.append(state.timer_map)
+        map_deletes.append(ops.DeleteOp(len(map_deletes), batch.key, t_rm))
         overflow = overflow | timer_overflow
 
     # ---------------- join cleanup ----------------
@@ -1381,9 +1387,13 @@ def step_kernel(
                               torch.zeros((b, f_in), dtype=_I32, device=dev))
         ops.masked_row_update(stamp, arr_slot, completer,
                               torch.full((b, stamp.shape[1]), -1, dtype=_I32, device=dev))
-        ops.delete(jmap, join_key, completer)
+        map_tables.append(jmap)
+        map_deletes.append(ops.DeleteOp(len(map_deletes), join_key, completer))
         join_arrived = arrived != 0
         overflow = overflow | join_overflow
+    # the step's map deletes (timers, joins) in one launch: nothing later in
+    # the step reads either map
+    ops.fused_delete(map_tables, map_deletes)
 
     # ---------------- output compaction ----------------
     be = b * e_w

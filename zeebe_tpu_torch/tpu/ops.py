@@ -12,8 +12,9 @@ parallel fork/join graph):
   ``masked_lane_update``, ``masked_lane_accum``, ``masked_vec64_update``
   ↔ the ``pallas_ops`` functions of the same names: one-op table commits
   (csrc/table_commit.cu)
-- ``insert``, ``delete`` ↔ ``pallas_ops.insert`` / ``delete``
-  (csrc/hash_update.cu)
+- ``insert`` ↔ ``pallas_ops.insert`` (csrc/hash_update.cu)
+- ``fused_delete``, ``delete`` ↔ ``pallas_ops.delete``, every delete of a
+  step in one launch (csrc/hash_update.cu)
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain PyTorch version beside each kernel (``*_reference``); CUDA tensors
@@ -21,8 +22,9 @@ launch the hand-written kernel, or the call raises. There is no fallback
 from a CUDA tensor to the plain version. ``LAUNCHES`` counts the wrapper
 calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
 (a table commit is a pass or two per stage of ``commit_plan``). The
-launch plans (``gather_plan``, ``commit_plan``, ``lookup_plan``,
-``insert_plan``) are built here, in Python, so the CPU tests reach them.
+launch plans (``gather_plan``, ``commit_plan``, ``lookup_plan``, which
+the delete shares, ``insert_plan``) are built here, in Python, so the CPU
+tests reach them.
 
 Aliasing: unlike their JAX counterparts, every table write here updates
 the caller's tensors IN PLACE on both devices and returns them.
@@ -605,15 +607,15 @@ class _LookupArgs(ctypes.Structure):
     ]
 
 
-def lookup_plan(lengths: Sequence[int]) -> List[int]:
-    """The lookup kernel's block plan for probes of ``lengths[j]`` keys: each
-    probe's first block, and one entry more, the grid. A block's
-    ``_LOOKUP_THREADS`` threads take one key each; a probe of no keys gets
-    no block."""
+def lookup_plan(lengths: Sequence[int], threads: int = _LOOKUP_THREADS) -> List[int]:
+    """The lookup kernel's block plan for probes of ``lengths[j]`` keys (and
+    the delete kernel's, with its ``threads``): each probe's first block,
+    and one entry more, the grid. A block's ``threads`` threads take one
+    key each; a probe of no keys gets no block."""
     starts, block = [], 0
     for n in lengths:
         starts.append(block)
-        block += -(-n // _LOOKUP_THREADS)
+        block += -(-n // threads)
     starts.append(block)
     return starts
 
@@ -898,30 +900,117 @@ def insert(table: HashTable, keys: torch.Tensor, vals: torch.Tensor,
     return table, ok
 
 
-def _delete_cuda(table: HashTable, keys, valid) -> None:
-    tkeys, _tvals, size = _table_on_cuda(table, "delete")
-    n = keys.shape[0]
-    if keys.dim() != 1 or valid.shape != (n,):
-        raise ValueError("delete: keys and valid must be [B] tensors of one length")
-    if n == 0:
+@dataclasses.dataclass
+class DeleteOp:
+    """One delete inside a fused delete: the ``valid`` keys of ``keys`` [B]
+    int64 (any stride: a column of a wider table is read in place) deleted
+    from ``tables[table]``."""
+
+    table: int
+    keys: torch.Tensor
+    valid: torch.Tensor
+
+
+def fused_delete_reference(tables: Sequence[HashTable], deletes: Sequence[DeleteOp]) -> None:
+    """Plain version, in place: ``hashmap.delete`` applied op after op. The
+    kernel runs the ops side by side; the two agree wherever the ops on one
+    table hold distinct keys, which every caller guarantees (a step's
+    deletes go to different maps, and an engine's keys are held at most
+    once)."""
+    for op in deletes:
+        t = tables[op.table]
+        t.keys.copy_(delete_reference(t, op.keys, op.valid).keys)
+
+
+class _DeleteDesc(ctypes.Structure):
+    _fields_ = [
+        ("tkeys", ctypes.c_void_p), ("keys", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p), ("key_stride", ctypes.c_int64),
+        ("mask", ctypes.c_uint32), ("n", ctypes.c_int32),
+    ]
+
+
+# csrc/hash_update.cu's ZB_MAX_DELETES, ZB_DELETE_THREADS and
+# ZB_DELETE_GROUP: the deletes one launch takes, a block's threads (one key
+# each; the plan is lookup_plan's), and the lanes that walk one key together
+_MAX_DELETES = 8
+_DELETE_THREADS = 256
+_DELETE_GROUP = 8
+# _DeleteDesc's bytes, packed in one call
+_DELETE_LAYOUT = struct.Struct("<3QqIi")
+
+
+class _DeleteArgs(ctypes.Structure):
+    _fields_ = [
+        ("d", _DeleteDesc * _MAX_DELETES),
+        ("start", ctypes.c_int32 * (_MAX_DELETES + 1)),
+        ("n_ops", ctypes.c_int32),
+    ]
+
+
+def _delete_args(tables, deletes):
+    """The kernel's argument block for ``deletes`` and the converted keys
+    and flags it points at (keep them alive to the launch)."""
+    if len(deletes) > _MAX_DELETES:
+        raise ValueError(f"fused_delete: at most {_MAX_DELETES} deletes")
+    keep, descs = [], []
+    for op in deletes:
+        tkeys, _tvals, size = _table_on_cuda(tables[op.table], "delete")
+        keys = op.keys
+        n = keys.shape[0]
+        if keys.dim() != 1 or op.valid.shape != (n,) or n > _I32_MAX:
+            raise ValueError("delete: keys and valid must be [B] tensors of one "
+                             "length under 2^31")
+        if keys.dtype is not torch.int64:
+            keys = keys.to(torch.int64)  # the kernel reads any stride
+        valid = _as(op.valid, torch.bool)
+        keep.append((keys, valid))
+        descs.append((tkeys.data_ptr(), keys.data_ptr(), valid.data_ptr(), keys.stride(0),
+                      size - 1, n))
+    starts = lookup_plan([d[5] for d in descs], _DELETE_THREADS)
+    args = _DeleteArgs()
+    for j, d in enumerate(descs):
+        _DELETE_LAYOUT.pack_into(args, j * _DELETE_LAYOUT.size, *d)
+    args.start[: len(starts)] = starts
+    args.n_ops = len(deletes)
+    return args, keep
+
+
+@functools.lru_cache(maxsize=None)
+def _delete_fn():
+    return _entry("hash_update", "zb_hash_delete",
+                  (ctypes.POINTER(_DeleteArgs), ctypes.c_void_p))
+
+
+def _delete_cuda(tables, deletes) -> None:
+    args, _keep = _delete_args(tables, deletes)
+    launched = _delete_fn()(ctypes.byref(args), _stream())
+    if launched:
+        _count("delete", launched)
+
+
+def fused_delete(tables: Sequence[HashTable], deletes: Sequence[DeleteOp]) -> None:
+    """``hashmap.delete(tables[op.table], op.keys, op.valid)`` for every op,
+    IN PLACE: each valid key's bucket becomes a TOMBSTONE, values are
+    untouched. One kernel launch for all of them on CUDA tensors (at most 8
+    deletes: a step's maps), counted under ``delete``. The ops on one table
+    must hold distinct keys (``fused_delete_reference``)."""
+    deletes = list(deletes)
+    if not deletes:
         return
-    keys = keys.to(torch.int64).contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    p = ctypes.c_void_p
-    fn = _entry("hash_update", "zb_hash_delete",
-                (p, ctypes.c_int64, p, p, ctypes.c_int64, p))
-    _build.check(fn(tkeys.data_ptr(), size, keys.data_ptr(), valid.data_ptr(), n,
-                    _stream()), "delete")
-    _count("delete", 1)
+    used = [t for op in deletes
+            for t in (tables[op.table].keys, tables[op.table].vals, op.keys, op.valid)]
+    if _on_cuda(used, "delete"):
+        _delete_cuda(tables, deletes)
+    else:
+        fused_delete_reference(tables, deletes)
 
 
 def delete(table: HashTable, keys: torch.Tensor, valid: torch.Tensor) -> HashTable:
     """Batched delete, IN PLACE: each valid key's bucket becomes a
-    TOMBSTONE, as ``hashmap.delete`` computes; values are untouched."""
-    if _on_cuda([table.keys, table.vals, keys, valid], "delete"):
-        _delete_cuda(table, keys, valid)
-    else:
-        table.keys.copy_(delete_reference(table, keys, valid).keys)
+    TOMBSTONE, as ``hashmap.delete`` computes; values are untouched. The
+    one-op ``fused_delete``."""
+    fused_delete([table], [DeleteOp(0, keys, valid)])
     return table
 
 
