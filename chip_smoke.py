@@ -2,11 +2,12 @@
 """Chip smoke for the PyTorch/CUDA engine (``zeebe_tpu_torch``).
 
 Builds the hand-written CUDA kernels from ``zeebe_tpu_torch/csrc`` (phase
-1), holds each of the 13 kernel wrappers against its plain PyTorch
+1), holds each of the 14 kernel wrappers against its plain PyTorch
 version on the card at the main paths' shapes and times it: around one
-wrapper call (host work inside), and for the gather, the table commits,
-the hash lookup, insert and delete and the probe's two kernels also on
-the host alone and on the device alone, back to back (phase 2; the
+wrapper call (host work inside), and also on the host alone and on the
+device alone, back to back (phase 2; the scatters' adds and maxima also
+as config 3's pair in one ``fused_accumulate``, the row loop also pass
+by pass and at n_writes 10; the
 lookup also as a config-1 step's fused fallback probes against two
 calls, the insert also at the rebuild shape, round 1 alone, and captured
 in a CUDA graph, the delete also on chains that wrap past the table's
@@ -44,6 +45,11 @@ port's host oracle at full credit. Phase 7 runs the primitive-cost probe
                                               #   in an unpacked parent commit
                                               #   and here, in one call, for an
                                               #   A/B
+    python3 chip_smoke.py --scatter-only      # only phase 2's scatter and row-
+                                              #   loop cases, and the one-op
+                                              #   accumulate wrapper's host work
+                                              #   piece by piece (an A/B beside a
+                                              #   parent's whole script)
 
 Every phase passes or the script exits non-zero. The last line of standard
 output is ``{"ok": true, "device": {...}}``; before it come the card's name
@@ -88,8 +94,8 @@ MAPPING_PER_INSTANCE = 20
 MAPPING_PER_STOPPED = 8
 REBUILD_EVERY = 3
 # the device functions of zeebe_tpu_torch/csrc, as the profiler names them
-OUR_KERNELS = ("gather_rows_kernel", "commit_pass_kernel", "hash_lookup_kernel",
-               "hash_insert_kernel", "hash_delete_kernel")
+OUR_KERNELS = ("gather_rows_kernel", "commit_pass_kernel", "scatter_accum_kernel",
+               "hash_lookup_kernel", "hash_insert_kernel", "hash_delete_kernel")
 # a spin of this many clock cycles (about 11 ms at 1.98 GHz) holds the
 # stream while the host enqueues the launches device_us times
 SPIN_CYCLES = 20_000_000
@@ -884,7 +890,8 @@ def check_lookup(dev, gen):
     }
 
 
-# the masked scatters (one-op commits of csrc/table_commit.cu): per wrapper,
+# the masked scatters (the sets: one-op commits of csrc/table_commit.cu;
+# the adds and maxima: one-op calls of csrc/scatter_accum.cu): per wrapper,
 # its kind, the TPU kernel it replaces and the (table shape, dtype,
 # lane-masked) cases it is checked at; the first case is the one timed.
 # The int64 case goes through lo/hi int32 planes. Shapes are config 3's:
@@ -905,6 +912,8 @@ SCATTERS = (
     ("masked_lane_accum", "add", ":431",
      [((1 << 10,), "i32", False, 1 << 8), ((_J,), "i32", False)]),
 )
+# the wrappers that are one-op calls of fused_accumulate
+ACCUMULATES = ("masked_row_max", "masked_row_add", "masked_lane_accum")
 
 
 def _scatter_case(dev, gen, shape, dtype, masked, b=WAVE):
@@ -944,7 +953,8 @@ def _written_cells(table, slots, active, mask) -> int:
 
 def check_scatters(dev, gen):
     """Each masked-scatter wrapper against its plain version at config 3's
-    shapes (plus the two wrappers no path launches); one row per wrapper."""
+    shapes (plus the two wrappers no path launches); one row per wrapper,
+    and one for config 3's pair of row maxima in one fused_accumulate."""
     import torch
 
     from zeebe_tpu_torch.tpu import ops
@@ -1000,17 +1010,30 @@ def check_scatters(dev, gen):
             library_ms = time_ms(lib)
             library = {"library_device_us": device_us(lambda: (lib(), 0)[1]),
                        "library_host_us": host_us(lib)}
-        # the C entry on the wrapper's own descriptor (vec64: lo/hi planes)
-        if dtype == torch.int64:
-            d, _keep = ops._scatter_desc(name, work.view(torch.int32).view(-1, 2), kind,
-                                         slots, active, vals.view(torch.int32).view(-1, 2),
-                                         None)
+        # the C entry on the wrapper's own arguments (vec64: lo/hi planes)
+        keep: list = []
+        if name in ACCUMULATES:
+            entry = ops._accum_fn()
+            call = ops._ACCUM_CALLS[1].pack(ops._stream(), 1, *ops._accum_fields(
+                name, work, kind, slots, active, vals, mask, keep))
+
+            def launch():
+                return entry(call)
         else:
-            d, _keep = ops._scatter_desc(name, work, kind, slots, active, vals, mask)
-        entry, stream = ops._commit_fn(), ops._stream()
+            if dtype == torch.int64:
+                d, keep = ops._scatter_desc(name, work.view(torch.int32).view(-1, 2), kind,
+                                            slots, active, vals.view(torch.int32).view(-1, 2),
+                                            None)
+            else:
+                d, keep = ops._scatter_desc(name, work, kind, slots, active, vals, mask)
+            commit, stream = ops._commit_fn(), ops._stream()
+
+            def launch():
+                return commit(ctypes.byref(d), 1, stream)
         out.append({
             "name": name, "route": "cuda",
-            "source": "zeebe_tpu_torch/csrc/table_commit.cu",
+            "source": "zeebe_tpu_torch/csrc/" + (
+                "scatter_accum.cu" if name in ACCUMULATES else "table_commit.cu"),
             "replaces": f"zeebe_tpu/tpu/pallas_ops.py{line}",
             "max_abs_err": err,
             "ms": time_ms(lambda: fn(work, slots, active, vals, *extra)),
@@ -1018,15 +1041,148 @@ def check_scatters(dev, gen):
                 plain, kind, slots, active, vals, mask)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms,
-            "device_us": device_us(lambda: entry(ctypes.byref(d), 1, stream)),
+            "device_us": device_us(launch),
             "host_us": host_us(lambda: fn(work, slots, active, vals, *extra)),
-            "device_launches": entry(ctypes.byref(d), 1, stream),
+            "device_launches": launch(),
             **library,
             "shape": "; ".join(
                 f"[{', '.join(map(str, c[0]))}] {c[1]}{' lane-masked' if c[2] else ''}"
                 f", B={c[3] if len(c) > 3 else WAVE}" for c in cases),
         })
+    out.append(_accumulate_pair(dev, gen))
     return out
+
+
+def _per_call_ns(fn, reps: int = 10_000) -> float:
+    """Mean host nanoseconds of one call of ``fn`` over ``reps`` calls."""
+    for _ in range(100):
+        fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter_ns() - t0) / reps
+
+
+def accumulate_host_pieces(dev, gen) -> dict:
+    """The one-op row maximum's host work piece by piece, ns a call over
+    10^4 calls (``time.perf_counter_ns``, the empty loop's cost taken off),
+    at config 3's [J, 4] shape: the accumulate route the wrapper takes,
+    beside ``fused_accumulate`` of the same op, and the one-op commit route
+    (``ops._scatter``, which the masked sets take and the commutative
+    scatters took before ``fused_accumulate``)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    table, slots, active, vals, _m = _scatter_case(dev, gen, (_J, 4), torch.int32, False)
+    name, stream = "masked_row_max", ops._stream()
+    op = ops.TableOp(0, "max", slots, active, vals)
+    fields = ops._accum_fields(name, table, "max", slots, active, vals, None, [])
+    call, _keep = ops._accum_call(name, [table], [op], stream, True)
+    accum = ops._accum_fn()
+    d, _dkeep = ops._scatter_desc(name, table, "max", slots, active, vals, None)
+    commit = ops._commit_fn()
+    commit_fields = (table.data_ptr(), slots.data_ptr(), active.data_ptr(), vals.data_ptr(), 0,
+                     0, 0, table.shape[0], table.shape[1], slots.shape[0], ops._KINDS["max"], 0,
+                     0)
+    routes = {
+        "shared": {
+            "is_cuda x5": lambda: (table.is_cuda and slots.is_cuda and active.is_cuda
+                                   and vals.is_cuda and (None is None or None.is_cuda)),
+            "_stream": ops._stream,
+            "_count": lambda: ops._count(name, 1),
+        },
+        "accumulate": {
+            "TableOp": lambda: ops.TableOp(0, "max", slots, active, vals),
+            "_accum_fields": lambda: ops._accum_fields(name, table, "max", slots, active, vals,
+                                                       None, []),
+            "pack": lambda: ops._ACCUM_CALLS[1].pack(stream, 1, *fields),
+            # the one-op wrapper's packing, and fused_accumulate's for one op
+            "_accum_fields + pack": lambda: ops._ACCUM_CALLS[1].pack(
+                stream, 1, *ops._accum_fields(name, table, "max", slots, active, vals, None, [])),
+            "_accum_call": lambda: ops._accum_call(name, [table], [op], stream, True),
+            "C call": lambda: accum(call),
+            "wrapper": lambda: ops.masked_row_max(table, slots, active, vals),
+            "fused_accumulate, one op": lambda: ops.fused_accumulate([table], [op]),
+        },
+        "one-op commit": {
+            "_check_table": lambda: ops._check_table(table, name),
+            "_inputs": lambda: ops._inputs(table.shape[1], slots, active, vals, None, []),
+            "pack_into": lambda: ops._COMMIT_LAYOUT.pack_into(d, 0, *commit_fields),
+            "ctypes.byref": lambda: ctypes.byref(d),
+            "C call": lambda: commit(ctypes.byref(d), 1, stream),
+            "wrapper": lambda: ops._scatter(name, table, "max", slots, active, vals),
+        },
+    }
+    empty = _per_call_ns(lambda: None)
+    out = {"empty loop": empty}
+    for route, pieces in routes.items():
+        out[route] = {}
+        for label, fn in pieces.items():
+            out[route][label] = _per_call_ns(fn) - empty
+            torch.cuda.synchronize()
+    ops.reset_launches()
+    return out
+
+
+def _accumulate_pair(dev, gen):
+    """Config 3's two row maxima (the arrival flags, [J, 4], and the flow-
+    position stamps, [J, 8]; one slot and flag per record, B = 2^14) as
+    the step issues them: one fused_accumulate, against the plain version
+    and, as the yardstick, two scatter_reduce_ calls."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    t1, slots, active, v1, _m = _scatter_case(dev, gen, (_J, 4), torch.int32, False)
+    t2 = torch.randint(-2**20, 2**20, (_J, 8), generator=gen).to(torch.int32).to(dev)
+    v2 = torch.randint(-2**20, 2**20, (WAVE, 8), generator=gen).to(torch.int32).to(dev)
+    pair = [ops.TableOp(0, "max", slots, active, v1), ops.TableOp(1, "max", slots, active, v2)]
+    got = ops.fused_accumulate([t1.clone(), t2.clone()], pair)
+    want = ops.fused_accumulate_reference([t1.clone(), t2.clone()], pair)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"fused_accumulate differs from its plain version: {err}")
+    w1, w2, p1, p2 = t1.clone(), t2.clone(), t1.clone(), t2.clone()
+    # slots and flags (read once: the two ops share them), both values in;
+    # each written row read and written
+    cells = _written_cells(t1, slots, active, None) + _written_cells(t2, slots, active, None)
+    nbytes = WAVE * (4 + 1 + 4 * 4 + 4 * 8) + cells * 4 * 2
+    s = slots.to(torch.int64)
+    s = torch.where(s < 0, s + _J, s)
+    idx = torch.where(active & (s >= 0) & (s < _J), s, _J)
+    l1, l2 = torch.cat([t1, t1[:1]]), torch.cat([t2, t2[:1]])
+    i1, i2 = idx[:, None].expand(-1, 4).contiguous(), idx[:, None].expand(-1, 8).contiguous()
+
+    def lib():
+        l1.scatter_reduce_(0, i1, v1, reduce="amax")
+        l2.scatter_reduce_(0, i2, v2, reduce="amax")
+
+    def fused():
+        return ops.fused_accumulate([w1, w2], pair)
+
+    def two():  # the same pair as two one-op calls
+        ops.masked_row_max(w1, slots, active, v1)
+        ops.masked_row_max(w2, slots, active, v2)
+    entry = ops._accum_fn()
+    call, _keep = ops._accum_call("fused_accumulate", [w1, w2], pair, ops._stream(), True)
+    return {
+        "name": "fused_accumulate", "route": "cuda",
+        "source": "zeebe_tpu_torch/csrc/scatter_accum.cu",
+        "replaces": "zeebe_tpu/tpu/pallas_ops.py:287",
+        "max_abs_err": err,
+        "ms": time_ms(fused),
+        "plain_ms": time_ms(lambda: ops.fused_accumulate_reference([p1, p2], pair)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": time_ms(lib),
+        "device_us": device_us(lambda: entry(call)), "host_us": host_us(fused),
+        "device_launches": entry(call),
+        "library_device_us": device_us_calls([lib] * 101), "library_host_us": host_us(lib),
+        "pair": {"two_calls_ms": time_ms(two), "two_calls_host_us": host_us(two),
+                 "two_calls_device_us": device_us_calls([two] * 101)},
+        "shape": f"config 3's pair: [{_J}, 4] and [{_J}, 8] i32 maxima, B={WAVE}",
+    }
 
 
 def _join_map(dev, gen, b=WAVE):
@@ -1407,10 +1563,13 @@ def check_delete(dev, gen):
 def check_row_loop(dev, gen):
     """The probe's row loop at its own sizes (B = 2^14 random indices into
     CAP = 2^16 rows of K = 128 int32: about 1,700 rows named more than
-    once), n_writes 1 and 10, from a random table: bit-equal in place."""
+    once), n_writes 1 and 10, from a random table: bit-equal in place.
+    Device µs also at n_writes 10 and for each pass alone (the write pass
+    on the claims its epoch's claim pass left)."""
     import torch
 
     from zeebe_tpu_torch import probe
+    from zeebe_tpu_torch.tpu import ops
 
     b, cap, k = probe.B, probe.CAP, probe.K
     base = torch.randint(-2**31, 2**31 - 1, (cap, k), generator=gen,
@@ -1430,6 +1589,17 @@ def check_row_loop(dev, gen):
     # the indices, the winners' rows in, the written rows out
     nbytes = b * 4 + 2 * distinct * k * 4
     work, plain, lib = base.clone(), base.clone(), base.clone()
+    passes_us = {"both_w10": device_us_calls([lambda: probe.row_loop(work, idx, rows, 10)] * 101)}
+    # each pass alone, on an epoch newer than every tag in the scratch: the
+    # write pass reads the claims the claim pass left
+    fn, stream = probe._row_loop_fn(), ops._stream()
+    scratch, epoch = ops._claim_scratch(work.device, cap, 1)
+
+    def passes(n_writes, which):
+        return lambda: fn(work.data_ptr(), idx.data_ptr(), rows.data_ptr(), b, cap, k,
+                          n_writes, scratch.data_ptr(), epoch, which, stream)
+    passes_us.update(claim=device_us(passes(1, 1)), write=device_us(passes(1, 2)),
+                     write_w10=device_us(passes(10, 2)))
     return {
         "name": "row_loop", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/probe.cu",
@@ -1446,6 +1616,7 @@ def check_row_loop(dev, gen):
         "device_us": device_us_calls([lambda: probe.row_loop(work, idx, rows, 1)] * 101),
         "host_us": host_us(lambda: probe.row_loop(work, idx, rows, 1)),
         "device_launches": 2,
+        "passes_us": passes_us,
         "shape": f"B={b} into [{cap}, {k}] i32 ({b - distinct} repeats), n_writes 1 and 10",
     }
 
@@ -1537,7 +1708,7 @@ def check_probe(dev, gen):
 # inserts through the insert kernel on both paths)
 CONFIG1_KERNELS = ("fused_gather_rows", "fused_table_commit", "lookup", "insert")
 CONFIG3_KERNELS = CONFIG1_KERNELS + (
-    "masked_row_update", "masked_row_max", "masked_lane_update",
+    "masked_row_update", "fused_accumulate", "masked_lane_update",
     "masked_vec64_update", "delete",
 )
 TIMER_KERNELS = CONFIG1_KERNELS + ("delete",)
@@ -1545,11 +1716,12 @@ PROBE_KERNELS = ("row_loop", "probe")
 # exact launches of a drive: per round of the step, and per lookup-state
 # rebuild (one insert for each of the six maps); config 2 runs config 1's
 # kernels (the condition programs are plain PyTorch). A step's fallback
-# probes are one fused lookup; config 3 adds the join path's two
+# probes are one fused lookup; config 3 adds the join path's two, and its
+# two row maxima are one fused accumulate
 PER_ROUND = {
     "config1": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 1},
     "config3": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 3,
-                "masked_row_update": 3, "masked_row_max": 2, "masked_lane_update": 2,
+                "masked_row_update": 3, "fused_accumulate": 1, "masked_lane_update": 2,
                 "masked_vec64_update": 2, "insert": 1, "delete": 1},
 }
 PER_ROUND["config2"] = PER_ROUND["config1"]
@@ -1570,7 +1742,7 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launches since the last reset: the 11 of ``ops``
+    """Every wrapper's launches since the last reset: the 12 of ``ops``
     and the 2 of ``probe``."""
     from zeebe_tpu_torch import probe
     from zeebe_tpu_torch.tpu import ops
@@ -2063,9 +2235,13 @@ def main(argv) -> int:
     ap.add_argument("--out", help="also write every measured number here (JSON)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width wave (torch.profiler)")
-    ap.add_argument("--hash-only", action="store_true",
-                    help="only build and run phase 2's lookup, insert, delete and "
-                         "probe cases")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--hash-only", action="store_true",
+                      help="only build and run phase 2's lookup, insert, delete and "
+                           "probe cases")
+    only.add_argument("--scatter-only", action="store_true",
+                      help="only build and run phase 2's scatter and row-loop cases, "
+                           "and time the one-op accumulate wrapper piece by piece")
     args = ap.parse_args(argv)
 
     import torch
@@ -2107,6 +2283,8 @@ def main(argv) -> int:
         if args.hash_only and check not in (check_lookup, check_insert, check_delete,
                                             check_probe):
             continue
+        if args.scatter_only and check not in (check_scatters, check_row_loop):
+            continue
         # a generator of its own: a check's data is the same in every mode
         rows = check("cuda", torch.Generator().manual_seed(1234 + k))
         for row in rows if isinstance(rows, list) else [rows]:
@@ -2123,19 +2301,24 @@ def main(argv) -> int:
                     + (f", outputs allocated per op {row['alloc_us']['per_op']:.2f} us"
                        f" / as one arena {row['alloc_us']['arena']:.2f} us"
                        if "alloc_us" in row else ""))
-            for extra in ("rounds", "rebuild", "main_path", "walk", "fused"):
+            for extra in ("rounds", "rebuild", "main_path", "walk", "fused", "pair",
+                          "passes_us"):
                 if extra in row:
                     log(f"    {extra}: {json.dumps(row[extra])}")
             for extra in ("ms_w10", "ms_script_table"):
                 if extra in row:
                     log(f"    {extra}: kernel {row[extra]:.4f} ms")
 
-    if args.hash_only:
+    if args.hash_only or args.scatter_only:
+        result = {"card": smi, "package": ops.__file__, "kernels": kernels}
+        if args.scatter_only:
+            result["accumulate_host_ns"] = accumulate_host_pieces(
+                "cuda", torch.Generator().manual_seed(5))
+            log(f"[2] one-op accumulate host ns: {json.dumps(result['accumulate_host_ns'])}")
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
-                json.dump({"card": smi, "package": ops.__file__, "kernels": kernels}, f,
-                          indent=1)
+                json.dump(result, f, indent=1)
         print(smi, flush=True)
         return 0
 
@@ -2316,8 +2499,8 @@ def main(argv) -> int:
                             for r in reb["ours"]))
     # launches: the sum over the main-path runs (phases 4, 5 and 5b, 6: the
     # boot self-check and the four served runs, and 7: the probe), each
-    # run's own count beside it; masked_row_add, which no path calls, stays
-    # at 0
+    # run's own count beside it; masked_row_add and masked_row_max, which
+    # no path calls (config 3's maxima are one fused_accumulate), stay at 0
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -272,8 +272,9 @@ def test_importing_the_package_needs_no_nvcc_or_gpu():
     assert _build._libs == {}
     assert sorted(os.listdir(os.path.join(PORT, "csrc"))) == [
         "gather_rows.cu", "hash_lookup.cu", "hash_update.cu", "probe.cu",
-        "table_commit.cu", "zb_hash.cuh",
+        "scatter_accum.cu", "table_commit.cu", "zb_hash.cuh",
     ]
     assert sorted(_build.SOURCES) == [
-        "gather_rows", "hash_lookup", "hash_update", "probe", "table_commit",
+        "gather_rows", "hash_lookup", "hash_update", "probe", "scatter_accum",
+        "table_commit",
     ]

@@ -225,7 +225,7 @@ def test_wrappers_take_plain_path_for_cpu_tensors():
         "fused_gather_rows", "fused_table_commit", "lookup",
         "masked_row_update", "masked_row_max", "masked_row_add",
         "masked_lane_update", "masked_lane_accum", "masked_vec64_update",
-        "insert", "delete",
+        "insert", "delete", "fused_accumulate",
     ], 0)
     meta = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="mixed"):

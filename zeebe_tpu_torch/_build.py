@@ -27,7 +27,8 @@ from typing import Dict, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "zeebe_tpu_torch"
-SOURCES = ("gather_rows", "table_commit", "hash_lookup", "hash_update", "probe")
+SOURCES = ("gather_rows", "table_commit", "scatter_accum", "hash_lookup", "hash_update",
+           "probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -17,11 +17,25 @@
 //   Design: the TPU ran one serial loop; here the records run in
 //   parallel, so two records naming one row would race and leave a row
 //   mixed from both. As in table_commit.cu, the winner is decided first:
-//   pass 1 takes an atomicMax of a 64-bit tag (epoch << 32 | rank + 1)
-//   per destination row in a scratch word, pass 2 lets only the record
-//   whose tag survived write its row, n_writes times (volatile stores, so
-//   the repeats are issued as the serial loop issues them). The epoch
-//   grows with every call, so the scratch is never cleared.
+//   the claim pass (a thread a record) takes an atomicMax of a 64-bit tag
+//   (epoch << 32 | rank + 1) per destination row in a scratch word, and
+//   the write pass lets only the record whose tag survived write its row,
+//   n_writes times (volatile stores, so the repeats are issued as the
+//   serial loop issues them). The epoch grows with every call, so the
+//   scratch is never cleared. The write pass takes one warp a record: a
+//   row of K = 128 int32 is 512 B, 32 lanes of 16 B, so the index and the
+//   claim are read once a warp and, at n_writes 1, the row moves in int4
+//   loads and stores. Repeated volatile stores to one address cost more
+//   as int4 than as 4-byte words (about twice at n_writes 10 on the
+//   card), so at n_writes > 1 lane l stores words l, l + 32, ... instead,
+//   each warp instruction a whole 128-byte line. The two passes are
+//   chained by programmatic dependent launch: the write pass may start
+//   while the claim pass runs, loads its record's
+//   index and row first, and reads the claim only after
+//   griddepcontrol.wait, which returns once the claim pass has completed
+//   and its memory is visible. chip_smoke.py times each pass alone
+//   (``passes``). PERF.md §6 (PR 8) records the designs measured against
+//   this one and why each lost.
 //
 // probe(keys[B] i32, tkeys[CAP] i32) -> slot[B] i32:
 //   h = (k * 0x9E3779B1) & (CAP - 1) in 32-bit arithmetic; at most 8
@@ -48,33 +62,90 @@
 #define ZB_PROBE_LEN 8
 #define ZB_PROBE_GROUP 8
 
-__global__ void row_claim_kernel(const int32_t* __restrict__ idx, int64_t b,
-                                 int64_t cap, unsigned long long epoch,
-                                 unsigned long long* claims) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  const int32_t t = idx[i];
-  if (t < 0 || t >= cap) return;
-  atomicMax(claims + t, (epoch << 32) | (unsigned long long)(i + 1));
+// the write pass's warps a block
+#define ZB_ROW_WARPS 8
+
+struct RowLoop {
+  int32_t* tbl;
+  const int32_t* idx;
+  const int32_t* rows;
+  unsigned long long* claims;  // 64-bit tags, one a table row
+  unsigned long long epoch;
+  int32_t b;
+  int32_t cap;
+  int32_t k;
+  int32_t n_writes;
+  int32_t vec;  // 1: rows and the table move in int4 (k % 4 == 0, aligned)
+};
+
+__device__ __forceinline__ unsigned long long row_tag(const RowLoop& a, int i) {
+  return (a.epoch << 32) | (unsigned long long)(unsigned)(i + 1);
 }
 
-// one thread per (record, lane); the lanes of a record are neighbours, so
-// a winner's row is read and written in whole coalesced lines
-__global__ void row_write_kernel(int32_t* tbl, const int32_t* __restrict__ idx,
-                                 const int32_t* __restrict__ rows, int64_t b,
-                                 int64_t cap, int64_t k, int n_writes,
-                                 unsigned long long epoch,
-                                 const unsigned long long* __restrict__ claims) {
-  const int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= b * k) return;
-  const int64_t i = u / k;
-  const int64_t lane = u - i * k;
-  const int32_t t = idx[i];
-  if (t < 0 || t >= cap) return;
-  if (claims[t] != ((epoch << 32) | (unsigned long long)(i + 1))) return;
-  const int32_t v = rows[u];
-  volatile int32_t* dst = tbl + (int64_t)t * k + lane;
-  for (int w = 0; w < n_writes; ++w) *dst = v + w;
+__device__ __forceinline__ void store4(int32_t* p, int4 v, int w) {
+  asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x + w), "r"(v.y + w), "r"(v.z + w), "r"(v.w + w) : "memory");
+}
+
+// One warp writes record i's row if its claim won: lane l moves units l,
+// l + 32, ... of the row (a unit is 4 lanes with vec, else one). ``first``
+// is lane l's first unit, loaded early by the caller; ``t`` the record's
+// row, in range.
+__device__ __forceinline__ void write_row(const RowLoop& a, int i, int32_t t, int lane,
+                                          int4 first) {
+  const int units = a.vec ? a.k >> 2 : a.k;
+  int32_t* const dst = a.tbl + (int64_t)t * a.k;
+  const int32_t* const src = a.rows + (int64_t)i * a.k;
+  for (int u = lane; u < units; u += 32) {
+    if (a.vec) {
+      const int4 v = u == lane ? first : __ldg(reinterpret_cast<const int4*>(src) + u);
+      for (int w = 0; w < a.n_writes; ++w) store4(dst + 4 * u, v, w);
+    } else {
+      const int32_t v = u == lane ? first.x : __ldg(src + u);
+      volatile int32_t* const p = dst + u;
+      for (int w = 0; w < a.n_writes; ++w) *p = v + w;
+    }
+  }
+}
+
+__device__ __forceinline__ int4 first_unit(const RowLoop& a, int i, int lane) {
+  int4 v = make_int4(0, 0, 0, 0);
+  const int units = a.vec ? a.k >> 2 : a.k;
+  if (lane < units) {
+    const int32_t* const src = a.rows + (int64_t)i * a.k;
+    if (a.vec) {
+      v = __ldg(reinterpret_cast<const int4*>(src) + lane);
+    } else {
+      v.x = __ldg(src + lane);
+    }
+  }
+  return v;
+}
+
+// pass 1: a thread a record
+__global__ void __launch_bounds__(256) row_claim_kernel(const __grid_constant__ RowLoop a) {
+  const int i = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  if (i < a.b) {
+    const int32_t t = a.idx[i];
+    if (t >= 0 && t < a.cap) atomicMax(a.claims + t, row_tag(a, i));
+  }
+  // the write pass may be scheduled now: it reads no claim before its
+  // griddepcontrol.wait, which waits for this whole grid and its memory
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// pass 2: a warp a record; the record's index and first row unit are
+// loaded before the wait, so they overlap the claim pass
+__global__ void __launch_bounds__(ZB_ROW_WARPS * 32)
+row_write_kernel(const __grid_constant__ RowLoop a) {
+  const int i = (int)(blockIdx.x * ZB_ROW_WARPS + (threadIdx.x >> 5));
+  const int lane = (int)(threadIdx.x & 31u);
+  const int32_t t = i < a.b ? __ldg(a.idx + i) : -1;
+  const bool live = t >= 0 && t < a.cap;
+  const int4 first = live ? first_unit(a, i, lane) : make_int4(0, 0, 0, 0);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (!live || __ldcg(a.claims + t) != row_tag(a, i)) return;
+  write_row(a, i, t, lane, first);
 }
 
 __global__ void probe_kernel(const int32_t* __restrict__ keys,
@@ -95,22 +166,48 @@ static inline unsigned blocks_for(int64_t units, int threads) {
   return (unsigned)((units + threads - 1) / threads);
 }
 
-// Enqueues both passes of the row loop on ``stream``. ``claims`` is a
-// zero-initialised scratch of at least ``cap`` words kept across calls;
-// ``epoch`` is unique per call and below 2^32. Returns cudaGetLastError().
+// Enqueues the row loop on ``stream``: the passes in ``passes`` (1 the
+// claim pass, 2 the write pass, 3 both; one alone is for timing it).
+// ``claims`` is scratch of ``cap`` 64-bit tags kept across calls, all
+// below ``epoch`` << 32 (``epoch`` unique per call, below 2^32). Returns
+// the launches enqueued, or minus a CUDA error.
 extern "C" int zb_row_loop(int32_t* tbl, const int32_t* idx, const int32_t* rows,
                            int64_t b, int64_t cap, int64_t k, int n_writes,
                            unsigned long long* claims, unsigned long long epoch,
-                           void* stream) {
-  if (b <= 0 || k <= 0 || n_writes <= 0) return (int)cudaGetLastError();
-  const int threads = 256;
+                           int passes, void* stream) {
+  if (b <= 0 || k <= 0 || n_writes <= 0) return 0;
+  if (b > 0x7FFFFFFF || cap > 0x7FFFFFFF || k > 0x7FFFFFFF || passes < 1 || passes > 3) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  // int4 units at n_writes 1, where k and the pointers allow them
+  const RowLoop a = {tbl, idx, rows, claims, epoch, (int32_t)b, (int32_t)cap, (int32_t)k,
+                     n_writes,
+                     n_writes == 1 && (k & 3) == 0 &&
+                         (((uintptr_t)tbl | (uintptr_t)rows) & 15) == 0};
   cudaStream_t st = (cudaStream_t)stream;
-  row_claim_kernel<<<blocks_for(b, threads), threads, 0, st>>>(idx, b, cap, epoch, claims);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  row_write_kernel<<<blocks_for(b * k, threads), threads, 0, st>>>(
-      tbl, idx, rows, b, cap, k, n_writes, epoch, claims);
-  return (int)cudaGetLastError();
+  int launches = 0;
+  if (passes & 1) {
+    row_claim_kernel<<<blocks_for(b, 256), 256, 0, st>>>(a);
+    const int err = (int)cudaGetLastError();
+    if (err) return -err;
+    ++launches;
+  }
+  if (passes & 2) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks_for(b, ZB_ROW_WARPS));
+    cfg.blockDim = dim3(ZB_ROW_WARPS * 32);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int err = (int)cudaLaunchKernelEx(&cfg, row_write_kernel, a);
+    if (!err) err = (int)cudaGetLastError();
+    if (err) return -err;
+    ++launches;
+  }
+  return launches;
 }
 
 // Launches the probe of ``b`` keys into a table of ``cap`` buckets (a power

@@ -2,10 +2,10 @@
 //
 // Replaces, in zeebe_tpu/tpu/pallas_ops.py: `fused_table_commit` (its
 // pl.pallas_call at :679), and, as a commit of one op, the single-table
-// scatters `masked_row_update` (:244), `masked_row_max` (:317),
-// `masked_row_add` (:378), `_lane_op` (:441, behind `masked_lane_update`
-// and `masked_lane_accum`) and `masked_vec64_update` (:497, through lo/hi
-// planes). The semantics are those of the XLA op chain `_apply_op_unfused`
+// sets `masked_row_update` (:244), `_lane_op` (:441, behind
+// `masked_lane_update`) and `masked_vec64_update` (:497, through lo/hi
+// planes); the commutative single-table scatters are scatter_accum.cu's.
+// The semantics are those of the XLA op chain `_apply_op_unfused`
 // (pallas_ops.py:553-564), applied in list order:
 //   set  — masked row write; per row (or per (row, lane) when a lane mask
 //          is given) the LAST active writer in batch order wins;

@@ -84,10 +84,21 @@ def row_loop_reference(tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     return tbl
 
 
+@functools.lru_cache(maxsize=None)
+def _row_loop_fn():
+    """``zb_row_loop`` of csrc/probe.cu: (tbl, idx, rows, b, cap, k,
+    n_writes, claims, epoch, passes, stream) -> launches enqueued, or
+    minus a CUDA error."""
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _entry("zb_row_loop", (p, p, p, i64, i64, i64, ctypes.c_int, p, ctypes.c_uint64,
+                                  ctypes.c_int, p))
+
+
 def row_loop(tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
              n_writes: int) -> torch.Tensor:
     """``tbl[idx[i]] = rows[i] + w`` for i in batch order and w < n_writes,
-    IN PLACE: one kernel call (two passes) on CUDA tensors."""
+    IN PLACE: one kernel call on CUDA tensors (the claim pass, and the
+    write pass chained to it by programmatic dependent launch)."""
     if not ops._on_cuda([tbl, idx, rows], "row_loop"):
         return row_loop_reference(tbl, idx, rows, n_writes)
     _check_row_loop(tbl, idx, rows, n_writes)
@@ -95,12 +106,12 @@ def row_loop(tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     rows = rows.to(torch.int32).contiguous()
     cap, k = tbl.shape
     scratch, epoch = ops._claim_scratch(tbl.device, cap, 1)
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn = _entry("zb_row_loop", (p, p, p, i64, i64, i64, ctypes.c_int, p,
-                                ctypes.c_uint64, p))
-    _build.check(fn(tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(), idx.shape[0], cap,
-                    k, n_writes, scratch.data_ptr(), epoch, ops._stream()), "row_loop")
-    LAUNCHES["row_loop"] += 1
+    launched = _row_loop_fn()(tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(), idx.shape[0],
+                              cap, k, n_writes, scratch.data_ptr(), epoch, 3, ops._stream())
+    if launched < 0:
+        raise RuntimeError(f"row_loop: CUDA error {-launched} at launch")
+    if launched:
+        LAUNCHES["row_loop"] += 1
     return tbl
 
 

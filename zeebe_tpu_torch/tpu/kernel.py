@@ -31,8 +31,9 @@ stage (8 per step), one ``ops.fused_lookup`` for every index-miss
 fallback (1 per step; the timer map's probe shares it) and one
 ``ops.fused_table_commit`` per table group (2 per step), which updates the
 element-instance and job tables IN PLACE. The join path adds, per step,
-2 lookups and 1 insert on the join map and 9 masked scatters into the
-join tables; the timer path one more table commit (the six timer tables)
+2 lookups and 1 insert on the join map, 7 masked sets into the join
+tables and one ``ops.fused_accumulate`` for their two row maxima; the
+timer path one more table commit (the six timer tables)
 and 1 insert on the timer map; the two maps' deletes are one
 ``ops.fused_delete`` at the end of the step — all IN PLACE as well.
 The condition programs run as plain
@@ -695,10 +696,14 @@ def step_kernel(
         fcols = torch.arange(f_in, dtype=_I32, device=dev)
         pos_hot = fcols[None, :] == my_pos.clamp(0, f_in - 1)[:, None]
         arrived = state.join_arrived.to(_I32)
-        ops.masked_row_max(arrived, arr_slot, arrival, pos_hot.to(_I32))
-        # flow-position-stamped payload merge: higher flow pos wins per variable
-        ops.masked_row_max(stamp, arr_slot, arrival,
-                           torch.where(src_present, my_pos[:, None], -1))
+        # with the flow-position-stamped payload merge (higher flow pos wins
+        # per variable): two row maxima into two tables, neither reading
+        # the other's result, so one launch takes both
+        ops.fused_accumulate([arrived, stamp], [
+            ops.TableOp(0, "max", arr_slot, arrival, pos_hot.to(_I32)),
+            ops.TableOp(1, "max", arr_slot, arrival,
+                        torch.where(src_present, my_pos[:, None], -1)),
+        ])
         win_var = m_pmerge[:, None] & src_present & (
             stamp[aw.clamp(0, j_cap - 1).to(_I64)] == my_pos[:, None]
         )

@@ -8,10 +8,13 @@ parallel fork/join graph):
 - ``fused_table_commit`` ↔ ``pallas_ops.fused_table_commit`` (csrc/table_commit.cu)
 - ``fused_lookup``, ``lookup`` ↔ ``pallas_ops.lookup``, every independent
   probe of a step in one launch (csrc/hash_lookup.cu)
-- ``masked_row_update``, ``masked_row_max``, ``masked_row_add``,
-  ``masked_lane_update``, ``masked_lane_accum``, ``masked_vec64_update``
+- ``masked_row_update``, ``masked_lane_update``, ``masked_vec64_update``
   ↔ the ``pallas_ops`` functions of the same names: one-op table commits
   (csrc/table_commit.cu)
+- ``fused_accumulate`` ↔ ``pallas_ops.masked_row_max``,
+  ``masked_row_add`` and ``masked_lane_accum``, a step's commutative
+  scatters in one launch; those three are its one-op case
+  (csrc/scatter_accum.cu)
 - ``insert`` ↔ ``pallas_ops.insert`` (csrc/hash_update.cu)
 - ``fused_delete``, ``delete`` ↔ ``pallas_ops.delete``, every delete of a
   step in one launch (csrc/hash_update.cu)
@@ -21,10 +24,11 @@ plain PyTorch version beside each kernel (``*_reference``); CUDA tensors
 launch the hand-written kernel, or the call raises. There is no fallback
 from a CUDA tensor to the plain version. ``LAUNCHES`` counts the wrapper
 calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
-(a table commit is a pass or two per stage of ``commit_plan``). The
-launch plans (``gather_plan``, ``commit_plan``, ``lookup_plan``, which
-the delete shares, ``insert_plan``) are built here, in Python, so the CPU
-tests reach them.
+(a table commit is a pass or two per stage of ``commit_plan``; every
+other call one). The launch plans (``gather_plan``, ``commit_plan``,
+``lookup_plan``, which the delete shares, ``insert_plan``) are built
+here, in Python, so the CPU tests reach them; the accumulate's block plan
+is one line of its C entry.
 
 Aliasing: unlike their JAX counterparts, every table write here updates
 the caller's tensors IN PLACE on both devices and returns them.
@@ -58,7 +62,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_gather_rows": 0, "fused_table_commit": 0, "lookup": 0,
     "masked_row_update": 0, "masked_row_max": 0, "masked_row_add": 0,
     "masked_lane_update": 0, "masked_lane_accum": 0, "masked_vec64_update": 0,
-    "insert": 0, "delete": 0,
+    "insert": 0, "delete": 0, "fused_accumulate": 0,
 }
 # device kernel launches the same calls enqueued: one a call, but for the
 # table commits (a pass or two per stage of the op list: commit_plan)
@@ -736,7 +740,7 @@ def _scatter_cuda(name, table, kind, slots, active, vals, mask) -> None:
 
 
 def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
-    """One masked scatter into one int32 table, in place: a one-op table
+    """One masked ``set`` into one int32 table, in place: a one-op table
     commit, its launches counted under ``name``."""
     if (table.is_cuda and slots.is_cuda and active.is_cuda and vals.is_cuda
             and (mask is None or mask.is_cuda)):
@@ -744,6 +748,169 @@ def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
         return table
     _on_cuda([table, slots, active, vals] + ([] if mask is None else [mask]), name)
     return masked_scatter_reference(table, kind, slots, active, vals, mask)
+
+
+# ---------------------------------------------------------------------------
+# commutative scatters (add, max): csrc/scatter_accum.cu
+# ---------------------------------------------------------------------------
+
+
+class _AccumOp(ctypes.Structure):
+    """csrc/scatter_accum.cu's ``AccumOp`` (the layout ``_ACCUM_LAYOUT``
+    packs; the tests read a packed call back through it)."""
+
+    _fields_ = [
+        ("table", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+        ("active", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p), ("rows", ctypes.c_int32),
+        ("width", ctypes.c_int32), ("n", ctypes.c_int32), ("kind", ctypes.c_int32),
+    ]
+
+
+# csrc/scatter_accum.cu's ZB_MAX_ACCUM_OPS and ZB_ACCUM_THREADS: the ops
+# one launch takes, and a block's threads (one (record, lane) each)
+_MAX_ACCUM_OPS = 8
+_ACCUM_THREADS = 256
+# a call as the C entry reads it (``AccumCall``): the stream and the op
+# count, then the ops; a call of n ops is packed by ``_ACCUM_CALLS[n]`` in
+# one go
+_ACCUM_HEAD = struct.Struct("<Qi4x")
+_ACCUM_LAYOUT = struct.Struct("<5Q4i")
+_ACCUM_CALLS = tuple(struct.Struct(_ACCUM_HEAD.format + _ACCUM_LAYOUT.format[1:] * n)
+                     for n in range(_MAX_ACCUM_OPS + 1))
+_ACCUM_KINDS = {"add": _KINDS["add"], "max": _KINDS["max"]}
+_I32, _BOOL = torch.int32, torch.bool
+
+
+def _accum_fields(name, table, kind, slots, active, vals, mask, keep):
+    """One commutative op's packed fields (table, slots, active, vals,
+    mask, rows, width, n, kind), checked: an "add" or a "max" into a
+    contiguous int32 table (a 1D table only "add"), inputs converted only
+    where their dtype or layout is not the kernel's (the copies go to
+    ``keep``, alive until the launch is enqueued). A 2D "max" and a 1D
+    table ignore the mask, as the JAX chain does. The host work of every
+    accumulate call is here: one read of each property it checks."""
+    code = _ACCUM_KINDS.get(kind)
+    shape = table.shape
+    if code is None or table.dtype is not _I32 or not table.is_contiguous():
+        raise ValueError(f"{name}: an 'add' or 'max' into a contiguous int32 table "
+                         f"(got {kind!r} into {table.dtype})")
+    if len(shape) == 2:
+        rows, width = shape
+        if code == 2:
+            mask = None
+    elif len(shape) == 1 and code == 1:
+        rows, width, mask = shape[0], 1, None
+    else:
+        raise ValueError(f"{name}: a 2D table, or a 1D table for an 'add' only (the "
+                         "JAX chain sets on a 1D 'max')")
+    n = slots.shape[0]
+    if rows * width > _I32_MAX or n * width > _I32_MAX:
+        raise ValueError(f"{name}: the table and the batch must hold under 2^31 elements")
+    if slots.dtype is not _I32 or not slots.is_contiguous():
+        slots = _slots_i32(slots)
+        keep.append(slots)
+    if active.dtype is not _BOOL or not active.is_contiguous():
+        active = _as(active, _BOOL)
+        keep.append(active)
+    if vals.dtype is not _I32 or not vals.is_contiguous():
+        vals = _as(vals, _I32)
+        keep.append(vals)
+    m = 0
+    if mask is not None:
+        if mask.dtype is not _BOOL or not mask.is_contiguous():
+            mask = _as(mask, _BOOL)
+            keep.append(mask)
+        if mask.numel() != n * width:
+            raise ValueError(f"{name}: the lane mask must be [B, K] like the values")
+        m = mask.data_ptr()
+    if active.numel() != n or vals.numel() != n * width:
+        raise ValueError(f"{name}: slots, active and vals disagree on the batch or "
+                         "the table width")
+    return (table.data_ptr(), slots.data_ptr(), active.data_ptr(), vals.data_ptr(), m,
+            rows, width, n, code)
+
+
+@functools.lru_cache(maxsize=None)
+def _accum_fn():
+    return _entry("scatter_accum", "zb_scatter_accum", (ctypes.c_char_p,))
+
+
+def _accum_call(name, tables, ops, stream: int, cuda: bool):
+    """The packed call of ``ops`` on ``stream`` (the head, then each op's
+    fields) and the converted inputs it points at (keep them alive to the
+    launch). Checks that a table takes one kind (an add and a max into one
+    table do not commute) and, with ``cuda``, that every tensor is on the
+    card."""
+    n = len(ops)
+    if n > _MAX_ACCUM_OPS:
+        raise ValueError(f"{name}: at most {_MAX_ACCUM_OPS} ops")
+    kinds: Dict[int, str] = {}
+    keep: list = []
+    fields: list = []
+    for op in ops:
+        table, slots, active, vals, mask = tables[op.table], op.slots, op.active, op.vals, op.mask
+        if cuda and not (table.is_cuda and slots.is_cuda and active.is_cuda and vals.is_cuda
+                         and (mask is None or mask.is_cuda)):
+            raise ValueError(f"{name}: tensors on mixed or unsupported devices")
+        if kinds.setdefault(op.table, op.kind) != op.kind:
+            raise ValueError(f"{name}: a table takes one kind in a call (add and max "
+                             "do not commute)")
+        fields += _accum_fields(name, table, op.kind, slots, active, vals, mask, keep)
+    return _ACCUM_CALLS[n].pack(stream, n, *fields), keep
+
+
+def fused_accumulate_reference(
+    tables: Sequence[torch.Tensor], ops: Sequence[TableOp]
+) -> List[torch.Tensor]:
+    """Plain version: the ops applied one after another, in place (they
+    commute)."""
+    for op in ops:
+        _apply_op_reference(tables[op.table], op)
+    return list(tables)
+
+
+def _accumulate(name, tables, ops) -> List[torch.Tensor]:
+    """``fused_accumulate``, its launches counted under ``name``."""
+    if not ops:
+        return list(tables)
+    if tables[ops[0].table].is_cuda:
+        call, _keep = _accum_call(name, tables, ops, _stream(), True)
+        launched = _accum_fn()(call)
+        if launched:
+            _count(name, launched)
+        return list(tables)
+    used = list(tables) + [t for op in ops for t in (op.slots, op.active, op.vals)]
+    _on_cuda(used + [op.mask for op in ops if op.mask is not None], name)
+    _accum_call(name, tables, ops, 0, False)  # the card's checks
+    return fused_accumulate_reference(tables, ops)
+
+
+def fused_accumulate(
+    tables: Sequence[torch.Tensor], ops: Sequence[TableOp]
+) -> List[torch.Tensor]:
+    """Apply the commutative ``ops`` ("add" and "max" ``TableOp``s, at most
+    8, one kind per table) to ``tables`` (contiguous int32, none
+    overlapping another) IN PLACE; returns the tables. On CUDA tensors one
+    C call enqueues one launch for all of them (a step's independent
+    scatters: config 3's two row maxima)."""
+    return _accumulate("fused_accumulate", tables, ops)
+
+
+def _accumulate_one(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
+    """The one-op ``fused_accumulate`` into ``table``, counted under
+    ``name``. On CUDA tensors the call is packed straight from the op's
+    fields, without the ``TableOp`` and the op loop (0.7–1.4 µs less host
+    work a call on the card: PERF.md §6, PR 8)."""
+    if (table.is_cuda and slots.is_cuda and active.is_cuda and vals.is_cuda
+            and (mask is None or mask.is_cuda)):
+        keep: list = []
+        launched = _accum_fn()(_ACCUM_CALLS[1].pack(_stream(), 1, *_accum_fields(
+            name, table, kind, slots, active, vals, mask, keep)))
+        if launched:
+            _count(name, launched)
+        return table
+    return _accumulate(name, [table], [TableOp(0, kind, slots, active, vals, mask)])[0]
 
 
 def masked_row_update(table, slots, active, vals, lane_mask=None) -> torch.Tensor:
@@ -756,13 +923,13 @@ def masked_row_update(table, slots, active, vals, lane_mask=None) -> torch.Tenso
 def masked_row_max(table, slots, active, vals) -> torch.Tensor:
     """[T, K] ``table[slots[i]] = maximum(table[slots[i]], vals[i])`` for
     active records, in place (max commutes: batch order does not matter)."""
-    return _scatter("masked_row_max", table, "max", slots, active, vals)
+    return _accumulate_one("masked_row_max", table, "max", slots, active, vals)
 
 
 def masked_row_add(table, slots, active, vals, lane_mask=None) -> torch.Tensor:
     """[T, K] ``table[slots[i], lane] += vals[i, lane]`` for active records
     and masked lanes, in place (integer addition commutes)."""
-    return _scatter("masked_row_add", table, "add", slots, active, vals, lane_mask)
+    return _accumulate_one("masked_row_add", table, "add", slots, active, vals, lane_mask)
 
 
 def masked_lane_update(table1d, slots, active, vals) -> torch.Tensor:
@@ -772,7 +939,7 @@ def masked_lane_update(table1d, slots, active, vals) -> torch.Tensor:
 
 def masked_lane_accum(table1d, slots, active, deltas) -> torch.Tensor:
     """1D int32 ``table[slots[i]] += deltas[i]`` for active records, in place."""
-    return _scatter("masked_lane_accum", table1d, "add", slots, active, deltas)
+    return _accumulate_one("masked_lane_accum", table1d, "add", slots, active, deltas)
 
 
 def masked_vec64_update(table1d, slots, active, vals64) -> torch.Tensor:
