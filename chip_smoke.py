@@ -9,36 +9,47 @@ device alone, back to back (phase 2; the scatters' adds and maxima also
 as config 3's pair in one ``fused_accumulate``, the row loop also pass
 by pass and at n_writes 10; the
 lookup also as a config-1 step's fused fallback probes against two
-calls, the insert also at the rebuild shape, round 1 alone, and captured
+calls and as config 4's five probes in one launch, the insert also at the rebuild shape, round 1 alone, and captured
 in a CUDA graph, the delete also on chains that wrap past the table's
 end or run out, and as the step's two and the demotion's four deletes in
 one ``fused_delete``). It checks the drive loop on the card bit-equal to the same
-loop on the CPU on configs 1, 3 and 2 and an I/O-mapping graph, and one
-mixed and one timer step (phase 3), then drives, at the benchmark's
-accelerator width and through the package's own entry points, config 1
-(the order-process: start → service task "payment-service" → end; phase
-4), config 3 (parallel fork/join; phase 5) and config 2 (an exclusive
-gateway with a json-el condition; phase 5b), all with synthetic instant
-workers, and shows from the launch counters that each run went through
-every kernel of its path, exactly as often as its rounds and rebuilds
-ask, and that no table commit enqueued more than 3 device launches (5 a
-drive round). Phase 6 serves through the port's in-process ``Broker``
-with ``CudaPartitionEngine`` — client → log → engine → job pushed to a
-worker → completion → log: the first engine's construction runs the boot
-self-check (insert, lookup, delete, row update, lane update and lane
-accumulate against their plain versions, bit for bit); 6a serves configs
-1, 3 and 2 and a timer-catch workflow (the clock moved past the timers)
-and checks every instance completed device-served with every kernel of
-the path launched; 6b checks credit-drought logs on the card equal to
-the same runs' on the CPU, and config 2's and the timers' equal to the
-port's host oracle at full credit. Phase 7 runs the primitive-cost probe
+loop on the CPU on configs 1, 3, 2, 4 (with its tick) and 5 and an
+I/O-mapping graph, one config-4 wave at full width (the main path's
+launch shapes), one mixed and one timer step and two ``tick_kernel``
+calls, and the host oracle's records per instance of configs 4 and 5
+(phase 3), then drives, at the benchmark's accelerator width and
+through the package's own entry points, config 1 (the order-process:
+start → service task "payment-service" → end; phase 4), config 3
+(parallel fork/join; phase 5), config 2 (an exclusive gateway with a
+json-el condition; phase 5b), config 4 (a receive task with an
+interrupting 30 s timer boundary: CREATE, PUBLISH for the even half, the
+tick 31 s later; phase 5c) and config 5 (a cardinality-4 multi-instance
+sub-process; phase 5d), with synthetic instant workers, and shows from
+the launch counters that each run went through every kernel of its path,
+exactly as often as its rounds, ticks and rebuilds ask, and that no table
+commit enqueued more than 3 device launches; each config-4 drive processes
+the host oracle's records per instance of the half it serves. Phase 6 serves through the
+port's in-process ``Broker`` with ``CudaPartitionEngine`` — client → log
+→ engine → job pushed to a worker → completion → log: the first engine's
+construction runs the boot self-check (insert, lookup, delete, row
+update, lane update and lane accumulate against their plain versions,
+bit for bit); 6a serves configs 1, 3 and 2, a timer-catch workflow (the
+clock moved past the timers), config 4 (a burst of PUBLISHes for the even
+half, the clock moved 31 s: each stage's records held to the oracle's)
+and config 5, and checks every instance completed device-served (the message store on the card) with every
+kernel of the path launched; 6b checks credit-drought logs on the card
+equal to the same runs' on the CPU, and config 2's, the timers', config
+4's and config 5's equal to the port's host oracle at full credit. Phase
+7 runs the primitive-cost probe
 (``zeebe_tpu_torch.probe``: the row loop and the hash probe against
 ``index_put_``).
 
     python3 chip_smoke.py                     # the full check, one CUDA card
-    python3 chip_smoke.py --profile --out F   # + one wave of each config and one
+    python3 chip_smoke.py --profile --out F   # + one wave of each config (with
+                                              #   its peak memory), one
                                               #   eval_programs call under
-                                              #   torch.profiler, every number
+                                              #   torch.profiler and config 4's
+                                              #   disarm timer scan, every number
                                               #   written to F (JSON)
     python3 chip_smoke.py --hash-only         # only phase 2's lookup, insert,
                                               #   delete and probe cases: run it
@@ -62,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -93,6 +105,30 @@ TRANSITIONS_CONDITION_INCIDENT = 8
 MAPPING_PER_INSTANCE = 20
 MAPPING_PER_STOPPED = 8
 REBUILD_EVERY = 3
+# config 4 at run_device_config_c4's settings (bench.py:197-270, side_total
+# at bench.py:2381): 2^18 instances at wave 2^14; each wave CREATEs, the
+# even half's PUBLISH, then the tick 31 s later fires the odd half's 30 s
+# timer boundary. Records a correlated (even) and an expired (odd) instance
+# writes, its commands included, and the records of either up to its wait
+# on the receive task (the host oracle's counts: phase 3)
+INSTANCES_C4 = 1 << 18
+C4_BOUNDARY_MS = 30_000
+C4_TICK_MS = 31_000
+C4_WAVE_STRIDE_MS = 100_000
+C4_PER_CORRELATED = 27
+C4_PER_EXPIRED = 23
+C4_PER_WAITING = 12
+# config 4's three drives (CREATE, the even half's PUBLISH, the tick): the
+# records each writes per instance of the wave
+C4_PER_DRIVE = (C4_PER_WAITING, (C4_PER_CORRELATED - C4_PER_WAITING) / 2,
+                (C4_PER_EXPIRED - C4_PER_WAITING) / 2)
+# config 5 at run_config5_sweep's largest wave (bench.py:1468-1490): wave
+# 2^12, 8 waves, cap_factor 16; a cardinality-4 multi-instance sub-process
+WAVE_C5 = 1 << 12
+INSTANCES_C5 = 8 * WAVE_C5
+CAP_FACTOR_C5 = 16
+C5_CARDINALITY = 4
+TRANSITIONS_PER_INSTANCE_C5 = 70
 # the device functions of zeebe_tpu_torch/csrc, as the profiler names them
 OUR_KERNELS = ("gather_rows_kernel", "commit_pass_kernel", "scatter_accum_kernel",
                "hash_lookup_kernel", "hash_insert_kernel", "hash_delete_kernel")
@@ -317,6 +353,37 @@ def timer_model():
     )
 
 
+def config4_model():
+    """Config 4 (bench.py:282 ``_config4_model``, BASELINE.json configs[3]):
+    a receive task waiting on "paid" (correlation key $.oid) with an
+    interrupting 30 s timer boundary."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    return (
+        Bpmn.create_process("c4")
+        .start_event("start")
+        .receive_task("wait-pay", message_name="paid", correlation_key="$.oid")
+        .boundary_event("deadline", duration_ms=C4_BOUNDARY_MS)
+        .end_event("expired")
+        .move_to("wait-pay")
+        .end_event("done")
+        .done()
+    )
+
+
+def config5_model():
+    """Config 5 (bench.py:298 ``_config5_model``, BASELINE.json configs[4]):
+    a cardinality-4 multi-instance sub-process around a service task."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    builder = Bpmn.create_process("c5")
+    sub = builder.start_event("start").sub_process(
+        "each", multi_instance={"cardinality": C5_CARDINALITY}
+    )
+    sub.start_event("s").service_task("work", type="payment-service").end_event("e")
+    return sub.embedded_done().end_event("done").done()
+
+
 def mixed_order_values(n, seed=0):
     """(orderValue per instance, absent mask): 10 or 99 in turns drawn from
     ``seed``, absent in about one of eight — the default flow, the
@@ -391,21 +458,33 @@ def config_creates(meta, wave, num_vars, device, mixed=False):
     return b
 
 
-def config_setup(wave, device, model_fn=config1_model, mixed=False):
-    """Graph, meta, state, queue and a CREATE wave for config 1 (or, with
+def config_setup(wave, device, model_fn=config1_model, mixed=False, cap_factor=CAP_FACTOR):
+    """Graph, state, queue and a CREATE wave for config 1 (or, with
     ``model_fn`` another config's model, that config: the same settings)."""
     from zeebe_tpu_torch.tpu import drive
 
     graph, meta = config_graph(device, model_fn)
     num_vars = graph.num_vars
-    state = config_state(meta, CAP_FACTOR * wave, num_vars, device)
+    state = config_state(meta, cap_factor * wave, num_vars, device)
     queue = drive.make_queue(4 * wave * max(2, graph.emit_width), num_vars,
                              device=device)
     return graph, state, queue, config_creates(meta, wave, num_vars, device, mixed)
 
 
+def creates_wave(graph, creates, state, queue, wave, i, device):
+    """One wave of ``drive_config`` (``c4_wave``'s form): enqueue the
+    CREATEs and drive to quiescence with synthetic workers. Returns (state,
+    queue, [totals of the drive])."""
+    from zeebe_tpu_torch.tpu import drive
+
+    queue = drive.enqueue(queue, creates)
+    state, queue, t = drive.run_to_quiescence(graph, state, queue, 0, wave,
+                                              synthetic_workers=True)
+    return state, queue, [t]
+
+
 def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
-                 rebuild_every=REBUILD_EVERY, mixed=False):
+                 rebuild_every=REBUILD_EVERY, mixed=False, cap_factor=CAP_FACTOR):
     """Config 1 (or another) through the package's entry points: compile the
     graph, make the state and queue, then per wave enqueue CREATEs and
     drive to quiescence with synthetic workers; rebuild the lookup state
@@ -414,9 +493,9 @@ def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
     ``timed_from`` on)."""
     import torch
 
-    from zeebe_tpu_torch.tpu import drive, state as state_mod
+    from zeebe_tpu_torch.tpu import state as state_mod
 
-    graph, state, queue, creates = config_setup(wave, device, model_fn, mixed)
+    graph, state, queue, creates = config_setup(wave, device, model_fn, mixed, cap_factor)
     totals = {"processed": 0, "emitted": 0, "completed_roots": 0, "rounds": 0}
     t0 = None
     for i in range(waves):
@@ -424,10 +503,7 @@ def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
             if device != "cpu":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-        queue = drive.enqueue(queue, creates)
-        state, queue, t = drive.run_to_quiescence(
-            graph, state, queue, 0, wave, synthetic_workers=True,
-        )
+        state, queue, (t,) = creates_wave(graph, creates, state, queue, wave, i, device)
         for k in totals:
             totals[k] += t[k]
         if i % rebuild_every == 0:
@@ -438,31 +514,163 @@ def drive_config(waves, wave, device, timed_from=1, model_fn=config1_model,
     return state, totals, elapsed
 
 
-def profile_config(wave, warm_waves=2, model_fn=config1_model):
-    """One config-1 (or 3) wave at full width under torch.profiler, after
-    ``warm_waves`` unprofiled ones: wall time, summed device kernel time,
-    the device's idle share and the kernels that take the device time; and
-    the lookup-state rebuild after it, profiled alone: our kernels' device
-    time there (the six map inserts)."""
+def config5_drive(waves, wave, device, timed_from=1, rebuild_every=REBUILD_EVERY):
+    """Config 5 at ``run_config5_sweep``'s settings (cap_factor 16)."""
+    return drive_config(waves, wave, device, timed_from, config5_model, rebuild_every,
+                        cap_factor=CAP_FACTOR_C5)
+
+
+def c4_setup(wave, device):
+    """Graph, state, queue and meta at ``run_device_config_c4``'s settings:
+    state and job capacity 4 waves, timer and subscription capacity 2,
+    stored messages 1; the queue holds 8 waves times max(emit_width // 2, 1)."""
+    from zeebe_tpu_torch.tpu import drive, state as state_mod
+
+    graph, meta = config_graph(device, config4_model)
+    state = state_mod.make_state(
+        capacity=4 * wave, num_vars=graph.num_vars, job_capacity=4 * wave,
+        timer_capacity=2 * wave, msub_capacity=2 * wave, msg_capacity=wave,
+        device=device,
+    )
+    queue = drive.make_queue(8 * wave * max(graph.emit_width // 2, 1), graph.num_vars,
+                             device=device)
+    return graph, state, queue, meta
+
+
+def c4_creates(meta, wave, num_vars, device, base):
+    """``bench.stage_c4_creates``: CREATEs with numeric correlation keys
+    oid = base + i."""
+    import torch
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.tpu import batch as rb
+    from zeebe_tpu_torch.tpu.conditions import VT_NUM
+
+    b = rb.empty(wave, num_vars, device=device)
+    oid = meta.varspace.column("oid")
+    b.valid.fill_(True)
+    b.rtype.fill_(int(RecordType.COMMAND))
+    b.vtype.fill_(int(ValueType.WORKFLOW_INSTANCE))
+    b.intent.fill_(int(WI.CREATE))
+    b.wf.fill_(0)
+    b.v_vt[:, oid] = VT_NUM
+    b.v_num[:, oid] = base + torch.arange(wave, dtype=torch.float32, device=b.device)
+    return b
+
+
+def c4_publishes(meta, wave, num_vars, device, base):
+    """``bench.stage_c4_publishes``: PUBLISH "paid" {paid: true} for every
+    EVEN oid of the wave (prefix-compacted: the first half of the rows)."""
+    import numpy as np
+    import torch
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import MessageIntent as MI
+    from zeebe_tpu_torch.tpu import batch as rb
+    from zeebe_tpu_torch.tpu.conditions import VT_BOOL, VT_NUM
+
+    half = wave // 2
+    b = rb.empty(wave, num_vars, device=device)
+    paid = meta.varspace.column("paid")
+    worker = np.zeros((wave,), np.int32)
+    worker[:half] = (base + 2 * np.arange(half)).astype(np.float32).view(np.int32)
+    b.valid[:half] = True
+    b.rtype.fill_(int(RecordType.COMMAND))
+    b.vtype.fill_(int(ValueType.MESSAGE))
+    b.intent.fill_(int(MI.PUBLISH))
+    b.type_id.fill_(meta.interns.intern("paid"))
+    b.retries.fill_(int(VT_NUM))
+    b.worker.copy_(torch.from_numpy(worker))
+    b.v_vt[:half, paid] = VT_BOOL
+    b.v_num[:half, paid] = 1.0
+    return b
+
+
+def c4_wave(graph, meta, state, queue, wave, i, device):
+    """One wave of ``run_device_config_c4`` (at now = i * 100 s): CREATE
+    and drive; PUBLISH and drive; ``tick_kernel`` 31 s later, enqueue its
+    TRIGGERs, drive. Raises unless each drive processed the host oracle's
+    records per instance (``C4_PER_DRIVE``): the whole wave up to its wait,
+    then the correlated half, then the expired half. Returns (state, queue,
+    [totals of the three drives])."""
+    from zeebe_tpu_torch.tpu import drive, kernel
+
+    base, now = i * wave, i * C4_WAVE_STRIDE_MS
+    parts = []
+    for batch, at in ((c4_creates(meta, wave, graph.num_vars, device, base), now),
+                      (c4_publishes(meta, wave, graph.num_vars, device, base), now),
+                      (None, now + C4_TICK_MS)):
+        if batch is None:
+            batch, _count = kernel.tick_kernel(state, at)
+        queue = drive.enqueue(queue, batch)
+        state, queue, t = drive.run_to_quiescence(graph, state, queue, at, wave)
+        parts.append(t)
+    got = [t["processed"] for t in parts]
+    want = [int(n * wave) for n in C4_PER_DRIVE]
+    if got != want:
+        raise AssertionError(f"config 4 wave {i}: the CREATE, PUBLISH and tick drives "
+                             f"processed {got} records, the host oracle's {want}")
+    return state, queue, parts
+
+
+def c4_drive(waves, wave, device, timed_from=1, rebuild_every=REBUILD_EVERY):
+    """Config 4 through the package's entry points, ``waves`` waves of
+    ``c4_wave``; the lookup state rebuilt after the first wave and every
+    ``rebuild_every`` after it. Returns (state, totals, seconds of the waves
+    from ``timed_from`` on); the totals count the ticks too."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    graph, state, queue, meta = c4_setup(wave, device)
+    totals = {"processed": 0, "emitted": 0, "completed_roots": 0, "rounds": 0, "ticks": 0}
+    t0 = None
+    for i in range(waves):
+        if i == timed_from:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, queue, parts = c4_wave(graph, meta, state, queue, wave, i, device)
+        for t in parts:
+            for k in ("processed", "emitted", "completed_roots", "rounds"):
+                totals[k] += t[k]
+        totals["ticks"] += 1
+        if i % rebuild_every == 0:
+            state = state_mod.rebuild_lookup_state(state)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0 if t0 is not None else 0.0
+    return state, totals, elapsed
+
+
+def profile_config(wave, setup, one_wave, warm_waves=2):
+    """One full-width wave of a config under torch.profiler, after
+    ``warm_waves`` unprofiled ones: ``setup(wave, "cuda")`` gives (graph,
+    state, queue, the wave's inputs) and ``one_wave`` runs a wave of them
+    (``config_setup`` and ``creates_wave``, or ``c4_setup`` and
+    ``c4_wave``). Wall time, summed device kernel time, the device's idle
+    share, the kernels that take the device time and the wave's peak
+    device memory; and the lookup-state rebuild after it, profiled alone:
+    our kernels' device time there (the six map inserts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from zeebe_tpu_torch.tpu import drive, state as state_mod
+    from zeebe_tpu_torch.tpu import state as state_mod
 
-    graph, state, queue, creates = config_setup(wave, "cuda", model_fn)
-    for _ in range(warm_waves):
-        queue = drive.enqueue(queue, creates)
-        state, queue, _t = drive.run_to_quiescence(graph, state, queue, 0, wave,
-                                                   synthetic_workers=True)
+    graph, state, queue, inputs = setup(wave, "cuda")
+    for i in range(warm_waves):
+        state, queue, _parts = one_wave(graph, inputs, state, queue, wave, i, "cuda")
         state = state_mod.rebuild_lookup_state(state)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        queue = drive.enqueue(queue, creates)
-        state, queue, totals = drive.run_to_quiescence(graph, state, queue, 0, wave,
-                                                       synthetic_workers=True)
+        state, queue, parts = one_wave(graph, inputs, state, queue, wave, warm_waves,
+                                       "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
 
     # device-side events only: an operator's device time is also its kernels'
     events, dev_us = _device_events(prof)
@@ -478,8 +686,8 @@ def profile_config(wave, warm_waves=2, model_fn=config1_model):
         rwall = time.perf_counter() - t0
     revents, _ = _device_events(rprof)
     return {
-        "wave": wave, "rounds": totals["rounds"], "wall_ms": wall * 1e3,
-        "device_busy_ms": busy_ms,
+        "wave": wave, "rounds": sum(t["rounds"] for t in parts), "wall_ms": wall * 1e3,
+        "peak_bytes": peak, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
         "device_launches": sum(e.count for e in events),
         "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
@@ -491,6 +699,50 @@ def profile_config(wave, warm_waves=2, model_fn=config1_model):
                      for e in revents if any(k in e.key for k in OUR_KERNELS)],
         },
     }
+
+
+def profile_disarm_scan(wave):
+    """The boundary disarm's timer scan at config 4's width: ``wave``
+    instances wait on their receive task with a 30 s timer armed (2 waves
+    of timer capacity), and a step's worth of keys (every waiting
+    instance's) scans for its armed timers twice, as a step does (disarm
+    and TERMINATE_CATCH_EVENT). CUDA-event ms of the port's scan (a sort
+    and a binary search), and of the JAX kernel's dense [B, T] form in
+    PyTorch for comparison, with each one's peak device memory."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import drive, kernel
+
+    graph, state, queue, meta = c4_setup(wave, "cuda")
+    queue = drive.enqueue(queue, c4_creates(meta, wave, graph.num_vars, "cuda", 0))
+    state, queue, _t = drive.run_to_quiescence(graph, state, queue, 0, wave)
+    keys = state.timer_aik[state.timer_key >= 0][:wave].contiguous()
+    want = torch.ones_like(keys, dtype=torch.bool)
+    t_cap = state.timer_key.shape[0]
+    t_iota = torch.arange(t_cap, dtype=torch.int32, device="cuda")
+
+    def ours():
+        return kernel._armed_timer_slots(state, keys, [want, want], 1)
+
+    def dense():
+        out = []
+        for m in (want, want):
+            mask = (m[:, None] & (state.timer_key >= 0)[None, :]
+                    & (state.timer_aik[None, :] == keys[:, None]))
+            out.append(torch.where(mask, t_iota[None, :], t_cap).amin(dim=1))
+            del mask
+        return out
+
+    if [int((s[0] < t_cap).sum()) for s in ours()] != [wave, wave]:
+        raise AssertionError("disarm scan: not every waiting instance found its timer")
+    row = {"keys": wave, "timers": t_cap}
+    for name, fn in (("scan", ours), ("dense", dense)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        row[name + "_ms"] = time_ms(fn)
+        row[name + "_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    return row
 
 
 def _device_events(prof):
@@ -777,18 +1029,19 @@ def check_commit(dev, gen):
     }
 
 
-def _filled_map(dev, gen, keys):
-    """A map of 8 buckets a key (``state.make_state``'s element-instance and
-    job maps: 2^19 buckets for 2^16 rows) holding ``keys``, a fifth of them
-    deleted again."""
+def _filled_map(dev, gen, keys, t=None):
+    """A map of ``t`` buckets (by default 8 a key, as ``state.make_state``'s
+    element-instance and job maps: 2^19 buckets for 2^16 rows) holding
+    ``keys``, a fifth of them deleted again."""
     import torch
 
     from zeebe_tpu_torch.tpu import hashmap
 
     n = keys.shape[0]
-    t = 1
-    while t < 8 * n:
-        t *= 2
+    if t is None:
+        t = 1
+        while t < 8 * n:
+            t *= 2
     table, ok = hashmap.insert(
         hashmap.make(t, device=dev), keys, torch.arange(n, dtype=torch.int32, device=dev),
         torch.ones(n, dtype=torch.bool, device=dev),
@@ -809,10 +1062,12 @@ def check_lookup(dev, gen):
     3B = 3·2^14 keys: hits, misses, tombstones, invalid keys. And the main
     path's case: a config-1 step's two fallback probes (3B keys into the
     element-instance map, B into the job map), ~7.5 % of the keys valid in
-    one run, as one ``fused_lookup`` and as two ``lookup`` calls."""
+    one run, as one ``fused_lookup`` and as two ``lookup`` calls; and
+    config 4's five probes as one ``fused_lookup``."""
     import torch
 
-    from zeebe_tpu_torch.tpu import ops
+    from zeebe_tpu_torch.tpu import ops, state as state_mod
+    from zeebe_tpu_torch.tpu.conditions import VT_NUM
 
     n = CAP_FACTOR * WAVE
     b = WAVE
@@ -866,6 +1121,48 @@ def check_lookup(dev, gen):
 
     main["fused"] = {"device_us": device_us_calls([fused] * 101),
                      "host_us": host_us(fused), "launches": 1}
+
+    # config 4's step: the two fallbacks beside the timer, subscription and
+    # stored-message maps' probes, five probes of one launch, into maps of
+    # c4_setup's sizes (make_state: 4 buckets a row of the timer and
+    # subscription tables, 2 waves each, and of the stored messages', 1)
+    # holding what a wave leaves there: a timer and a subscription an
+    # instance, a message for half of them; the message maps keyed by
+    # correlation composites of the numeric key oid
+    c4_maps, c4_probes = [table, job], [ops.LookupOp(0, q_ei, v_ei),
+                                        ops.LookupOp(1, q_job, v_job)]
+    for rows, t_c4, composite in ((b, 8 * b, False), (b, 8 * b, True), (b // 2, 4 * b, True)):
+        held = torch.arange(rows, dtype=torch.int64, device=dev)
+        if composite:
+            held = state_mod.corr_composite(
+                torch.full((rows,), 3, dtype=torch.int32, device=dev),
+                torch.full((rows,), VT_NUM, dtype=torch.int32, device=dev),
+                held.to(torch.float32).view(torch.int32))
+        else:
+            held = held * 7 + 2
+        q_c4 = held[torch.randint(0, rows, (b,), generator=gen).to(dev)]
+        q_c4[::4] += 2**40  # absent: another message name, or a key ≥ 2^40
+        c4_probes.append(ops.LookupOp(len(c4_maps), q_c4,
+                                      (torch.rand((b,), generator=gen) < 0.5).to(dev)))
+        c4_maps.append(_filled_map(dev, gen, held, t=t_c4))
+    want = [r for op in c4_probes
+            for r in ops.lookup_reference(c4_maps[op.table], op.keys, op.valid)]
+    got = [r for pair in ops.fused_lookup(c4_maps, c4_probes) for r in pair]
+    torch.cuda.synchronize()
+    c4_err = max_abs_err(got, want)
+    if c4_err != 0.0:
+        raise AssertionError(f"fused_lookup (config 4's five probes) differs from its "
+                             f"plain version: {c4_err}")
+    fused_err = max(fused_err, c4_err)
+
+    def fused_c4():
+        return ops.fused_lookup(c4_maps, c4_probes)
+
+    main["fused_config4"] = {
+        "device_us": device_us_calls([fused_c4] * 101), "launches": 1,
+        "probes": [int(op.keys.shape[0]) for op in c4_probes],
+        "buckets": [int(m.keys.shape[0]) for m in c4_maps],
+    }
     main_bytes = _lookup_bytes(3 * b, v_ei) + _lookup_bytes(b, v_job)
     main["bound_us"] = main_bytes / HBM_BYTES_PER_S * 1e6
     main["shape"] = (f"{3 * b} + {b} keys, {int(v_ei.sum()) + int(v_job.sum())} valid "
@@ -1712,24 +2009,37 @@ CONFIG3_KERNELS = CONFIG1_KERNELS + (
     "masked_vec64_update", "delete",
 )
 TIMER_KERNELS = CONFIG1_KERNELS + ("delete",)
+CONFIG4_KERNELS = TIMER_KERNELS
+CONFIG5_KERNELS = CONFIG1_KERNELS
 PROBE_KERNELS = ("row_loop", "probe")
-# exact launches of a drive: per round of the step, and per lookup-state
-# rebuild (one insert for each of the six maps); config 2 runs config 1's
-# kernels (the condition programs are plain PyTorch). A step's fallback
-# probes are one fused lookup; config 3 adds the join path's two, and its
-# two row maxima are one fused accumulate
+# exact launches of a drive: per round of the step, per tick and per
+# lookup-state rebuild (one insert for each of the six maps); configs 2 and
+# 5 run config 1's kernels (the condition programs are plain PyTorch). A
+# step's fallback probes are one fused lookup; config 3 adds the join
+# path's two, and its two row maxima are one fused accumulate. Config 4's
+# round: the timer, subscription and stored-message maps' probes join the
+# fused lookup, and the boundary path's job-map probe (keys from a
+# gathered row) is a second lookup launch; one commit each for the
+# element-instance, job and timer tables and the two message stores; an
+# insert into each of the three maps; their deletes one fused delete. A
+# tick is one gather
 PER_ROUND = {
     "config1": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 1},
     "config3": {"fused_gather_rows": 8, "fused_table_commit": 2, "lookup": 3,
                 "masked_row_update": 3, "fused_accumulate": 1, "masked_lane_update": 2,
                 "masked_vec64_update": 2, "insert": 1, "delete": 1},
+    "config4": {"fused_gather_rows": 8, "fused_table_commit": 5, "lookup": 2,
+                "insert": 3, "delete": 1},
 }
-PER_ROUND["config2"] = PER_ROUND["config1"]
+PER_ROUND["config2"] = PER_ROUND["config5"] = PER_ROUND["config1"]
+PER_TICK = {"config4": {"fused_gather_rows": 1}}
 INSERTS_PER_REBUILD = 6
-# device launches of the table commits: a round's element-instance commit
-# is 3 (the token add's pass, the sets' claim and write passes), its job
-# commit 2; no commit of any path takes more than 3
-COMMIT_DEVICE_PER_ROUND = 5
+# device launches of the table commits a round: an element-instance commit
+# is 3 (the token adds' pass, the sets' claim and write passes), a commit of
+# sets only 2 (the job, timer and message-store commits); no commit of any
+# path takes more than 3
+COMMIT_DEVICE_PER_ROUND = {"config1": 5, "config2": 5, "config3": 5, "config4": 11,
+                           "config5": 5}
 COMMIT_DEVICE_MAX = 3
 
 
@@ -1763,18 +2073,19 @@ def commit_device_launches(label) -> dict:
     return {"calls": calls, "device": device, "all": dict(ops.DEVICE_LAUNCHES)}
 
 
-def drive_path(label, model_fn, instances, per_instance, path):
-    """One config at the benchmark's width on the card, the launch counters
-    zeroed just before and read just after: every instance completed,
-    ``per_instance`` records processed per instance, no overflow (the drive
-    loop raises on one), every kernel of ``path`` launched, and each
-    wrapper launched exactly as often as the rounds and rebuilds ask."""
+def drive_path(label, drive, instances, wave, per_instance, path):
+    """One config at the benchmark's width on the card through ``drive``
+    (``drive_config`` or a config's own), the launch counters zeroed just
+    before and read just after: every instance completed, ``per_instance``
+    records processed per instance, no overflow (the drive loop raises on
+    one), every kernel of ``path`` launched, and each wrapper launched
+    exactly as often as the rounds, ticks and rebuilds ask."""
     import torch
 
-    waves = instances // WAVE
+    waves = instances // wave
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    _state, totals, elapsed = drive_config(waves, WAVE, "cuda", model_fn=model_fn)
+    _state, totals, elapsed = drive(waves, wave, "cuda")
     launches = launch_counts()
     if totals["completed_roots"] != instances:
         raise AssertionError(f"completed {totals['completed_roots']} != {instances}")
@@ -1787,17 +2098,19 @@ def drive_path(label, model_fn, instances, per_instance, path):
     want = {k: 0 for k in launches}
     for k, n in PER_ROUND[label].items():
         want[k] = n * totals["rounds"]
+    for k, n in PER_TICK.get(label, {}).items():
+        want[k] += n * totals["ticks"]
     want["insert"] += INSERTS_PER_REBUILD * rebuilds
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want} "
                              f"({totals['rounds']} rounds, {rebuilds} rebuilds)")
     commits = commit_device_launches(label)
-    if commits["device"] != COMMIT_DEVICE_PER_ROUND * totals["rounds"]:
+    if commits["device"] != COMMIT_DEVICE_PER_ROUND[label] * totals["rounds"]:
         raise AssertionError(f"{label}: {commits['device']} commit launches in "
                              f"{totals['rounds']} rounds")
-    timed = (waves - 1) * WAVE * per_instance
+    timed = int((waves - 1) * wave * per_instance)
     return {
-        "waves": waves, "wave": WAVE, "instances": instances,
+        "waves": waves, "wave": wave, "instances": instances,
         "totals": totals, "timed_seconds": elapsed, "timed_transitions": timed,
         "transitions_per_sec": timed / elapsed if elapsed > 0 else float("nan"),
         "launches": launches, "commit_launches": commits,
@@ -1807,9 +2120,10 @@ def drive_path(label, model_fn, instances, per_instance, path):
 
 def parity(wave=1024, waves=3, model_fn=config1_model,
            per_instance=TRANSITIONS_PER_INSTANCE, rebuild_every=REBUILD_EVERY,
-           mixed=False, per_stopped=0):
-    """Drive a config on the card and on the CPU: bit-equal state and
-    totals, ``per_instance`` records per instance (``per_stopped`` for the
+           mixed=False, per_stopped=0, drive=None):
+    """Drive a config on the card and on the CPU (``drive_config`` with
+    ``model_fn``, or ``drive``): bit-equal state and totals,
+    ``per_instance`` records per instance (``per_stopped`` for the
     instances ``mixed`` leaves without orderValue)."""
     import numpy as np
 
@@ -1817,8 +2131,11 @@ def parity(wave=1024, waves=3, model_fn=config1_model,
 
     results = {}
     for device in ("cuda", "cpu"):
-        st, totals, _ = drive_config(waves, wave, device, model_fn=model_fn,
-                                     rebuild_every=rebuild_every, mixed=mixed)
+        if drive is None:
+            st, totals, _ = drive_config(waves, wave, device, model_fn=model_fn,
+                                         rebuild_every=rebuild_every, mixed=mixed)
+        else:
+            st, totals, _ = drive(waves, wave, device, rebuild_every=rebuild_every)
         results[device] = (state_mod.state_to_numpy(st), totals)
     (a, ta), (c, tc) = results["cuda"], results["cpu"]
     if ta != tc:
@@ -1828,11 +2145,37 @@ def parity(wave=1024, waves=3, model_fn=config1_model,
     if bad:
         raise AssertionError(f"state differs between cuda and cpu: {bad}")
     stopped = int(mixed_order_values(wave)[1].sum()) if mixed else 0
-    want = waves * (per_instance * (wave - stopped) + per_stopped * stopped)
+    want = int(waves * (per_instance * (wave - stopped) + per_stopped * stopped))
     if ta["processed"] != want or ta["completed_roots"] != waves * (wave - stopped):
         raise AssertionError(f"totals {ta}: processed != {want} or completed != "
                              f"{waves * (wave - stopped)}")
     return ta
+
+
+def parity_c4_wave(wave=WAVE):
+    """One config-4 wave at full width (``c4_wave`` at ``c4_setup``'s
+    capacities) on the card and on the CPU: the step's five-probe fused
+    lookup, the two message-store commits and the fused delete at the main
+    path's shapes, held to their plain versions through the state they
+    leave. Bit-equal state (the maps as the wave's deletes left them, before
+    any rebuild) and each drive's totals."""
+    import numpy as np
+
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        graph, st, queue, meta = c4_setup(wave, device)
+        st, _queue, parts = c4_wave(graph, meta, st, queue, wave, 0, device)
+        results[device] = (state_mod.state_to_numpy(st), parts)
+    (a, pa), (c, pc) = results["cuda"], results["cpu"]
+    if pa != pc:
+        raise AssertionError(f"config 4 wave: drive totals differ: cuda {pa} cpu {pc}")
+    bad = [k for k in a if a[k].dtype != c[k].dtype or a[k].shape != c[k].shape
+           or not np.array_equal(a[k], c[k])]
+    if bad:
+        raise AssertionError(f"config 4 wave: state differs between cuda and cpu: {bad}")
+    return pa
 
 
 def mixed_case(rng, capacity, size, num_vars=8):
@@ -2001,6 +2344,39 @@ def parity_timer_step():
     return stats
 
 
+def parity_tick(wave=1024):
+    """Phase 3's ``tick_kernel`` calls on the card and on the CPU from the
+    same numpy state: a config-4 state whose wave waits on its timers
+    (driven there on the CPU), at the tick 31 s later; and the mixed
+    step's state, whose activated jobs are past their deadlines. Equal
+    batches and counts, bit for bit."""
+    import numpy as np
+
+    from zeebe_tpu_torch.tpu import batch as rb, drive, kernel, state as state_mod
+
+    graph, state, queue, meta = c4_setup(wave, "cpu")
+    queue = drive.enqueue(queue, c4_creates(meta, wave, graph.num_vars, "cpu", 0))
+    state, queue, _t = drive.run_to_quiescence(graph, state, queue, 0, wave)
+    jobs_st, _cols = mixed_case(np.random.default_rng(7), 8192, 64)
+    counts = {}
+    for label, st, now in (("timers", state_mod.state_to_numpy(state), C4_TICK_MS),
+                           ("jobs", jobs_st, 5_000)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            batch, count = kernel.tick_kernel(state_mod.state_from_numpy(st, device=device),
+                                              now)
+            out[device] = (rb.batch_to_numpy(batch), int(count))
+        (a, ca), (c, cc) = out["cuda"], out["cpu"]
+        bad = [k for k in a if not np.array_equal(a[k].view(np.uint8), c[k].view(np.uint8))]
+        if bad or ca != cc or ca <= 0:
+            raise AssertionError(f"tick ({label}) differs between cuda and cpu: {bad} "
+                                 f"{ca} {cc}")
+        counts[label] = ca
+    if counts["timers"] != wave:
+        raise AssertionError(f"tick: {counts['timers']} due timers, {wave} expected")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the serving path — client → Broker log → CudaPartitionEngine →
 # job pushed to a worker → completion → log
@@ -2015,15 +2391,18 @@ SERVE_CREDITS = 256
 SERVE_CAPACITY = 4096
 SERVE_INSTANCES = 2048
 SERVE_INSTANCES_C3 = SERVE_INSTANCES // 4
-# config 2 and the timer workflow at the same quarter
+# config 2, the timer workflow and configs 4 and 5 at the same quarter
 SERVE_INSTANCES_C2 = SERVE_INSTANCES // 4
 SERVE_INSTANCES_TIMER = SERVE_INSTANCES // 4
+SERVE_INSTANCES_C4 = SERVE_INSTANCES // 4
+SERVE_INSTANCES_C5 = SERVE_INSTANCES // 4
 # signature records per served timer instance
 SIGNATURE_PER_TIMER_INSTANCE = 29
 # the wrappers a served wave of each config must launch; the boot
 # self-check's own
 SERVING_KERNELS = {"config1": CONFIG1_KERNELS, "config2": CONFIG1_KERNELS,
-                   "config3": CONFIG3_KERNELS, "timers": TIMER_KERNELS}
+                   "config3": CONFIG3_KERNELS, "timers": TIMER_KERNELS,
+                   "config4": CONFIG4_KERNELS, "config5": CONFIG5_KERNELS}
 SELFCHECK_KERNELS = ("insert", "lookup", "delete", "masked_row_update",
                      "masked_lane_update", "masked_lane_accum")
 
@@ -2062,21 +2441,81 @@ def order_payload(i):
     return {"orderId": i, "orderValue": 99}
 
 
+def c4_payload(i):
+    """Config 4's CREATE payload: the numeric correlation key oid."""
+    return {"oid": i}
+
+
+def c4_publisher(step):
+    """A ``serve`` hook: a burst of PUBLISH "paid" {paid: true} commands, one
+    for every ``step``-th instance from the first, written to the log at
+    once as the CREATEs are (the others expire through the timer
+    boundary)."""
+    from zeebe_tpu_torch.protocol.intents import MessageIntent
+    from zeebe_tpu_torch.protocol.records import MessageRecord
+
+    def publish(client, instances):
+        for i in range(0, instances, step):
+            client.broker.write_command(0, MessageRecord(
+                name="paid", correlation_key=str(i), time_to_live=0,
+                payload={"paid": True},
+            ), MessageIntent.PUBLISH)
+
+    return publish
+
+
+def oracle_records_per_instance(model_fn, instances=4, **scenario):
+    """Signature records the port's host oracle writes per instance of a
+    ``serve`` scenario (a credit for every job), in a data directory of its
+    own under ``build/``."""
+    import shutil
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="oracle-", dir=root)
+    try:
+        _engine, records, _wall, _ticks = serve(model_fn, instances, "oracle", workdir,
+                                                credits=16 * instances, **scenario)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return len(record_signature(records)) / instances
+
+
+def oracle_counts():
+    """Records a correlated and an expired config-4 instance, a config-4
+    instance up to its wait on the receive task (neither published to nor
+    timed out) and a config-5 instance write on the port's host oracle: the
+    counts the drives of phases 3, 5c and 5d and the served runs of 6a are
+    held to."""
+    c4 = dict(payload=c4_payload, advance_ms=C4_TICK_MS)
+    return {
+        "config4_correlated": oracle_records_per_instance(
+            config4_model, after_create=c4_publisher(1), **c4),
+        "config4_expired": oracle_records_per_instance(config4_model, **c4),
+        "config4_waiting": oracle_records_per_instance(config4_model, payload=c4_payload),
+        "config5": oracle_records_per_instance(config5_model),
+    }
+
+
 def alternating_payload(i):
     """orderValue 99 and 10 in turns: config 2's two branches."""
     return {"orderId": i, "orderValue": (99, 10)[i % 2]}
 
 
 def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
-          capacity=SERVE_CAPACITY, payload=order_payload, advance_ms=0):
+          capacity=SERVE_CAPACITY, payload=order_payload, advance_ms=0,
+          after_create=None, marks=None):
     """Serve ``instances`` instances of one config through the port's
     in-process Broker on ``device`` ("cuda", "cpu", or "oracle": the port's
     copy of the host oracle engine instead of CudaPartitionEngine): deploy
     through the client, one job worker, a burst of CREATE commands written
-    to the log at once, one drain, the clock moved on by ``advance_ms``,
-    then ticks (each drains) until a tick adds no record. Closes the broker
-    and returns its engine, its log, the wall seconds from the first CREATE
-    to the last record, and the number of ticks."""
+    to the log at once, one drain, ``after_create(client, instances)`` and
+    a drain, the clock moved on by ``advance_ms``, then ticks (each drains)
+    until a tick adds no record; ``marks``, a list, gets the log's next
+    position after the CREATEs' drain and after ``after_create``'s. Closes
+    the broker and returns its engine, its log, the wall seconds from the
+    first CREATE to the last record, and the number of ticks."""
     import tempfile
 
     import torch
@@ -2102,7 +2541,8 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
     )
     engine = broker.partitions[0].engine
     model = model_fn()
-    ZeebeClient(broker).deploy_model(model)
+    client = ZeebeClient(broker)
+    client.deploy_model(model)
     JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
               credits=credits)
     process_id = model.processes[0].id
@@ -2115,6 +2555,12 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
             bpmn_process_id=process_id, payload=payload(i),
         ), WI.CREATE)
     broker.run_until_idle()
+    marks = [] if marks is None else marks
+    marks.append(log_.next_position)
+    if after_create is not None:
+        after_create(client, instances)
+        broker.run_until_idle()
+    marks.append(log_.next_position)
     clock.advance(advance_ms)
     ticks = 0
     while True:
@@ -2133,9 +2579,12 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
 
 
 def serve_checked(label, model_fn, instances, per_instance, workdir,
-                  payload=order_payload, advance_ms=0):
+                  payload=order_payload, advance_ms=0, after_create=None):
     """Phase 6a for one config on the card, the launch counters zeroed
-    just before and read just after."""
+    just before and read just after. ``per_instance`` is the signature
+    records per instance, or a tuple of them for each stage of ``serve``
+    (the CREATEs' drain, ``after_create``'s, the ticks') to hold each
+    stage's records to."""
     import torch
 
     from zeebe_tpu_torch.protocol.enums import ValueType
@@ -2143,11 +2592,21 @@ def serve_checked(label, model_fn, instances, per_instance, workdir,
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    marks = []
     engine, records, wall, ticks = serve(model_fn, instances, "cuda", workdir,
-                                         payload=payload, advance_ms=advance_ms)
+                                         payload=payload, advance_ms=advance_ms,
+                                         after_create=after_create, marks=marks)
     launches = launch_counts()
     commits = commit_device_launches(label)
     sig = record_signature(records)
+    if isinstance(per_instance, tuple):
+        bounds = [0, *marks, float("inf")]
+        got = [sum(1 for r in sig if lo <= r[0] < hi)
+               for lo, hi in zip(bounds, bounds[1:])]
+        want = [int(n * instances) for n in per_instance]
+        if got != want:
+            raise AssertionError(f"{label}: signature records by stage {got} != {want}")
+        per_instance = sum(per_instance)
     completed = sum(
         1 for r in records
         if int(r.metadata.value_type) == int(ValueType.WORKFLOW_INSTANCE)
@@ -2156,12 +2615,14 @@ def serve_checked(label, model_fn, instances, per_instance, workdir,
     )
     if completed != instances:
         raise AssertionError(f"{label}: {completed} of {instances} processes completed")
-    if len(sig) != per_instance * instances:
+    if len(sig) != int(per_instance * instances):
         raise AssertionError(
             f"{label}: {len(sig)} signature records != {per_instance} x {instances}")
     if engine.host_only_reasons:
         raise AssertionError(f"{label}: workflows served host-side: "
                              f"{engine.host_only_reasons}")
+    if engine.graph.has_messages and not engine._messages_on_device:
+        raise AssertionError(f"{label}: the message store is host-side")
     if engine._host.element_instances.instances:
         raise AssertionError(f"{label}: instances left in the embedded oracle")
     if engine.host_records_processed > len(records) - len(sig):
@@ -2190,24 +2651,28 @@ def _same_log(label, a, b, what):
 
 
 def serve_parity_with_oracle(label, model_fn, cuda_sig, instances, workdir,
-                             payload=order_payload, advance_ms=0):
+                             payload=order_payload, advance_ms=0, after_create=None,
+                             jobs_per_instance=1):
     """Phase 6b for a served run of 6a: the same scenario on the CPU writes
-    the card's log signature; and with credits for every instance, the card
-    and the port's host oracle write the same log. (In a credit drought the
-    JAX engine, which the port follows, and the oracle re-assign stranded
-    jobs in another order: ROADMAP's note on the reference.)"""
-    out = {"instances": instances, "signature_records": len(cuda_sig)}
+    the card's log signature; and with credits for every job of every
+    instance, the card and the port's host oracle write the same log. (In a
+    credit drought the JAX engine, which the port follows, and the oracle
+    re-assign stranded jobs in another order: ROADMAP's note on the
+    reference.)"""
+    credits = instances * jobs_per_instance
+    out = {"instances": instances, "signature_records": len(cuda_sig), "credits": credits}
     _engine, records, out["cpu_seconds"], _ticks = serve(
-        model_fn, instances, "cpu", workdir, payload=payload, advance_ms=advance_ms)
+        model_fn, instances, "cpu", workdir, payload=payload, advance_ms=advance_ms,
+        after_create=after_create)
     _same_log(label, cuda_sig, record_signature(records), "cuda and cpu logs")
     sigs = {}
     for device in ("cuda", "oracle"):
         _engine, records, out[device + "_full_credit_seconds"], _ticks = serve(
-            model_fn, instances, device, workdir, credits=instances, payload=payload,
-            advance_ms=advance_ms)
+            model_fn, instances, device, workdir, credits=credits, payload=payload,
+            advance_ms=advance_ms, after_create=after_create)
         sigs[device] = record_signature(records)
     _same_log(label, sigs["cuda"], sigs["oracle"],
-              f"cuda and oracle logs at {instances} credits")
+              f"cuda and oracle logs at {credits} credits")
     out["full_credit_signature_records"] = len(sigs["cuda"])
     return out
 
@@ -2356,21 +2821,57 @@ def main(argv) -> int:
     log(f"[3] one timer step (CREATE, TRIGGER found / unknown, duplicate "
         f"CANCELs), B=4096 with 200 live timers: cuda == cpu, bit-equal "
         f"state, emissions and stats {tstats}")
+    counts = oracle_counts()
+    want = {"config4_correlated": C4_PER_CORRELATED, "config4_expired": C4_PER_EXPIRED,
+            "config4_waiting": C4_PER_WAITING, "config5": TRANSITIONS_PER_INSTANCE_C5}
+    if counts != want:
+        raise AssertionError(f"the host oracle's records per instance {counts} != {want}")
+    log(f"[3] the port's host oracle: {counts} records per instance (a correlated and an "
+        f"expired config-4 instance, one up to its wait, a config-5 instance)")
+    report["oracle_counts"] = counts
+    t0 = time.perf_counter()
+    ptot4 = parity(drive=c4_drive, per_instance=(C4_PER_CORRELATED + C4_PER_EXPIRED) / 2)
+    log(f"[3] config 4, 3 waves x 1024 (CREATE, PUBLISH for the even half, the "
+        f"tick 31 s later): cuda == cpu, bit-equal state and totals {ptot4} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["parity_totals_config4"] = ptot4
+    t0 = time.perf_counter()
+    pwave4 = parity_c4_wave()
+    log(f"[3] config 4, one wave of {WAVE} at capacity {4 * WAVE} (the main path's "
+        f"launch shapes): cuda == cpu, bit-equal state before any rebuild and the "
+        f"CREATE / PUBLISH / tick drives' totals {pwave4} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["parity_wave_config4"] = pwave4
+    t0 = time.perf_counter()
+    ptot5 = parity(drive=config5_drive, per_instance=TRANSITIONS_PER_INSTANCE_C5)
+    log(f"[3] config 5, 3 waves x 1024 at capacity {CAP_FACTOR_C5 * 1024}: cuda == "
+        f"cpu, bit-equal state and totals {ptot5} ({time.perf_counter() - t0:.1f} s)")
+    report["parity_totals_config5"] = ptot5
+    ticks = parity_tick()
+    log(f"[3] tick_kernel on a config-4 state (1024 due timers) and on the mixed "
+        f"step's state (due jobs): cuda == cpu, bit-equal batches, due {ticks}")
+    report["parity_tick"] = ticks
 
     by_path = {}
-    for phase, label, model_fn, instances, per_instance, path in (
-        ("4", "config1", config1_model, INSTANCES, TRANSITIONS_PER_INSTANCE,
-         CONFIG1_KERNELS),
-        ("5", "config3", config3_model, INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3,
+    for phase, label, drive, instances, wave, capacity, per_instance, path in (
+        ("4", "config1", functools.partial(drive_config, model_fn=config1_model),
+         INSTANCES, WAVE, CAP_FACTOR * WAVE, TRANSITIONS_PER_INSTANCE, CONFIG1_KERNELS),
+        ("5", "config3", functools.partial(drive_config, model_fn=config3_model),
+         INSTANCES_C3, WAVE, CAP_FACTOR * WAVE, TRANSITIONS_PER_INSTANCE_C3,
          CONFIG3_KERNELS),
-        ("5b", "config2", config2_model, INSTANCES_C2, TRANSITIONS_PER_INSTANCE_C2,
+        ("5b", "config2", functools.partial(drive_config, model_fn=config2_model),
+         INSTANCES_C2, WAVE, CAP_FACTOR * WAVE, TRANSITIONS_PER_INSTANCE_C2,
          CONFIG1_KERNELS),
+        ("5c", "config4", c4_drive, INSTANCES_C4, WAVE, 4 * WAVE,
+         (C4_PER_CORRELATED + C4_PER_EXPIRED) / 2, CONFIG4_KERNELS),
+        ("5d", "config5", config5_drive, INSTANCES_C5, WAVE_C5, CAP_FACTOR_C5 * WAVE_C5,
+         TRANSITIONS_PER_INSTANCE_C5, CONFIG5_KERNELS),
     ):
-        run = drive_path(label, model_fn, instances, per_instance, path)
+        run = drive_path(label, drive, instances, wave, per_instance, path)
         report[label] = run
         by_path[label] = run["launches"]
-        log(f"[{phase}] {label}: {instances} instances, wave {WAVE}, capacity "
-            f"{CAP_FACTOR * WAVE}: processed {run['totals']['processed']}, completed "
+        log(f"[{phase}] {label}: {instances} instances, wave {wave}, capacity "
+            f"{capacity}: processed {run['totals']['processed']}, completed "
             f"{run['totals']['completed_roots']}, rounds {run['totals']['rounds']}, "
             f"no overflow, exact launches per round; "
             f"{run['transitions_per_sec']:.1f} transitions/s over the "
@@ -2378,7 +2879,9 @@ def main(argv) -> int:
             f"launches {run['launches']}; table-commit device launches "
             f"{run['commit_launches']['device']} for {run['commit_launches']['calls']} "
             f"commits ({run['commit_launches']['device'] / run['totals']['rounds']:.0f} "
-            f"a round); device launches {run['commit_launches']['all']}")
+            f"a round); device launches {run['commit_launches']['all']}; "
+            f"ticks {run['totals'].get('ticks', 0)}; peak memory "
+            f"{run['peak_bytes'] / 2**20:.1f} MiB")
     # phase 6: the serving path. The first engine built in this process
     # runs the boot self-check inside its constructor
     import shutil
@@ -2406,19 +2909,25 @@ def main(argv) -> int:
             f"{boot_s:.3f} s; launches {by_path['selfcheck']}; device launches "
             f"{boot_commits['all']}")
         served = {}
-        for label, model_fn, instances, per_instance, payload, advance_ms in (
+        for label, model_fn, instances, per_instance, payload, advance_ms, after_create in (
             ("config1", config1_model, SERVE_INSTANCES, TRANSITIONS_PER_INSTANCE,
-             order_payload, 0),
+             order_payload, 0, None),
             ("config3", config3_model, SERVE_INSTANCES_C3, TRANSITIONS_PER_INSTANCE_C3,
-             order_payload, 0),
+             order_payload, 0, None),
             ("config2", config2_model, SERVE_INSTANCES_C2, TRANSITIONS_PER_INSTANCE_C2,
-             alternating_payload, 0),
+             alternating_payload, 0, None),
             ("timers", timer_model, SERVE_INSTANCES_TIMER, SIGNATURE_PER_TIMER_INSTANCE,
-             order_payload, 2 * TIMER_MS),
+             order_payload, 2 * TIMER_MS, None),
+            ("config4", config4_model, SERVE_INSTANCES_C4, C4_PER_DRIVE, c4_payload,
+             C4_TICK_MS, c4_publisher(2)),
+            ("config5", config5_model, SERVE_INSTANCES_C5, TRANSITIONS_PER_INSTANCE_C5,
+             order_payload, 0, None),
         ):
             run = serve_checked(label, model_fn, instances, per_instance, workdir,
-                                payload=payload, advance_ms=advance_ms)
-            served[label] = (model_fn, payload, advance_ms, run.pop("signature"))
+                                payload=payload, advance_ms=advance_ms,
+                                after_create=after_create)
+            served[label] = (model_fn, payload, advance_ms, after_create,
+                             run.pop("signature"))
             report["serving_" + label] = run
             by_path["serving_" + label] = run["launches"]
             log(f"[6a] {label} served through the Broker: {instances} instances, "
@@ -2437,15 +2946,17 @@ def main(argv) -> int:
             f"(a credit drought): cuda == cpu, equal log signatures "
             f"({par['signature_records']} records; cuda {par['cuda_seconds']:.3f} s, "
             f"cpu {par['cpu_seconds']:.3f} s)")
-        for label in ("config2", "timers"):
-            model_fn, payload, advance_ms, sig = served[label]
+        for label, jobs in (("config2", 1), ("timers", 1), ("config4", 1),
+                            ("config5", C5_CARDINALITY)):
+            model_fn, payload, advance_ms, after_create, sig = served[label]
             par = serve_parity_with_oracle(
                 label, model_fn, sig, report["serving_" + label]["instances"],
-                workdir, payload=payload, advance_ms=advance_ms)
+                workdir, payload=payload, advance_ms=advance_ms,
+                after_create=after_create, jobs_per_instance=jobs)
             report["serving_parity_" + label] = par
             log(f"[6b] {label}, {par['instances']} instances: the card's log "
                 f"signature ({par['signature_records']} records) equal on cpu "
-                f"({par['cpu_seconds']:.3f} s); with {par['instances']} credits the "
+                f"({par['cpu_seconds']:.3f} s); with {par['credits']} credits the "
                 f"card's ({par['cuda_full_credit_seconds']:.3f} s) equal to the "
                 f"port's host oracle's ({par['oracle_full_credit_seconds']:.3f} s, "
                 f"{par['full_credit_signature_records']} records)")
@@ -2481,15 +2992,24 @@ def main(argv) -> int:
         ev = report["profile_eval_programs"]
         log(f"[p] eval_programs, one call at B={WAVE}: {ev['ms']:.4f} ms, device "
             f"{ev['device_ms']:.4f} ms in {ev['device_launches']} device ops")
-        for label, name, model_fn in (("profile", "config 1", config1_model),
-                                      ("profile_config3", "config 3", config3_model),
-                                      ("profile_config2", "config 2", config2_model)):
-            prof = profile_config(WAVE, model_fn=model_fn)
+        for label, name, setup, one_wave, wave in (
+            ("profile", "config 1", config_setup, creates_wave, WAVE),
+            ("profile_config3", "config 3",
+             functools.partial(config_setup, model_fn=config3_model), creates_wave, WAVE),
+            ("profile_config2", "config 2",
+             functools.partial(config_setup, model_fn=config2_model), creates_wave, WAVE),
+            ("profile_config4", "config 4", c4_setup, c4_wave, WAVE),
+            ("profile_config5", "config 5",
+             functools.partial(config_setup, model_fn=config5_model,
+                               cap_factor=CAP_FACTOR_C5), creates_wave, WAVE_C5),
+        ):
+            prof = profile_config(wave, setup, one_wave)
             report[label] = prof
-            log(f"[p] {name}, one wave of {WAVE}: {prof['rounds']} "
+            log(f"[p] {name}, one wave of {wave}: {prof['rounds']} "
                 f"rounds, wall {prof['wall_ms']:.1f} ms, device busy "
                 f"{prof['device_busy_ms']:.1f} ms (idle share "
-                f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops")
+                f"{prof['device_idle_share']:.3f}), {prof['device_launches']} device ops, "
+                f"peak memory {prof['peak_bytes'] / 2**20:.1f} MiB")
             for row in prof["top"]:
                 log(f"    {row['device_ms']:9.3f} ms {row['count']:6d}x {row['name']}")
             reb = prof["rebuild"]
@@ -2497,8 +3017,14 @@ def main(argv) -> int:
                 f"{reb['wall_ms']:.3f} ms, device busy {reb['device_busy_ms']:.3f} ms; ours "
                 + "; ".join(f"{r['count']}x {r['name']} {r['device_ms']:.4f} ms"
                             for r in reb["ours"]))
-    # launches: the sum over the main-path runs (phases 4, 5 and 5b, 6: the
-    # boot self-check and the four served runs, and 7: the probe), each
+        scan = profile_disarm_scan(WAVE)
+        report["profile_disarm_scan"] = scan
+        log(f"[p] config 4's disarm timer scan, {scan['keys']} keys over {scan['timers']} "
+            f"timers, twice: {scan['scan_ms']:.4f} ms (peak +"
+            f"{scan['scan_peak_extra_bytes'] / 2**20:.1f} MiB); the dense [B, T] form "
+            f"{scan['dense_ms']:.4f} ms (peak +{scan['dense_peak_extra_bytes'] / 2**20:.1f} MiB)")
+    # launches: the sum over the main-path runs (phases 4 to 5d, 6: the boot
+    # self-check and the six served runs, and 7: the probe), each
     # run's own count beside it; masked_row_add and masked_row_max, which
     # no path calls (config 3's maxima are one fused_accumulate), stay at 0
     for row in kernels:

@@ -12,7 +12,6 @@ import dataclasses
 
 import jax
 import numpy as np
-import pytest
 
 import bench
 from test_torch_drive import _subscribed
@@ -21,9 +20,7 @@ from test_torch_kernel import port_batch, port_graph
 from zeebe_tpu.models.transform.steps import BpmnStep
 from zeebe_tpu.tpu import batch as jb, drive as jd, state as js
 from zeebe_tpu.tpu import graph as jg
-from zeebe_tpu_torch.models.bpmn.builder import Bpmn
-from zeebe_tpu_torch.models.transform.transformer import transform_model
-from zeebe_tpu_torch.tpu import batch as tb, drive as td, graph as tg, kernel as tk
+from zeebe_tpu_torch.tpu import batch as tb, drive as td, graph as tg
 from zeebe_tpu_torch.tpu import ops, state as ts
 
 NUM_VARS = 8
@@ -152,18 +149,3 @@ def test_run_to_quiescence_config3_three_waves():
             _assert_leaf(name, got[name], want[name])
     assert int(tq.count) == 0 and not bool(tq.overflow)
     assert sum(ops.LAUNCHES.values()) == 0
-
-
-def test_other_gates_still_raise():
-    """A gate the port does not run yet (here a message catch event:
-    has_messages) raises, naming it."""
-    model = (
-        Bpmn.create_process("msg").start_event("start")
-        .message_catch_event("wait", message_name="go", correlation_key="$.key")
-        .end_event("end").done()
-    )
-    graph, _meta = tg.compile_graph(transform_model(model), device="cpu")
-    assert graph.gates_on() == ["has_messages"]
-    state = ts.make_state(capacity=64, num_vars=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="has_messages"):
-        tk.step_kernel(graph, state, tb.empty(8, 8, device="cpu"), 0)

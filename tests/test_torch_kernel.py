@@ -18,8 +18,6 @@ import torch
 import __graft_entry__ as graft
 import chip_smoke
 from zeebe_tpu.tpu import batch as jb, kernel as jk, state as js
-from zeebe_tpu_torch.models.bpmn.builder import Bpmn
-from zeebe_tpu_torch.models.transform.transformer import transform_model
 from zeebe_tpu_torch.protocol.enums import RecordType
 from zeebe_tpu_torch.tpu import batch as tb, graph as tg, kernel as tk
 from zeebe_tpu_torch.tpu import state as ts
@@ -146,18 +144,3 @@ def test_step_mixed_commands_and_events(capacity, size, synthetic):
     assert_step_equal(j_out, t_out)
     rej = t_out[1].rtype[t_out[1].valid] == int(RecordType.COMMAND_REJECTION)
     assert int(rej.sum()) > 0 and int(t_out[2]["emitted"]) > size // 4
-
-
-def test_gated_graph_raises_naming_the_gate():
-    """A gate the port does not run yet (here a message catch event:
-    has_messages) raises, naming it."""
-    model = (
-        Bpmn.create_process("msg").start_event("start")
-        .message_catch_event("wait", message_name="go", correlation_key="$.key")
-        .end_event("end").done()
-    )
-    graph, _meta = tg.compile_graph(transform_model(model), device="cpu")
-    assert graph.gates_on() == ["has_messages"]
-    state = ts.make_state(capacity=64, num_vars=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="has_messages"):
-        tk.step_kernel(graph, state, tb.empty(8, 8, device="cpu"), 0)

@@ -19,9 +19,15 @@ import zeebe_tpu.runtime as jax_runtime
 from zeebe_tpu.models.bpmn.builder import Bpmn
 from zeebe_tpu.models.bpmn.xml import write_model
 from test_tpu_parity import (
+    boundary_message_process,
+    boundary_timer_process,
+    catch_event_process,
+    dual_boundary_process,
     fork_join_process,
     gateway_process,
+    mi_cardinality_process,
     order_process,
+    receive_task_process,
     record_signature,
 )
 
@@ -266,6 +272,221 @@ def input_mapping_error_incident(ns, broker, client, clock):
     client.create_instance("mapped-err", payload={"total": 99})
 
 
+# -- TestMessageCorrelationParity: the message store on the device --------
+
+
+def message_open_then_publish(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.create_instance("msgflow", {"oid": "o-7"})
+    broker.run_until_idle()
+    client.publish_message("paid", "o-7", {"paid": True})
+
+
+def message_publish_before_open_with_ttl(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.publish_message("paid", "o-1", {"amount": 5}, time_to_live_ms=60_000)
+    broker.run_until_idle()
+    client.create_instance("msgflow", {"oid": "o-1"})
+
+
+def message_publish_without_ttl_does_not_store(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.publish_message("paid", "o-2", {"x": 1})  # no subscriber
+    broker.run_until_idle()
+    client.create_instance("msgflow", {"oid": "o-2"})
+    broker.run_until_idle()
+    client.publish_message("paid", "o-2", {"x": 2})  # now it correlates
+
+
+def message_ttl_expiry_deletes_stored_message(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.publish_message("paid", "late", {"v": 1}, time_to_live_ms=5_000)
+    broker.run_until_idle()
+    clock.advance(6_000)
+    broker.tick()
+    broker.run_until_idle()
+    client.create_instance("msgflow", {"oid": "late"})  # waits: expired
+
+
+def message_catch_event_with_downstream_task(ns, broker, client, clock):
+    ns.deploy(client, catch_event_process())
+    ns.JobWorker(broker, "post-service", lambda ctx: {"done": 1})
+    client.create_instance("catchflow", {"key": "k-1"})
+    broker.run_until_idle()
+    client.publish_message("go", "k-1", {"approved": True})
+
+
+def message_numeric_correlation_key(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.create_instance("msgflow", {"oid": 42})
+    broker.run_until_idle()
+    client.publish_message("paid", "42", {"ok": True})
+
+
+def message_string_correlation_keys(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.create_instance("msgflow", {"oid": "a"})
+    client.create_instance("msgflow", {"oid": "b"})
+    broker.run_until_idle()
+    client.publish_message("paid", "b", {"who": "b"})
+    broker.run_until_idle()
+    client.publish_message("paid", "a", {"who": "a"})
+
+
+def message_duplicate_id_rejected(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.publish_message("paid", "dup", {"n": 1}, time_to_live_ms=60_000,
+                           message_id="m-1")
+    broker.run_until_idle()
+    try:
+        client.publish_message("paid", "dup", {"n": 2}, time_to_live_ms=60_000,
+                               message_id="m-1")
+    except ns.ClientException:
+        pass
+
+
+def message_cancel_closes_subscription(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    inst = client.create_instance("msgflow", {"oid": "c-1"})
+    broker.run_until_idle()
+    client.cancel_instance(inst.workflow_instance_key)
+    broker.run_until_idle()
+    client.publish_message("paid", "c-1", {"late": 1}, time_to_live_ms=9_000)
+
+
+def message_correlation_key_missing_incident(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.create_instance("msgflow", {"other": 1})
+
+
+def message_float_correlation_key_incident(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.create_instance("msgflow", {"oid": 1.5})
+
+
+def message_bool_correlation_key_subscribes(ns, broker, client, clock):
+    ns.deploy(client, receive_task_process())
+    client.create_instance("msgflow", {"oid": True})
+    broker.run_until_idle()
+    client.publish_message("paid", "True", {"ok": 1})
+
+
+# -- TestBoundaryEventParity, TestDualBoundaryParity and the host engine's
+# boundary tests (tests/test_boundary_multi_instance.py) ------------------
+
+
+def _timer_boundary(ns, broker, client, clock, interrupting, worker):
+    ns.deploy(client, boundary_timer_process(interrupting=interrupting))
+    ns.JobWorker(broker, "esc-service", lambda ctx: {})
+    if worker:
+        ns.JobWorker(broker, "slow-service", lambda ctx: {"done": True})
+    client.create_instance("bdflow", {"orderId": 1})
+    broker.run_until_idle()
+    clock.advance(31_000)
+    broker.tick()
+    broker.run_until_idle()
+
+
+def boundary_interrupting_timer_fires(ns, broker, client, clock):
+    # no slow-service worker: the job stays out, the timer wins and the
+    # host's job is canceled
+    _timer_boundary(ns, broker, client, clock, True, False)
+
+
+def boundary_interrupting_timer_beaten_by_completion(ns, broker, client, clock):
+    _timer_boundary(ns, broker, client, clock, True, True)
+
+
+def boundary_non_interrupting_timer_host_continues(ns, broker, client, clock):
+    _timer_boundary(ns, broker, client, clock, False, False)
+    # the host task is still live: completing it now ends the instance
+    ns.JobWorker(broker, "slow-service", lambda ctx: {"late": True})
+
+
+def boundary_interrupting_message(ns, broker, client, clock):
+    ns.deploy(client, boundary_message_process())
+    client.create_instance("bdmsg", {"wid": "w-1"})
+    broker.run_until_idle()
+    client.publish_message("halt", "w-1", {"reason": "stop"})
+
+
+def boundary_message_disarms_on_completion(ns, broker, client, clock):
+    ns.deploy(client, boundary_message_process())
+    ns.JobWorker(broker, "work-service", lambda ctx: {"ok": 1})
+    client.create_instance("bdmsg", {"wid": "w-2"})
+    broker.run_until_idle()
+    client.publish_message("halt", "w-2", {"late": 1}, time_to_live_ms=5_000)
+
+
+def boundary_non_interrupting_message_fires_twice(ns, broker, client, clock):
+    ns.deploy(client, boundary_message_process(interrupting=False))
+    client.create_instance("bdmsg", {"wid": "o-1"})
+    broker.run_until_idle()
+    client.publish_message("halt", "o-1", {"n": 1})
+    broker.run_until_idle()
+    client.publish_message("halt", "o-1", {"n": 2})
+
+
+def boundary_receive_task_with_timer_config4(ns, broker, client, clock):
+    """BASELINE config 4: half the instances correlate, half expire."""
+    ns.deploy(client, (
+        Bpmn.create_process("c4").start_event("start")
+        .receive_task("wait-pay", message_name="paid", correlation_key="$.oid")
+        .boundary_event("deadline", duration_ms=30_000)
+        .end_event("expired").move_to("wait-pay").end_event("done").done()
+    ))
+    for i in range(6):
+        client.create_instance("c4", {"oid": f"o-{i}"})
+    broker.run_until_idle()
+    for i in range(0, 6, 2):
+        client.publish_message("paid", f"o-{i}", {"paid": True})
+    broker.run_until_idle()
+    clock.advance(31_000)
+    broker.tick()
+
+
+def _dual(ns, broker, client, cid):
+    ns.deploy(client, dual_boundary_process())
+    client.create_instance("dual", {"cid": cid})
+    broker.run_until_idle()
+
+
+def boundary_dual_message_fires_while_timer_armed(ns, broker, client, clock):
+    _dual(ns, broker, client, "c-1")
+    client.publish_message("abort", "c-1", {"why": "stop"})
+
+
+def boundary_dual_timer_fires_while_message_armed(ns, broker, client, clock):
+    _dual(ns, broker, client, "c-2")
+    clock.advance(61_000)
+    broker.tick()
+
+
+def boundary_dual_main_message_disarms_both(ns, broker, client, clock):
+    _dual(ns, broker, client, "c-3")
+    client.publish_message("main", "c-3", {"ok": 1})
+    broker.run_until_idle()
+    clock.advance(61_000)
+    broker.tick()
+
+
+# -- TestMultiInstanceParity ------------------------------------------------
+
+
+def mi_cardinality_fanout(ns, broker, client, clock):
+    ns.deploy(client, mi_cardinality_process(3))
+    ns.JobWorker(broker, "mi-service", lambda ctx: {"seen": ctx.job.payload.get("loopCounter")},
+                 credits=16)
+    client.create_instance("miflow", {"batch": 7})
+
+
+def mi_two_instances_interleaved(ns, broker, client, clock):
+    ns.deploy(client, mi_cardinality_process(2))
+    ns.JobWorker(broker, "mi-service", lambda ctx: {}, credits=16)
+    client.create_instance("miflow", {"a": 1})
+    client.create_instance("miflow", {"a": 2})
+
+
 SCENARIOS = [
     happy_path, multiple_instances, job_fail_and_retry,
     job_no_retries_incident, job_timeout_reactivation,
@@ -274,7 +495,25 @@ SCENARIOS = [
     condition_routes_high, condition_routes_default, condition_error_incident,
     string_and_mixed_conditions, timer_catch_event, io_mappings,
     input_mapping_error_incident,
+    message_open_then_publish, message_publish_before_open_with_ttl,
+    message_publish_without_ttl_does_not_store,
+    message_ttl_expiry_deletes_stored_message,
+    message_catch_event_with_downstream_task, message_numeric_correlation_key,
+    message_string_correlation_keys, message_duplicate_id_rejected,
+    message_cancel_closes_subscription, message_correlation_key_missing_incident,
+    message_float_correlation_key_incident, message_bool_correlation_key_subscribes,
+    boundary_interrupting_timer_fires, boundary_interrupting_timer_beaten_by_completion,
+    boundary_non_interrupting_timer_host_continues, boundary_interrupting_message,
+    boundary_message_disarms_on_completion,
+    boundary_non_interrupting_message_fires_twice,
+    boundary_receive_task_with_timer_config4,
+    boundary_dual_message_fires_while_timer_armed,
+    boundary_dual_timer_fires_while_message_armed,
+    boundary_dual_main_message_disarms_both,
+    mi_cardinality_fanout, mi_two_instances_interleaved,
 ]
+# scenarios whose CANCEL demotes a live instance to the embedded oracle
+DEMOTING = ("cancel_and_update_live_instances", "message_cancel_closes_subscription")
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda s: s.__name__)
@@ -289,10 +528,12 @@ def test_port_broker_writes_the_oracles_log(scenario):
     # step kernel, and none but the demoted ones moved to the oracle
     assert engine.host_only_reasons == {}
     assert engine.device_records_processed > 0
+    # a message workflow's store is on the device
+    assert engine._messages_on_device == engine.graph.has_messages
     demoted = engine._host.element_instances.instances
     if scenario is cancel_and_update_live_instances:
         assert demoted  # the updated instance lives on in the oracle
-    else:
+    elif scenario.__name__ not in DEMOTING:
         assert not demoted
 
 
@@ -320,36 +561,36 @@ def message_process():
     )
 
 
-def boundary_process():
-    return (
-        Bpmn.create_process("bounded")
-        .start_event("start")
-        .service_task("slow", type="slow-service")
-        .boundary_event("deadline", duration_ms=5_000)
-        .end_event("expired")
-        .move_to("slow")
-        .end_event("done")
-        .done()
+def collection_mi_process():
+    """A collection-driven multi-instance sub-process: no device column
+    form, so ``graph.check_device_compatible`` refuses it."""
+    builder = Bpmn.create_process("coll")
+    sub = builder.start_event("s").sub_process(
+        "each", multi_instance={"input_collection": "$.items", "input_element": "item"}
     )
+    sub.start_event("ss").service_task("w", type="c-svc").end_event("se")
+    return sub.embedded_done().end_event("e").done()
 
 
 def host_routed(ns, broker, client, clock):
     ns.deploy(client, order_process())
     ns.deploy(client, message_process())
-    ns.deploy(client, boundary_process())
+    ns.deploy(client, collection_mi_process())
     ns.JobWorker(broker, "payment-service", lambda ctx: {"done": True})
-    ns.JobWorker(broker, "slow-service", _hang)
+    ns.JobWorker(broker, "c-svc", lambda ctx: {"seen": ctx.job.payload["item"]})
     client.create_instance("order-process", payload={"orderId": 1})
     client.create_instance("msg", payload={"key": "k-1"})
-    client.create_instance("bounded", payload={"t": 1})
+    client.create_instance("coll", payload={"items": ["x", "y"]})
     broker.run_until_idle()
     client.publish_message("go", correlation_key="k-1")
-    broker.run_until_idle()
-    clock.advance(11_000)
-    broker.tick()
 
 
 def test_unported_gates_route_their_workflows_to_the_host_oracle():
+    """What the device cannot execute (here a collection-driven
+    multi-instance sub-process) runs on the embedded host oracle, named in
+    ``host_only_reasons``; beside it, the message store stays host-side
+    (a mixed deployment), so the publish still sees the device-served
+    workflow's subscription."""
     _b, oracle = run_scenario(ORACLE, host_routed)
     broker, port = run_scenario(PORT, host_routed, port_broker)
     assert port == oracle
@@ -358,14 +599,12 @@ def test_unported_gates_route_their_workflows_to_the_host_oracle():
         wf.id: engine.host_only_reasons.get(key)
         for key, wf in engine.repository.by_key.items()
     }
-    assert reasons == {
-        "order-process": None,
-        "msg": "has_messages",
-        "bounded": "has_boundaries",
-    }
+    assert reasons["order-process"] is None and reasons["msg"] is None
+    assert reasons["coll"].startswith("collection-driven multi-instance (each)")
+    assert not engine._messages_on_device
     completed = [
         s for s in port
-        if s[2] == 5 and s[3] == 9 and s[8] in ("order-process", "msg", "bounded")
+        if s[2] == 5 and s[3] == 9 and s[8] in ("order-process", "msg", "coll")
     ]
     assert len(completed) == 3  # every process element completed
     assert engine.device_records_processed > 0

@@ -7,21 +7,23 @@ records (in log order) and gets back written follow-ups, responses,
 cross-partition sends and worker pushes — but processing runs as SIMD
 batches through ``kernel.step_kernel`` on the card.
 
-Routing: WORKFLOW_INSTANCE / JOB / TIMER records run on the device;
-DEPLOYMENT, MESSAGE, MESSAGE_SUBSCRIPTION and INCIDENT records are
-delegated to an embedded host oracle engine (rare control-plane work).
-Emissions are merged back in source order, which preserves the oracle's
-append order.
+Routing: WORKFLOW_INSTANCE / JOB / TIMER records run on the device, and
+MESSAGE / MESSAGE_SUBSCRIPTION / WORKFLOW_INSTANCE_SUBSCRIPTION records
+too when the deployed set has message elements; DEPLOYMENT and INCIDENT
+records are delegated to an embedded host oracle engine (rare
+control-plane work). Emissions are merged back in source order, which
+preserves the oracle's append order.
 
 Workflows the device cannot execute fall back per workflow: their instance
 records route to the embedded host oracle, so the engine serves every
-deployed workflow. Two things put a workflow there: what
-``graph.check_device_compatible`` refuses (as in the JAX engine), and a
-feature gate the port's step kernel does not run yet (``has_messages``,
-``has_boundaries``, ``has_multi_instance``) — ``host_only_reasons`` names
-each. The message store stays on the host in this engine. Device timers
-fire through the broker tick's host sweep (``check_timer_deadlines``),
-whose TRIGGER commands come back through the step kernel.
+deployed workflow. What puts a workflow there is what
+``graph.check_device_compatible`` refuses, as in the JAX engine;
+``host_only_reasons`` names it. The message store (this partition's
+message-partition role) lives on exactly one side: on the device when the
+deployed set has message elements and no host-only workflow, else on the
+host; a deployment that flips the side migrates it. Device timers fire
+through the broker tick's host sweep (``check_timer_deadlines``), whose
+TRIGGER commands come back through the step kernel.
 
 Unlike JAX arrays, the state tables are updated IN PLACE by the step
 kernel; every host read below that must outlive a later step copies.
@@ -84,10 +86,6 @@ _MESSAGE_VALUE_TYPES = {
     int(ValueType.MESSAGE_SUBSCRIPTION),
     int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION),
 }
-
-# the feature gates the port's step kernel runs; a workflow that turns on
-# any other gate is served by the embedded host oracle
-PORTED_GATES = kernel.PORTED_GATES
 
 PROBE_DEADLINES = 1  # bit0: some job/timer/message deadline is due
 PROBE_JOB_BACKLOG = 2  # bit1: assignable jobs exist AND credits are free
@@ -273,12 +271,13 @@ class CudaPartitionEngine:
         self._host_only_keys: set = set()
         # workflow key → why its instances run on the host oracle
         self.host_only_reasons: Dict[int, str] = {}
-        self._gates_by_key: Dict[int, Optional[str]] = {}
         self.device_records_processed = 0
         self.host_records_processed = 0
         self._device_keys_dirty = False
-        # the message store stays host-side in this engine
+        # message store side (see _recompile): True = the device tables
+        # serve MESSAGE / MESSAGE_SUBSCRIPTION records
         self._messages_on_device = False
+        self._restoring = False
         self.records_by_position: Dict[int, Record] = self._host.records_by_position
         self.last_processed_position = -1
         # delta-snapshot dirty tracking over the device table families;
@@ -306,30 +305,16 @@ class CudaPartitionEngine:
         return self._host.exporter_positions
 
     # -- deployment → graph recompile -------------------------------------
-    def _unported_gates(self, wf) -> Optional[str]:
-        """The feature gates ``wf`` turns on that the port's step kernel
-        does not run, comma-joined; None when there are none. The workflow
-        is compiled alone, on the CPU, with its own intern table, so the
-        engine's interned ids are left as they were."""
-        if wf.key not in self._gates_by_key:
-            graph, _meta = graph_mod.compile_graph(
-                [wf], interns=InternTable(), device="cpu"
-            )
-            gates = [g for g in graph.gates_on() if g not in PORTED_GATES]
-            self._gates_by_key[wf.key] = ", ".join(gates) or None
-        return self._gates_by_key[wf.key]
-
     def _recompile(self, extra_variables=None) -> None:
-        """Split the deployed set: device-served workflows compile into the
-        graph; the rest run their instances on the embedded host oracle."""
+        """Split the deployed set: device-compatible workflows compile into
+        the graph; the rest run their instances on the embedded host
+        oracle."""
         workflows = []
         host_only = set()
         reasons: Dict[int, str] = {}
         for key in sorted(self.repository.by_key):
             wf = self.repository.by_key[key]
             reason = graph_mod.check_device_compatible(wf)
-            if reason is None:
-                reason = self._unported_gates(wf)
             if reason is not None:
                 host_only.add(key)
                 reasons[key] = reason
@@ -341,6 +326,7 @@ class CudaPartitionEngine:
         if not workflows:
             self.graph = None
             self._compiled_count = 0
+            self._set_message_store_side(False)
             return
         if extra_variables is not None:
             var_names = list(extra_variables)
@@ -356,6 +342,176 @@ class CudaPartitionEngine:
                 f"num_vars={self.num_vars}; raise num_vars"
             )
         self._compiled_count = len(workflows)
+        # the store lives on the device iff the deployed set compiles with
+        # message elements and has no host-only workflow: a store split
+        # between the sides would let a publish see only some of the
+        # subscriptions. Flipping sides migrates the store
+        self._set_message_store_side(self.graph.has_messages and not host_only)
+
+    def _set_message_store_side(self, on_device: bool) -> None:
+        prev = self._messages_on_device
+        self._messages_on_device = on_device
+        if self._restoring:
+            return
+        if on_device and not prev:
+            self._migrate_message_store_to_device()
+        elif prev and not on_device:
+            self._migrate_message_store_to_host()
+
+    def _migrate_message_store_to_device(self) -> None:
+        """Host oracle message store → device tables (a deployment flipped
+        the store side; a rare control-plane event, a plain host loop)."""
+        from zeebe_tpu_torch.tpu.conditions import VT_NUM, VT_STR
+
+        host = self._host
+        if not host.messages and not host.message_subscriptions:
+            return
+        self._mark_device_dirty("msg", "msub")
+        host.snapshot_mark_dirty(("h/messages",))
+        s = self.state
+
+        def corr_cols(value) -> tuple:
+            # an interned string id, or the f32 bit pattern of a number
+            if isinstance(value, str):
+                return int(VT_STR), self.interns.intern(value)
+            return int(VT_NUM), int(np.float32(float(value)).view(np.int32))
+
+        def composite(name: str, cvt: int, cbits: int) -> int:
+            nid = self.interns.intern(name)
+            return (nid << 35) | (cvt << 32) | (cbits & 0xFFFFFFFF)
+
+        msub_ckey = _np_copy(s.msub_ckey)
+        msub_i32 = _np_copy(s.msub_i32)
+        msub_i64 = _np_copy(s.msub_i64)
+        mkeys, mslots = [], []
+        free = list(np.nonzero(msub_ckey < 0)[0])
+        if len(host.message_subscriptions) > len(free):
+            raise RuntimeError(
+                f"message-store migration needs "
+                f"{len(host.message_subscriptions)} subscription slots but "
+                f"the device table has {len(free)} free — raise the "
+                "engine's msub capacity"
+            )
+        for sub in host.message_subscriptions:
+            cvt, cbits = corr_cols(sub.correlation_key)
+            ck = composite(sub.message_name, cvt, cbits)
+            slot = int(free.pop(0))
+            msub_ckey[slot] = ck
+            msub_i32[slot] = (
+                self.interns.intern(sub.message_name), cvt, cbits,
+                sub.workflow_instance_partition_id,
+            )
+            msub_i64[slot] = (sub.workflow_instance_key, sub.activity_instance_key)
+            mkeys.append(ck)
+            mslots.append(slot)
+        host.message_subscriptions = []
+
+        msg_key = _np_copy(s.msg_key)
+        msg_ckey = _np_copy(s.msg_ckey)
+        msg_i32 = _np_copy(s.msg_i32)
+        msg_deadline = _np_copy(s.msg_deadline)
+        msg_pay = _np_copy(s.msg_pay)
+        gkeys, gslots = [], []
+        gfree = list(np.nonzero(msg_key < 0)[0])
+        if len(host.messages) > len(gfree):
+            raise RuntimeError(
+                f"message-store migration needs {len(host.messages)} stored-"
+                f"message slots but the device table has {len(gfree)} free "
+                "— raise the engine's msg capacity"
+            )
+        for key, message in sorted(host.messages.items()):
+            cvt, cbits = corr_cols(message.correlation_key)
+            ck = composite(message.name, cvt, cbits)
+            slot = int(gfree.pop(0))
+            msg_key[slot] = key
+            msg_ckey[slot] = ck
+            msg_i32[slot] = (
+                self.interns.intern(message.name), cvt, cbits,
+                self.interns.intern(message.message_id)
+                if message.message_id else 0,
+            )
+            msg_deadline[slot] = message.deadline
+            vt, num, sid = rb.payload_to_columns(
+                message.payload, self._var_column, self.interns, self.num_vars
+            )
+            msg_pay[slot] = np.concatenate(
+                [vt.astype(np.int32), sid, np.ascontiguousarray(num).view(np.int32)]
+            )
+            gkeys.append(ck)
+            gslots.append(slot)
+        host.messages = {}
+
+        dev = self.device
+        for name, host_copy in (
+            ("msub_ckey", msub_ckey), ("msub_i32", msub_i32), ("msub_i64", msub_i64),
+            ("msg_key", msg_key), ("msg_ckey", msg_ckey), ("msg_i32", msg_i32),
+            ("msg_deadline", msg_deadline), ("msg_pay", msg_pay),
+        ):
+            getattr(s, name).copy_(torch.from_numpy(host_copy))
+        for table, keys, slots in ((s.msub_map, mkeys, mslots),
+                                   (s.msg_map, gkeys, gslots)):
+            if keys:
+                ops.insert(
+                    table, torch.tensor(keys, dtype=torch.int64, device=dev),
+                    torch.tensor(slots, dtype=torch.int32, device=dev),
+                    torch.ones((len(keys),), dtype=torch.bool, device=dev),
+                )
+
+    def _migrate_message_store_to_host(self) -> None:
+        """Device message tables → host oracle store (a host-only workflow
+        arrived; the store moves so every subscription sees every publish)."""
+        from zeebe_tpu_torch.engine.interpreter import (
+            StoredMessage,
+            StoredSubscription,
+        )
+        from zeebe_tpu_torch.tpu import hashmap
+
+        self._mark_device_dirty("msg", "msub")
+        self._host.snapshot_mark_dirty(("h/messages",))
+        s = self.state
+        names = self.meta.varspace.names if self.meta else []
+        corr_value = self._corr_string
+
+        msub_ckey = _np(s.msub_ckey)
+        msub_i32 = _np(s.msub_i32)
+        msub_i64 = _np(s.msub_i64)
+        for slot in np.nonzero(msub_ckey >= 0)[0]:
+            slot = int(slot)
+            self._host.message_subscriptions.append(
+                StoredSubscription(
+                    message_name=self.interns.string(int(msub_i32[slot, 0])) or "",
+                    correlation_key=corr_value(
+                        int(msub_i32[slot, 1]), int(msub_i32[slot, 2])
+                    ),
+                    workflow_instance_partition_id=int(msub_i32[slot, 3]),
+                    workflow_instance_key=int(msub_i64[slot, 0]),
+                    activity_instance_key=int(msub_i64[slot, 1]),
+                )
+            )
+        msg_key = _np(s.msg_key)
+        msg_i32 = _np(s.msg_i32)
+        msg_deadline = _np(s.msg_deadline)
+        msg_pay = _np(s.msg_pay)
+        for slot in np.nonzero(msg_key >= 0)[0]:
+            slot = int(slot)
+            key = int(msg_key[slot])
+            self._host.messages[key] = StoredMessage(
+                key=key,
+                name=self.interns.string(int(msg_i32[slot, 0])) or "",
+                correlation_key=corr_value(
+                    int(msg_i32[slot, 1]), int(msg_i32[slot, 2])
+                ),
+                time_to_live=0,
+                payload=rb.columns_to_payload(
+                    *_host_unpack_payload(msg_pay[slot]), names, self.interns
+                ),
+                message_id=self.interns.string(int(msg_i32[slot, 3])) or "",
+                deadline=int(msg_deadline[slot]),
+            )
+        for name in ("msub_ckey", "msub_i64", "msg_key", "msg_ckey", "msg_deadline"):
+            getattr(s, name).fill_(-1)
+        s.msub_map = hashmap.make(s.msub_map.keys.shape[0], device=self.device)
+        s.msg_map = hashmap.make(s.msg_map.keys.shape[0], device=self.device)
 
     # -- instance demotion: rare imperative ops take the host path ---------
     def _live_device_instance_slot(self, key: int) -> int:
@@ -372,8 +528,7 @@ class CudaPartitionEngine:
         """Migrate a live instance's scope tree (+ its jobs, timers and
         in-flight joins) from the device tables into the embedded host
         oracle, which then runs the exact reference cascade for CANCEL /
-        UPDATE_PAYLOAD. (The device message store is empty here: message
-        workflows are host-served.)"""
+        UPDATE_PAYLOAD."""
         self._mark_device_dirty()
         self._host.snapshot_mark_dirty(None)
         s = self.state
@@ -999,7 +1154,14 @@ class CudaPartitionEngine:
         self.meta = None
         self.graph = None
         if self.repository.by_key:
-            self._recompile(extra_variables=list(meta.get("variables", [])))
+            # no store migration during restore: the snapshot's arrays
+            # already carry the message store on whichever side the gate
+            # computes (the gate is a pure function of the restored repo)
+            self._restoring = True
+            try:
+                self._recompile(extra_variables=list(meta.get("variables", [])))
+            finally:
+                self._restoring = False
         arrays = snap["arrays"]
         dev = self.device
 
@@ -1007,6 +1169,7 @@ class CudaPartitionEngine:
             return torch.from_numpy(np.array(a)).to(dev)
 
         kwargs = {}
+        older_snapshot = False
         for name in state_mod.STATE_FIELDS:
             if name + ".keys" in arrays:
                 kwargs[name] = hashmap.HashTable(
@@ -1018,11 +1181,15 @@ class CudaPartitionEngine:
                 kwargs[name] = t(np.concatenate(
                     [a, np.full((a.shape[0], 1), -1, np.int32)], axis=1
                 ))
+                older_snapshot = True
             elif name in arrays:
                 kwargs[name] = t(arrays[name])
             else:
-                # a family the snapshot predates: keep the fresh empty table
+                # a family the snapshot predates (the message tables): keep
+                # the fresh empty table; its live state sits on the host
+                # side of the snapshot and migrates below
                 kwargs[name] = getattr(self.state, name)
+                older_snapshot = True
         st = state_mod.EngineState(**kwargs)
         # job-worker subscriptions are transient client-session state: a
         # restored partition starts with an empty subscription table
@@ -1037,6 +1204,11 @@ class CudaPartitionEngine:
         self.last_processed_position = int(
             meta.get("last_processed_position", -1)
         )
+        if older_snapshot and self._messages_on_device:
+            # the older snapshot's message store lives host-side but the
+            # restored deployment computes a device store: migrate, so
+            # publishes see the restored subscriptions
+            self._migrate_message_store_to_device()
 
     def _job_value_from_slot(self, slot: int) -> JobRecord:
         s = self.state
@@ -1549,6 +1721,39 @@ class CudaPartitionEngine:
                     cols["elem"][i] = self.meta.elem_idx[wf_slot].get(
                         value.handler_element_id, -1
                     )
+        elif vt == int(ValueType.MESSAGE):
+            self._stage_corr(cols, i, value.name, value.correlation_key)
+            cols["deadline"][i] = value.time_to_live
+            cols["aux2_key"][i] = (
+                self.interns.intern(value.message_id) if value.message_id else 0
+            )
+            self._stage_payload(cols, i, value.payload)
+        elif vt == int(ValueType.MESSAGE_SUBSCRIPTION):
+            self._stage_corr(cols, i, value.message_name, value.correlation_key)
+            cols["wf"][i] = value.workflow_instance_partition_id
+            cols["instance_key"][i] = value.workflow_instance_key
+            cols["aux_key"][i] = value.activity_instance_key
+        elif vt == int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION):
+            self._stage_corr(cols, i, value.message_name, value.correlation_key)
+            cols["wf"][i] = value.message_partition_id
+            cols["aux2_key"][i] = value.message_partition_id
+            cols["instance_key"][i] = value.workflow_instance_key
+            cols["aux_key"][i] = value.activity_instance_key
+            self._stage_payload(cols, i, value.payload)
+
+    def _stage_corr(self, cols, i, name: str, correlation_key) -> None:
+        """Message-family correlation columns: type_id = interned name,
+        retries = correlation value type, worker = correlation bits (a
+        number's, a bool's, as the f32 bit pattern)."""
+        from zeebe_tpu_torch.tpu.conditions import VT_NUM, VT_STR
+
+        cols["type_id"][i] = self.interns.intern(name) if name else 0
+        if isinstance(correlation_key, str) and correlation_key:
+            cols["retries"][i] = int(VT_STR)
+            cols["worker"][i] = self.interns.intern(correlation_key)
+        elif isinstance(correlation_key, (int, float)):
+            cols["retries"][i] = int(VT_NUM)
+            cols["worker"][i] = int(np.float32(float(correlation_key)).view(np.int32))
 
     def _wf_slot_of_instance(self, key: int) -> int:
         """Workflow slot of a live device element instance (host-side scan;

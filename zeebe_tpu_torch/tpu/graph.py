@@ -190,10 +190,6 @@ class DeviceGraph:
     has_multi_instance: bool = False
     mi_loop_var: int = -1  # payload column of loopCounter, -1 when no MI
 
-    def gates_on(self) -> List[str]:
-        """The feature gates this graph switches on."""
-        return [g for g in FEATURE_GATES if getattr(self, g)]
-
 
 @dataclasses.dataclass
 class GraphMeta:

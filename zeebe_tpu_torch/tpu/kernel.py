@@ -17,27 +17,31 @@ Phases (as in the JAX kernel):
   D. key assignment (strided counters + prefix sums — KeyGenerator parity)
   E. emissions → compaction; table commits
 
-The port covers the kernel with the feature gates ``has_conditions``
-(exclusive gateways with json-el conditions), ``has_mappings`` (input and
-output mappings), ``has_timers`` (timer catch events) and
-``has_parallel_joins`` (the fork/join path), each on or off. A graph that
-turns on ``has_messages``, ``has_boundaries`` or ``has_multi_instance``
-raises ``NotImplementedError`` naming the gate; no gated branch is half
-ported. Where a gate being off makes a JAX value constant (no timer table
-lookup ⇒ no timer hit), the constant is used directly.
+The port runs every feature gate of the JAX kernel, each on or off:
+``has_conditions`` (exclusive gateways with json-el conditions),
+``has_mappings`` (input and output mappings), ``has_timers`` (timer catch
+events and timer boundaries), ``has_parallel_joins`` (the fork/join path),
+``has_messages`` (message catch events, receive tasks, message
+boundaries and the message partition's store), ``has_boundaries`` (arm,
+disarm, interrupt and continue) and ``has_multi_instance`` (cardinality
+fan-out). Where a gate being off makes a JAX value constant (no timer
+table lookup ⇒ no timer hit), the constant is used directly.
 
 The table primitives go through ``ops``: one fused gather launch per read
 stage (8 per step), one ``ops.fused_lookup`` for every index-miss
-fallback (1 per step; the timer map's probe shares it) and one
-``ops.fused_table_commit`` per table group (2 per step), which updates the
-element-instance and job tables IN PLACE. The join path adds, per step,
-2 lookups and 1 insert on the join map, 7 masked sets into the join
-tables and one ``ops.fused_accumulate`` for their two row maxima; the
-timer path one more table commit (the six timer tables)
-and 1 insert on the timer map; the two maps' deletes are one
-``ops.fused_delete`` at the end of the step — all IN PLACE as well.
-The condition programs run as plain
-PyTorch (``conditions.eval_programs``).
+fallback (1 per step; the timer, subscription and stored-message maps'
+probes share it) and one ``ops.fused_table_commit`` per table group (2
+per step), which updates the element-instance and job tables IN PLACE.
+The join path adds, per step, 2 lookups and 1 insert on the join map, 7
+masked sets into the join tables and one ``ops.fused_accumulate`` for
+their two row maxima; the timer path one more table commit (the six
+timer tables) and 1 insert on the timer map; the message path one
+commit per store (subscriptions, stored messages) and 1 insert on each
+store's map; the boundary path one lookup of the job map (its keys are
+the instances' gathered job keys). Every map delete of the step is one
+``ops.fused_delete`` at its end — all IN PLACE as well. The condition
+programs and the boundary disarm's timer scan run as plain PyTorch
+(``conditions.eval_programs``, ``_armed_timer_slots``).
 """
 
 from __future__ import annotations
@@ -64,15 +68,19 @@ from zeebe_tpu_torch.tpu import ops
 from zeebe_tpu_torch.tpu.batch import RecordBatch
 from zeebe_tpu_torch.tpu.conditions import ERROR as TRI_ERROR
 from zeebe_tpu_torch.tpu.conditions import TRUE as TRI_TRUE
-from zeebe_tpu_torch.tpu.conditions import VT_ABSENT, eval_programs
+from zeebe_tpu_torch.tpu.conditions import (
+    VT_ABSENT, VT_BOOL, VT_NUM, VT_STR, eval_programs,
+)
 from zeebe_tpu_torch.tpu.graph import DeviceGraph
 from zeebe_tpu_torch.tpu.state import (
     EngineState,
+    corr_composite,
     pack_payload, unpack_payload,
     EI_ELEM, EI_STATE, EI_WF, EI_SCOPE, EI_TOKENS, EI_PENDING_BD,
     EIL_KEY, EIL_IKEY, EIL_JOB_KEY,
     JB_STATE, JB_ELEM, JB_WF, JB_TYPE, JB_RETRIES, JB_WORKER,
     JBL_KEY, JBL_IKEY, JBL_AIK, JBL_DEADLINE,
+    MS_PART, MSL_WIKEY, MSL_AIK, MG_MSGID,
 )
 
 RT_EVENT = int(RecordType.EVENT)
@@ -87,8 +95,6 @@ VT_MSUB = int(ValueType.MESSAGE_SUBSCRIPTION)
 VT_WISUB = int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION)
 
 _KEY_STEP = keyspace.STEP_SIZE
-# the feature gates step_kernel runs; any other gate raises
-PORTED_GATES = ("has_conditions", "has_parallel_joins", "has_timers", "has_mappings")
 _I32, _I64, _BOOL = torch.int32, torch.int64, torch.bool
 
 
@@ -279,6 +285,69 @@ def _select_by_map(dst_from, vt, num, sid):
     )
 
 
+def _gather_named(reads: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """ONE fused gather of ``reads`` ({name: (table, slots)}; one more
+    launch for every further ``ops._MAX_GATHER_OPS`` reads); returns
+    {name: rows}. A table read twice is passed once."""
+    names = list(reads)
+    out: Dict[str, torch.Tensor] = {}
+    for lo in range(0, len(names), ops._MAX_GATHER_OPS):
+        tables: List[torch.Tensor] = []
+        gops = []
+        chunk = names[lo : lo + ops._MAX_GATHER_OPS]
+        for name in chunk:
+            table, slots = reads[name]
+            i = next((j for j, t in enumerate(tables) if t is table), len(tables))
+            if i == len(tables):
+                tables.append(table)
+            gops.append(ops.GatherOp(i, slots))
+        out.update(zip(chunk, ops.fused_gather_rows(tables, gops)))
+    return out
+
+
+def _corr_cols(batch: RecordBatch, cvar: torch.Tensor):
+    """The correlation key a record's payload column ``cvar`` holds: (value
+    type, bits — the interned id of a string, the f32 bit pattern of a
+    number or bool —, extractable). The accepted types mirror the oracle's
+    ``isinstance(corr, (str, int))``: strings, numbers and bools."""
+    v = batch.v_vt.shape[1]
+    c = cvar.clamp(0, v - 1).to(_I64)[:, None]
+    cvt = torch.gather(batch.v_vt, 1, c)[:, 0].to(_I32)
+    bits = torch.where(
+        cvt == VT_STR, torch.gather(batch.v_str, 1, c)[:, 0],
+        torch.gather(batch.v_num, 1, c)[:, 0].contiguous().view(_I32),
+    )
+    ok = (cvar >= 0) & ((cvt == VT_STR) | (cvt == VT_NUM) | (cvt == VT_BOOL))
+    return cvt, bits, ok
+
+
+def _armed_timer_slots(state: EngineState, keys: torch.Tensor,
+                       wants: List[torch.Tensor], n: int) -> List[List[torch.Tensor]]:
+    """The oracle's scan of its timers by activity instance key: for each
+    mask of ``wants`` and each row it sets, the slots of the first ``n``
+    live timers (in slot order) whose ``timer_aik`` is the row's key, as
+    ``n`` [B] int32 tensors, ``T`` where there are fewer.
+
+    The JAX kernel builds a [B, T] mask and takes its row minimum ``n``
+    times; the j-th minimum is the j-th matching slot. Here one stable sort
+    of the timers by key (equal keys stay in slot order) and one binary
+    search per row give the same slots without the [B, T] temporaries."""
+    t_cap = state.timer_key.shape[0]
+    live = state.timer_key >= 0
+    sort_k = torch.where(live, state.timer_aik, torch.iinfo(torch.int64).max)
+    sorted_k, order = torch.sort(sort_k, stable=True)
+    keys = keys.to(_I64)
+    first = torch.searchsorted(sorted_k, keys)
+    nth = []
+    for j in range(n):
+        pos = first + j
+        pos_c = pos.clamp(max=t_cap - 1)
+        slot = order[pos_c]
+        nth.append(((pos < t_cap) & (sorted_k[pos_c] == keys) & live[slot], slot))
+    return [[torch.where(want & hit, slot, t_cap).to(_I32) for hit, slot in nth]
+            for want in wants]
+
+
 def step_kernel(
     graph: DeviceGraph, state: EngineState, batch: RecordBatch, now,
     synthetic_workers: bool = False, partition_id=0,
@@ -293,13 +362,6 @@ def step_kernel(
     instant COMPLETE command — the worker round trip without leaving the
     device.
     """
-    gates = [g for g in graph.gates_on() if g not in PORTED_GATES]
-    if gates:
-        raise NotImplementedError(
-            "step_kernel: feature gate(s) not ported to the PyTorch engine "
-            f"yet: {', '.join(gates)}"
-        )
-    del partition_id  # only the message family reads it
     dev = batch.device
     b = batch.size
     v = state.num_vars
@@ -322,35 +384,39 @@ def step_kernel(
     el_c = batch.elem.clamp(0, n_elems - 1)
     # hot-path per-element graph reads: the meta row, the step row, the
     # parallel fork fan, the timer duration and, with their gates on, the
-    # conditioned flows with their programs and the mapping columns all
-    # index by (workflow, element) — one fused gather over the flattened
-    # tables
+    # conditioned flows with their programs, the mapping columns and the
+    # attached boundary events all index by (workflow, element) — one fused
+    # gather over the flattened tables
     n_intents = graph.step_table.shape[2]
     fork_fan = graph.out_flows.shape[2]
     cond_fan = graph.cond_flows.shape[2]
     em_cols = graph.elem_meta.shape[2]
+    bdw = graph.bd_elem.shape[2]
     g_idx = wf_c * n_elems + el_c
-    g_tables = [
-        graph.elem_meta.reshape(-1, em_cols),
-        graph.step_table.reshape(-1, n_intents),
-        graph.out_flows.reshape(-1, fork_fan),
-        graph.timer_dur.reshape(-1),
-    ]
+    g_reads = {
+        "emeta": graph.elem_meta.reshape(-1, em_cols),
+        "step": graph.step_table.reshape(-1, n_intents),
+        "fork": graph.out_flows.reshape(-1, fork_fan),
+        "timer_dur": graph.timer_dur.reshape(-1),
+    }
     if graph.has_conditions:
-        g_tables += [graph.cond_flows.reshape(-1, cond_fan),
-                     graph.cond_prog.reshape(-1, cond_fan)]
+        g_reads["cflow"] = graph.cond_flows.reshape(-1, cond_fan)
+        g_reads["cprog"] = graph.cond_prog.reshape(-1, cond_fan)
     if graph.has_mappings:
         n_maps = graph.in_map_src.shape[2]
-        g_tables += [t.reshape(-1, n_maps) for t in (
-            graph.in_map_src, graph.in_map_dst, graph.out_map_src, graph.out_map_dst)]
-    g_rows = ops.fused_gather_rows(
-        g_tables, [ops.GatherOp(i, g_idx) for i in range(len(g_tables))]
-    )
-    emeta, step_row, fork_flows, timer_dur_rec = g_rows[:4]
+        for name in ("in_map_src", "in_map_dst", "out_map_src", "out_map_dst"):
+            g_reads[name] = getattr(graph, name).reshape(-1, n_maps)
+    if graph.has_boundaries:
+        for name in ("bd_elem", "bd_timer", "bd_msg", "bd_corr"):
+            g_reads[name] = getattr(graph, name).reshape(-1, bdw)
+    g_rows = _gather_named({k: (t, g_idx) for k, t in g_reads.items()})
+    emeta, step_row = g_rows["emeta"], g_rows["step"]
+    fork_flows, timer_dur_rec = g_rows["fork"], g_rows["timer_dur"]
     if graph.has_conditions:
-        cflow, cprog = g_rows[4:6]
+        cflow, cprog = g_rows["cflow"], g_rows["cprog"]
     if graph.has_mappings:
-        in_src, in_dst, out_src, out_dst = g_rows[-4:]
+        in_src, in_dst = g_rows["in_map_src"], g_rows["in_map_dst"]
+        out_src, out_dst = g_rows["out_map_src"], g_rows["out_map_dst"]
 
     # ---------------- A. lookups ----------------
     is_wi = valid & (vt_ == VT_WI)
@@ -375,65 +441,114 @@ def step_kernel(
     want3 = torch.cat(
         [wi_ev, wi_ev & (batch.scope_key >= 0), job_ev | timer_cmd | wisub_corr]
     )
-    # The timer map's probe (as the map was before this step: its insert
-    # and delete come after every read) shares the fallbacks' launch
-    timer_probes = []
+    # The timer, subscription and stored-message maps' probes (as the maps
+    # were before this step: their inserts and deletes come after every
+    # read) share the fallbacks' launch
+    probes = []
     if graph.has_timers:
-        timer_probes = [(state.timer_map, batch.key, timer_cmd & (batch.key >= 0))]
+        probes.append((state.timer_map, batch.key, timer_cmd & (batch.key >= 0)))
+    if graph.has_messages:
+        # composite (message name, correlation value): the store key of
+        # both the subscription and the stored-message probes
+        ckey = corr_composite(batch.type_id, batch.retries, batch.worker)
+        probes.append((state.msub_map, ckey, msg_pub | ms_open | ms_close))
+        probes.append((state.msg_map, ckey, msg_pub | ms_open | msg_del))
     ((ei3_found, ei3_slot), (jb_found, jb_slot)), probed = _indexed_lookup_multi([
         (state.ei_index, state.ei_key, state.ei_map, keys3, want3, n_cap),
         (state.job_index, state.job_key, state.job_map,
          batch.key, job_cmd & (batch.key >= 0), m_cap),
-    ], timer_probes)
+    ], probes)
     ei_found, ei_slot = ei3_found[:b], ei3_slot[:b]
     sc_found, sc_slot = ei3_found[b : 2 * b], ei3_slot[b : 2 * b]
     aik_found, aik_slot = ei3_found[2 * b :], ei3_slot[2 * b :]
     t_cap = state.timer_key.shape[0]
     if graph.has_timers:
-        ((tm_found, tm_slot),) = probed
+        tm_found, tm_slot = probed.pop(0)
     else:
         tm_found, tm_slot = zeros_b(), zeros_b(_I32)
+    ms_cap = state.msub_ckey.shape[0]
+    mg_cap = state.msg_key.shape[0]
+    if graph.has_messages:
+        (msub_found, msub_slot), (mmsg_found, mmsg_slot) = probed
+        msub_clip = msub_slot.clamp(0, ms_cap - 1)
+        mmsg_clip = mmsg_slot.clamp(0, mg_cap - 1)
     ei_clip = ei_slot.clamp(0, n_cap - 1)
     sc_clip = sc_slot.clamp(0, n_cap - 1)
     aik_clip = aik_slot.clamp(0, n_cap - 1)
     jb_clip = jb_slot.clamp(0, m_cap - 1)
     tm_clip = tm_slot.clamp(0, t_cap - 1)
 
-    # ONE fused gather feeds every phase-B/C state read (the timer slice
-    # adds the timer rows and the timed instance's int64 and payload rows;
-    # the instance's own int64 and payload rows are read by the message and
-    # boundary slices only)
-    b_tables = [state.ei_i32, state.ei_pay, state.job_i32, state.job_i64,
-                state.job_pay]
-    b_ops = [
-        ops.GatherOp(0, ei_clip), ops.GatherOp(0, sc_clip),
-        ops.GatherOp(0, aik_clip), ops.GatherOp(1, sc_clip),
-        ops.GatherOp(2, jb_clip), ops.GatherOp(3, jb_clip),
-        ops.GatherOp(4, jb_clip),
-    ]
+    # ONE fused gather feeds every phase-B/C state read (the timer and
+    # message slices add the timer rows, the store rows and the named
+    # instance's int64 and payload rows; the boundary slice the record's
+    # own instance's)
+    b_reads = {
+        "ei": (state.ei_i32, ei_clip), "sc": (state.ei_i32, sc_clip),
+        "aik": (state.ei_i32, aik_clip), "sc_pay": (state.ei_pay, sc_clip),
+        "jb_i32": (state.job_i32, jb_clip), "jb_i64": (state.job_i64, jb_clip),
+        "jb_pay": (state.job_pay, jb_clip),
+    }
     if graph.has_timers:
-        b_tables += [state.timer_elem, state.timer_wf, state.ei_i64]
-        b_ops += [ops.GatherOp(5, tm_clip), ops.GatherOp(6, tm_clip),
-                  ops.GatherOp(7, aik_clip), ops.GatherOp(1, aik_clip)]
-    b_rows = ops.fused_gather_rows(b_tables, b_ops)
-    (ei_rows, sc_rows, aik_rows, sc_pay_rows,
-     jb_i32_rows, jb_i64_rows, jb_pay_rows) = b_rows[:7]
-    if graph.has_timers:
-        tm_elem_rows, tm_wf_rows, aik_i64_rows, aik_pay_rows = b_rows[7:]
+        b_reads["tm_elem"] = (state.timer_elem, tm_clip)
+        b_reads["tm_wf"] = (state.timer_wf, tm_clip)
+    if graph.has_timers or graph.has_messages:
+        b_reads["aik_i64"] = (state.ei_i64, aik_clip)
+        b_reads["aik_pay"] = (state.ei_pay, aik_clip)
+    if graph.has_boundaries:
+        b_reads["ei_i64"] = (state.ei_i64, ei_clip)
+        b_reads["ei_pay"] = (state.ei_pay, ei_clip)
+    if graph.has_messages:
+        b_reads["mmsg_i32"] = (state.msg_i32, mmsg_clip)
+        b_reads["mmsg_key"] = (state.msg_key, mmsg_clip)
+        b_reads["mmsg_pay"] = (state.msg_pay, mmsg_clip)
+        b_reads["msub_i32"] = (state.msub_i32, msub_clip)
+        b_reads["msub_i64"] = (state.msub_i64, msub_clip)
+    rd = _gather_named(b_reads)
+    ei_rows, sc_rows, aik_rows, sc_pay_rows = rd["ei"], rd["sc"], rd["aik"], rd["sc_pay"]
+    jb_i32_rows, jb_i64_rows, jb_pay_rows = rd["jb_i32"], rd["jb_i64"], rd["jb_pay"]
     inst_state = torch.where(ei_found, ei_rows[:, EI_STATE], -1)
     scope_state = torch.where(sc_found, sc_rows[:, EI_STATE], -1)
 
-    # second-level reads: scope-of-scope keys through slots that exist only
-    # after the first pass lands — one more fused gather
+    # the handler element of a timer comes from the timer table (a
+    # host-staged TRIGGER command carries no element columns)
+    if graph.has_timers:
+        trig_elem = torch.where(tm_found, rd["tm_elem"], batch.elem)
+        trig_wf = torch.where(tm_found, rd["tm_wf"], 0)
+
+    # second-level reads through slots that exist only after the first pass
+    # lands — one more fused gather: the scope-of-scope keys and, with
+    # their gates on, the graph rows of the elements the gathered rows name
+    # (a trigger's handler element, a correlated instance's boundaries, a
+    # scope's cardinality)
     scope_parent = torch.where(sc_found, sc_rows[:, EI_SCOPE], -1)
     inst_scope_slot = aik_rows[:, EI_SCOPE]
-    sp_key_g, is_key_g = ops.fused_gather_rows(
-        [state.ei_key],
-        [ops.GatherOp(0, scope_parent.clamp(0, n_cap - 1)),
-         ops.GatherOp(0, inst_scope_slot.clamp(0, n_cap - 1))],
-    )
-    scope_parent_key = torch.where(scope_parent >= 0, sp_key_g, -1)
-    inst_scope_key = torch.where(inst_scope_slot >= 0, is_key_g, -1)
+    ei_key = state.ei_key
+    l2_reads = {
+        "sp_key": (ei_key, scope_parent.clamp(0, n_cap - 1)),
+        "is_key": (ei_key, inst_scope_slot.clamp(0, n_cap - 1)),
+    }
+    if graph.has_timers and graph.has_boundaries:
+        trig_idx = (trig_wf.clamp(0, n_wfs - 1) * n_elems
+                    + trig_elem.clamp(0, n_elems - 1))
+        l2_reads["trig_is_bd"] = (graph.bd_is_boundary.reshape(-1), trig_idx)
+        l2_reads["trig_int"] = (graph.bd_host_interrupt.reshape(-1), trig_idx)
+    if graph.has_messages and graph.has_boundaries:
+        # the correlated instance's element (0 when it is not found)
+        ci_idx = (torch.where(aik_found, aik_rows[:, EI_WF], 0).clamp(0, n_wfs - 1)
+                  * n_elems
+                  + torch.where(aik_found, aik_rows[:, EI_ELEM], 0).clamp(0, n_elems - 1))
+        l2_reads["ci_bd_count"] = (graph.bd_count.reshape(-1), ci_idx)
+        for name in ("bd_msg", "bd_elem", "bd_interrupt"):
+            l2_reads["ci_" + name] = (getattr(graph, name).reshape(-1, bdw), ci_idx)
+    if graph.has_multi_instance:
+        # the scope's element (0 when it is not found)
+        sc_idx = (torch.where(sc_found, sc_rows[:, EI_WF], 0).clamp(0, n_wfs - 1)
+                  * n_elems
+                  + torch.where(sc_found, sc_rows[:, EI_ELEM], 0).clamp(0, n_elems - 1))
+        l2_reads["sc_mi_card"] = (graph.mi_cardinality.reshape(-1), sc_idx)
+    l2 = _gather_named(l2_reads)
+    scope_parent_key = torch.where(scope_parent >= 0, l2["sp_key"], -1)
+    inst_scope_key = torch.where(inst_scope_slot >= 0, l2["is_key"], -1)
 
     # ---------------- B. routing + guards ----------------
     m_create = wi_cmd & (it == int(WI.CREATE)) & (batch.wf >= 0)
@@ -498,6 +613,10 @@ def step_kernel(
     m_complete_proc = m_step(BS.COMPLETE_PROCESS)
     m_psplit = m_step(BS.PARALLEL_SPLIT)
     m_timer_step = m_step(BS.CREATE_TIMER)
+    m_subscribe = m_step(BS.SUBSCRIBE_TO_INTERMEDIATE_MESSAGE)
+    m_term_job = m_step(BS.TERMINATE_JOB_TASK)
+    m_term_catch = m_step(BS.TERMINATE_CATCH_EVENT)
+    m_term_elem = m_step(BS.TERMINATE_ELEMENT)
     m_mi = m_step(BS.MULTI_INSTANCE_SPLIT)
 
     # job commands
@@ -550,6 +669,11 @@ def step_kernel(
     m_ttrigger = timer_cmd & (it == int(TI.TRIGGER))
     ttrig_ok = m_ttrigger & tm_found
     ttrig_rej = m_ttrigger & ~tm_found
+    zb = zeros_b()
+    ttrig_catch = ttrig_bd_int = ttrig_bd_non = zb
+    aik_active = aik_found & (
+        torch.where(aik_found, aik_rows[:, EI_STATE], -1) == int(WI.ELEMENT_ACTIVATED)
+    )
     if graph.has_timers:
         # two CANCELs for one timer key may share a batch; the oracle pops
         # the timer on the first and the second is a silent no-op, while
@@ -557,15 +681,85 @@ def step_kernel(
         # key stays eligible
         m_tcancel = timer_cmd & (it == int(TI.CANCEL))
         tcan_ok = m_tcancel & tm_found & _first_per_key(batch.key, m_tcancel)
-        # a trigger resumes the catch event while it is still active (no
-        # boundary events here: every trigger is its own catch event's)
-        ttrig_catch = ttrig_ok & aik_found & (
-            torch.where(aik_found, aik_rows[:, EI_STATE], -1) == int(WI.ELEMENT_ACTIVATED)
+        # a trigger resumes its instance while it is still active
+        ttrig_inst = ttrig_ok & aik_active
+        ttrig_catch = ttrig_inst
+        if graph.has_boundaries:
+            # boundary-event triggers: the handler element is a BOUNDARY
+            # event attached to the instance's element (oracle
+            # _boundary_for + _fire_boundary_event); interrupting ones
+            # terminate the host and continue at the boundary when
+            # ELEMENT_TERMINATED processes
+            trig_is_bd = l2["trig_is_bd"]
+            ttrig_catch = ttrig_inst & ~trig_is_bd
+            ttrig_bd = ttrig_inst & trig_is_bd
+            ttrig_bd_int = ttrig_bd & l2["trig_int"]
+            ttrig_bd_non = ttrig_bd & ~l2["trig_int"]
+    # arming/disarming rides the host element's lifecycle events (oracle
+    # _arm_boundary_events / _disarm_boundary_events); TERMINATED with a
+    # pending boundary continues the token at the boundary element
+    m_arm = m_disarm_bd = m_bd_continue = zb
+    if graph.has_boundaries:
+        bd_n = emeta[:, graph_mod.EM_BD_COUNT]
+        has_bd = bd_n > 0
+        m_arm = stepped & (it == int(WI.ELEMENT_ACTIVATED)) & has_bd
+        m_disarm_bd = stepped & (
+            (it == int(WI.ELEMENT_COMPLETING)) | (it == int(WI.ELEMENT_TERMINATING))
+        ) & has_bd
+        m_bd_continue = stepped & (it == int(WI.ELEMENT_TERMINATED)) & (pending_bd >= 0)
+
+    # message correlation guards (oracle: _process_message_command /
+    # _process_message_subscription / _process_wi_subscription)
+    pub_ok = open_ok = corr_inst_ok = corr_bd_int = corr_bd_non = zb
+    corr_bd_elem = full_b(-1, _I32)
+    if graph.has_messages:
+        msgid = batch.aux2_key.to(_I32)  # interned message id, 0 none
+        pub_dup = (msg_pub & mmsg_found & (msgid > 0)
+                   & (rd["mmsg_i32"][:, MG_MSGID] == msgid))
+        # one live slot per composite (the store is hashmap-keyed): a
+        # second TTL store or OPEN on an occupied composite is REJECTED
+        with_ttl = batch.deadline > 0  # the TTL rides the deadline column
+        pub_chain = msg_pub & ~pub_dup & with_ttl & mmsg_found
+        pub_ok = msg_pub & ~pub_dup & ~pub_chain
+        pub_store = pub_ok & with_ttl
+        pub_nostore = pub_ok & ~with_ttl
+        pub_corr = pub_ok & msub_found
+        open_dup = ms_open & msub_found
+        open_ok = ms_open & ~msub_found
+        open_corr = open_ok & mmsg_found
+        msub_i64_rows = rd["msub_i64"]
+        close_ok = (
+            ms_close & msub_found
+            & (msub_i64_rows[:, MSL_AIK] == batch.aux_key)
+            & (msub_i64_rows[:, MSL_WIKEY] == batch.instance_key)
         )
-        # the handler element comes from the timer table (a host-staged
-        # TRIGGER command carries no element columns)
-        trig_elem = torch.where(tm_found, tm_elem_rows, batch.elem)
-        trig_wf = torch.where(tm_found, tm_wf_rows, 0)
+        del_ok = msg_del & mmsg_found & (rd["mmsg_key"] == batch.key)
+        corr_live = wisub_corr & aik_active
+        corr_rej = wisub_corr & ~corr_live
+        corr_is_bd = zb
+        if graph.has_boundaries:
+            # a boundary-message correlate: the message name matches one of
+            # the instance element's attached boundary events (the first)
+            bd_cnt_i = l2["ci_bd_count"]
+            ci_msg, ci_elem, ci_int = l2["ci_bd_msg"], l2["ci_bd_elem"], l2["ci_bd_interrupt"]
+            corr_bd_interrupt = zb
+            for bslot in range(bdw):
+                match_b = (
+                    (bslot < bd_cnt_i) & (ci_msg[:, bslot] == batch.type_id)
+                    & (ci_msg[:, bslot] > 0) & (corr_bd_elem < 0)
+                )
+                corr_bd_elem = torch.where(match_b, ci_elem[:, bslot], corr_bd_elem)
+                corr_bd_interrupt = torch.where(match_b, ci_int[:, bslot], corr_bd_interrupt)
+            corr_is_bd = corr_live & (corr_bd_elem >= 0)
+            corr_bd_int = corr_is_bd & corr_bd_interrupt
+            corr_bd_non = corr_is_bd & ~corr_bd_interrupt
+        corr_inst_ok = corr_live & ~corr_is_bd
+        # the subscribe step's correlation key, from the payload column
+        corr_vt_ext, corr_bits_ext, corr_extractable = _corr_cols(
+            batch, emeta[:, graph_mod.EM_CORR_VAR]
+        )
+        sub_ok = m_subscribe & corr_extractable
+        sub_err = m_subscribe & ~corr_extractable
 
     # ---------------- C. per-step compute ----------------
     # exclusive split: the first conditioned flow whose program is TRUE,
@@ -729,6 +923,10 @@ def step_kernel(
     )
     if graph.has_parallel_joins:
         single_key = single_key | completer
+    if graph.has_messages:
+        single_key = single_key | pub_ok | open_ok
+    if graph.has_boundaries:
+        single_key = single_key | ttrig_bd_non | m_bd_continue | corr_bd_non
     n_wf = torch.where(
         single_key, 1,
         torch.where(
@@ -813,6 +1011,19 @@ def step_kernel(
     e0 = blank()
     e1 = blank()
     resp = batch.req >= 0
+    # emission slots >= 2 materialize on first use (messages, boundary
+    # arm/disarm); rows claiming one slot index have disjoint masks, so
+    # compaction keeps slot order = the oracle's append order
+    extra_slots: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def eslot(i: int) -> Dict[str, torch.Tensor]:
+        if i < 2:
+            return (e0, e1)[i]
+        if i not in extra_slots:
+            extra_slots[i] = blank()
+        return extra_slots[i]
+
+    pid_col = full_b(partition_id, _I32)
 
     # --- slot 0: workflow-instance emissions
     scope_elem = torch.where(sc_found, sc_rows[:, EI_ELEM], -1)
@@ -851,15 +1062,34 @@ def step_kernel(
     j_rank = _excl_cumsum(job_ins)
     job_pop_idx = state.free_job_pop + j_rank.to(_I64)
     job_ring_ok = job_pop_idx < state.free_job_push
-    tok_after_sc, nin_rec, ei_pop_slot, job_pop_slot = ops.fused_gather_rows(
-        [tokens_after, state.join_nin, state.free_ei, state.free_job],
-        [
-            ops.GatherOp(0, sc_clip),
-            ops.GatherOp(1, arr_slot),
-            ops.GatherOp(2, (ei_pop_idx % n_cap).to(_I32)),
-            ops.GatherOp(3, (job_pop_idx % m_cap).to(_I32)),
-        ],
-    )
+    rp_reads = {
+        "tok": (tokens_after, sc_clip),
+        "nin": (state.join_nin, arr_slot),
+        "ei_pop": (state.free_ei, (ei_pop_idx % n_cap).to(_I32)),
+        "job_pop": (state.free_job, (job_pop_idx % m_cap).to(_I32)),
+    }
+    if graph.has_boundaries:
+        # TERMINATE_JOB_TASK cancels the instance's job: its type through
+        # the job map (the probe's keys are the gathered job keys, so it
+        # cannot join the step's first lookup launch)
+        job_key_inst = torch.where(ei_found, rd["ei_i64"][:, EIL_JOB_KEY], -1)
+        mask_jcancel = m_term_job & (job_key_inst > 0)
+        tj_found, tj_slot = ops.lookup(state.job_map, job_key_inst, mask_jcancel)
+        rp_reads["tj_type"] = (state.job_type, tj_slot.clamp(0, m_cap - 1))
+        # the disarm's and TERMINATE_CATCH_EVENT's scans of the armed
+        # timers by activity instance key, and the found timers' columns
+        disarm_idx, tcan_idx = _armed_timer_slots(
+            state, batch.key, [m_disarm_bd, m_term_catch], bdw
+        )
+        timer_cols = {"key": state.timer_key, "due": state.timer_due,
+                      "ik": state.timer_instance_key, "elem": state.timer_elem}
+        for tag, idxs in (("c", disarm_idx), ("tc", tcan_idx)):
+            for j, idx in enumerate(idxs):
+                for col, table in timer_cols.items():
+                    rp_reads[f"{tag}{j}_{col}"] = (table, idx.clamp(0, t_cap - 1))
+    rp = _gather_named(rp_reads)
+    tok_after_sc, nin_rec = rp["tok"], rp["nin"]
+    ei_pop_slot, job_pop_slot = rp["ei_pop"], rp["job_pop"]
     consume_done = m_consume & (tok_after_sc <= 0)
     consume_completer = _last_writer(sc_clip, consume_done, n_cap)
     _put(
@@ -868,6 +1098,12 @@ def step_kernel(
         intent=int(WI.ELEMENT_COMPLETING), key=batch.scope_key, elem=scope_elem,
         scope_key=scope_parent_key,
     )
+    if graph.has_multi_instance:
+        # a completing multi-instance container keeps ITS OWN payload (the
+        # oracle never copies iteration payloads into an MI scope)
+        mi_scope = l2["sc_mi_card"] > 0
+        sc_vt, sc_sid, sc_num = unpack_payload(sc_pay_rows)
+        _put_payload(e0, consume_completer & mi_scope, sc_vt, sc_num, sc_sid)
     _put(
         e0, xs_ok,
         valid=True, rtype=RT_EVENT, vtype=VT_WI,
@@ -879,8 +1115,13 @@ def step_kernel(
         key=-1, elem=batch.elem, aux_key=batch.key,
         rej=torch.where(xs_nofl, rb.ERR_CONDITION_NO_FLOW, rb.ERR_CONDITION_EVAL),
     )
+    # rows on boundary-carrying elements re-slot their own step output
+    # AFTER the arm/disarm records (the oracle writes arms/cancels first)
+    createjob_here, outmap_here = m_createjob, outmap_ok
+    if graph.has_boundaries:
+        createjob_here, outmap_here = m_createjob & ~has_bd, outmap_ok & ~has_bd
     _put(
-        e0, m_createjob,
+        e0, createjob_here,
         valid=True, rtype=RT_CMD, vtype=VT_JOB, intent=int(JI.CREATE),
         key=-1, elem=batch.elem, aux_key=batch.key,
         type_id=emeta[:, graph_mod.EM_JOB_TYPE],
@@ -894,11 +1135,11 @@ def step_kernel(
     if graph.has_mappings:
         _put_payload(e0, inmap_ok, in_vt, in_num, in_sid)
     _put(
-        e0, outmap_ok,
+        e0, outmap_here,
         valid=True, rtype=RT_EVENT, vtype=VT_WI,
         intent=int(WI.ELEMENT_COMPLETED), key=batch.key, elem=batch.elem,
     )
-    _put_payload(e0, outmap_ok, out_vt, out_num, out_sid)
+    _put_payload(e0, outmap_here, out_vt, out_num, out_sid)
     if graph.has_mappings:
         _put(
             e0, inmap_err | outmap_err,
@@ -1081,6 +1322,11 @@ def step_kernel(
         valid=True, rtype=RT_EVENT, vtype=VT_TIMER, intent=int(TI.CREATED),
         key=key0, elem=batch.elem, aux_key=batch.aux_key, deadline=batch.deadline,
     )
+    inst_elem_wf = dict(elem=inst_elem, wf=inst_wf, scope_key=inst_scope_key)
+    if graph.has_timers or graph.has_messages:
+        # the named instance's own payload and workflow-instance key
+        inst_vt, inst_sid, inst_num = unpack_payload(rd["aik_pay"])
+        inst_ikey = rd["aik_i64"][:, EIL_IKEY]
     if graph.has_timers:
         _put(
             e0, ttrig_ok,
@@ -1088,16 +1334,32 @@ def step_kernel(
             key=batch.key, elem=trig_elem, wf=trig_wf, aux_key=batch.aux_key,
             deadline=batch.deadline,
         )
-        # the catch event completes with the instance's own payload
+        # the catch event completes; an interrupting boundary terminates
+        # the host (the continuation fires at ELEMENT_TERMINATED); a
+        # non-interrupting one puts a token on the boundary event while the
+        # host keeps running (oracle _fire_boundary_event) — each with the
+        # instance's own payload
         _put(
             e1, ttrig_catch,
             valid=True, rtype=RT_EVENT, vtype=VT_WI,
-            intent=int(WI.ELEMENT_COMPLETING), key=batch.aux_key,
-            elem=inst_elem, wf=inst_wf, scope_key=inst_scope_key,
-            instance_key=aik_i64_rows[:, EIL_IKEY],
+            intent=int(WI.ELEMENT_COMPLETING), key=batch.aux_key, **inst_elem_wf,
         )
-        inst_vt, inst_sid, inst_num = unpack_payload(aik_pay_rows)
-        _put_payload(e1, ttrig_catch, inst_vt, inst_num, inst_sid)
+        ttrig_any_inst = ttrig_catch
+        if graph.has_boundaries:
+            _put(
+                e1, ttrig_bd_int,
+                valid=True, rtype=RT_EVENT, vtype=VT_WI,
+                intent=int(WI.ELEMENT_TERMINATING), key=batch.aux_key, **inst_elem_wf,
+            )
+            _put(
+                e1, ttrig_bd_non,
+                valid=True, rtype=RT_EVENT, vtype=VT_WI,
+                intent=int(WI.BOUNDARY_EVENT_OCCURRED), key=key0,
+                elem=trig_elem, wf=inst_wf, scope_key=inst_scope_key,
+            )
+            ttrig_any_inst = ttrig_catch | ttrig_bd_int | ttrig_bd_non
+        _put_payload(e1, ttrig_any_inst, inst_vt, inst_num, inst_sid)
+        _put(e1, ttrig_any_inst, instance_key=inst_ikey)
     _put(
         e0, ttrig_rej,
         valid=True, rtype=RT_REJ, vtype=vt_, intent=it, key=batch.key,
@@ -1112,12 +1374,259 @@ def step_kernel(
             deadline=batch.deadline,
         )
 
-    # --- assemble [B, E] (slots >= 2 are all-zero rows until the fork fills
-    # them) + parallel-split fork slots
+    # --- message correlation emissions
+    if graph.has_messages:
+        e2 = eslot(2)
+        msg_name = emeta[:, graph_mod.EM_MSG_NAME]
+        corr = dict(type_id=batch.type_id, retries=batch.retries, worker=batch.worker)
+        sub_open = dict(
+            valid=True, rtype=RT_CMD, vtype=VT_MSUB, intent=int(MS.OPEN),
+            key=-1, elem=batch.elem, type_id=msg_name,
+            retries=corr_vt_ext, worker=corr_bits_ext,
+            instance_key=batch.instance_key, aux_key=batch.key, wf=pid_col,
+        )
+        sub_incident = dict(
+            valid=True, rtype=RT_CMD, vtype=VT_INCIDENT, intent=0,
+            key=-1, elem=batch.elem, aux_key=batch.key, rej=rb.ERR_CORRELATION_KEY,
+        )
+        # subscribe step → OPEN sent to the message partition (oracle
+        # _h_subscribe_to_message); a correlation-key failure → incident
+        sub_ok_here, sub_err_here = sub_ok, sub_err
+        if graph.has_boundaries:
+            sub_ok_here, sub_err_here = sub_ok & ~has_bd, sub_err & ~has_bd
+        _put(e0, sub_ok_here, **sub_open)
+        _put(e0, sub_err_here, **sub_incident)
+        # message partition: PUBLISH
+        _put(
+            e0, pub_dup | pub_chain | open_dup,
+            valid=True, rtype=RT_REJ, vtype=vt_, intent=it, key=batch.key, **corr,
+            instance_key=batch.instance_key, aux_key=batch.aux_key,
+            aux2_key=batch.aux2_key,
+            rej=torch.where(pub_dup, rb.REJ_MSG_DUP,
+                            torch.where(pub_chain, rb.REJ_MSG_STORE_OCCUPIED,
+                                        rb.REJ_SUB_OCCUPIED)),
+            req=batch.req, req_stream=batch.req_stream, resp=resp,
+        )
+        _put(
+            e0, pub_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_MSG, intent=int(MI.PUBLISHED),
+            key=key0, **corr, deadline=batch.deadline, aux2_key=batch.aux2_key,
+            req=batch.req, req_stream=batch.req_stream, resp=resp,
+        )
+        _put(
+            e1, pub_nostore,
+            valid=True, rtype=RT_EVENT, vtype=VT_MSG, intent=int(MI.DELETED),
+            key=key0, **corr, aux2_key=batch.aux2_key,
+        )
+        msub_i32_rows = rd["msub_i32"]
+        _put(
+            e2, pub_corr,
+            valid=True, rtype=RT_CMD, vtype=VT_WISUB, intent=int(WS.CORRELATE),
+            key=-1, wf=msub_i32_rows[:, MS_PART],
+            instance_key=msub_i64_rows[:, MSL_WIKEY],
+            aux_key=msub_i64_rows[:, MSL_AIK], **corr,
+            aux2_key=pid_col,  # the message partition's id
+        )
+        # message partition: OPEN / CLOSE
+        _put(
+            e0, open_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_MSUB, intent=int(MS.OPENED),
+            key=key0, **corr, instance_key=batch.instance_key, aux_key=batch.aux_key,
+        )
+        _put(
+            e1, open_corr,
+            valid=True, rtype=RT_CMD, vtype=VT_WISUB, intent=int(WS.CORRELATE),
+            key=-1, wf=batch.wf, instance_key=batch.instance_key,
+            aux_key=batch.aux_key, **corr, aux2_key=pid_col,
+        )
+        stored_vt, stored_sid, stored_num = unpack_payload(rd["mmsg_pay"])
+        _put_payload(e1, open_corr, stored_vt, stored_num, stored_sid)
+        _put(
+            e0, close_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_MSUB, intent=int(MS.CLOSED),
+            key=batch.key, **corr, instance_key=batch.instance_key,
+            aux_key=batch.aux_key,
+        )
+        _put(
+            e0, del_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_MSG, intent=int(MI.DELETED),
+            key=batch.key, **corr, aux2_key=batch.aux2_key,
+        )
+        # workflow partition: CORRELATE arrival (oracle
+        # _process_wi_subscription) — CORRELATED, then the element completes
+        # with the message payload (own catch), a boundary event fires
+        # (non-interrupting keeps the subscription open), or the host
+        # terminates (interrupting, with the INSTANCE payload); CLOSE goes
+        # back to the message partition but for non-interrupting boundaries
+        _put(
+            e0, corr_live,
+            valid=True, rtype=RT_EVENT, vtype=VT_WISUB, intent=int(WS.CORRELATED),
+            key=batch.key, **corr, instance_key=batch.instance_key,
+            aux_key=batch.aux_key,
+        )
+        _put(
+            e1, corr_inst_ok,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.ELEMENT_COMPLETING), key=batch.aux_key, **inst_elem_wf,
+        )
+        corr_any_inst = corr_inst_ok
+        if graph.has_boundaries:
+            _put(
+                e1, corr_bd_non,
+                valid=True, rtype=RT_EVENT, vtype=VT_WI,
+                intent=int(WI.BOUNDARY_EVENT_OCCURRED), key=key0,
+                elem=corr_bd_elem, wf=inst_wf, scope_key=inst_scope_key,
+            )
+            _put(
+                e1, corr_bd_int,
+                valid=True, rtype=RT_EVENT, vtype=VT_WI,
+                intent=int(WI.ELEMENT_TERMINATING), key=batch.aux_key, **inst_elem_wf,
+            )
+            _put_payload(e1, corr_bd_int, inst_vt, inst_num, inst_sid)
+            corr_any_inst = corr_inst_ok | corr_bd_non | corr_bd_int
+        _put(e1, corr_any_inst, instance_key=inst_ikey)
+        _put(
+            e2, corr_inst_ok | corr_bd_int,
+            valid=True, rtype=RT_CMD, vtype=VT_MSUB, intent=int(MS.CLOSE),
+            key=-1, wf=pid_col, **corr, instance_key=batch.instance_key,
+            aux_key=batch.aux_key,
+        )
+        _put(
+            e0, corr_rej,
+            valid=True, rtype=RT_REJ, vtype=vt_, intent=it, key=batch.key, **corr,
+            instance_key=batch.instance_key, aux_key=batch.aux_key,
+            rej=rb.REJ_SUB_NOT_ACTIVE,
+            req=batch.req, req_stream=batch.req_stream, resp=resp,
+        )
+
+    # --- boundary events: arm / disarm / terminate / continue. Slots of a
+    # row on a boundary-carrying element (the oracle writes arms and
+    # cancels BEFORE the row's own step output):
+    #   0..BD-1    arm records (ELEMENT_ACTIVATED) / timer cancels (disarm)
+    #   BD..2BD-1  the disarm's subscription closes (sends)
+    #   2BD        the row's own step output (job CREATE / OPEN / COMPLETED
+    #              / job CANCEL / own CLOSE)
+    #   2BD+1..3BD TERMINATE_CATCH_EVENT's own timer cancels
+    #   3BD+1      ELEMENT_TERMINATED (terminating rows)
+    if graph.has_boundaries:
+        step_slot = eslot(2 * bdw)
+        bd_elem_r, bd_timer_r = g_rows["bd_elem"], g_rows["bd_timer"]
+        bd_msg_r, bd_corr_r = g_rows["bd_msg"], g_rows["bd_corr"]
+
+        def timer_cancel(es, tag, j, idx):
+            # the j-th armed timer the scan ``tag`` found (oracle: its
+            # self.timers scan writes TimerIntent.CANCEL)
+            _put(
+                es, idx < t_cap,
+                valid=True, rtype=RT_CMD, vtype=VT_TIMER, intent=int(TI.CANCEL),
+                key=rp[f"{tag}{j}_key"], elem=rp[f"{tag}{j}_elem"],
+                aux_key=batch.key, deadline=rp[f"{tag}{j}_due"],
+                instance_key=rp[f"{tag}{j}_ik"],
+            )
+
+        for bslot in range(bdw):
+            arm_b = m_arm & (bslot < bd_n)
+            b_elem, b_tdur = bd_elem_r[:, bslot], bd_timer_r[:, bslot]
+            b_mname = bd_msg_r[:, bslot]
+            es = eslot(bslot)
+            # timer boundary arm (oracle writes TimerIntent.CREATE)
+            _put(
+                es, arm_b & (b_tdur >= 0),
+                valid=True, rtype=RT_CMD, vtype=VT_TIMER, intent=int(TI.CREATE),
+                key=-1, elem=b_elem, aux_key=batch.key,
+                deadline=now + b_tdur.clamp(min=0),
+            )
+            # message boundary arm: correlation key from this row's payload
+            b_cvt, b_cbits, b_extractable = _corr_cols(batch, bd_corr_r[:, bslot])
+            b_sub = dict(type_id=b_mname, retries=b_cvt, worker=b_cbits,
+                         instance_key=batch.instance_key, aux_key=batch.key, wf=pid_col)
+            _put(
+                es, arm_b & (b_mname > 0) & b_extractable,
+                valid=True, rtype=RT_CMD, vtype=VT_MSUB, intent=int(MS.OPEN),
+                key=-1, elem=b_elem, **b_sub,
+            )
+            _put(
+                es, arm_b & (b_mname > 0) & ~b_extractable,
+                valid=True, rtype=RT_CMD, vtype=VT_INCIDENT, intent=0,
+                key=-1, elem=b_elem, aux_key=batch.key, rej=rb.ERR_CORRELATION_KEY,
+            )
+            # disarm: the bslot-th armed timer's cancel, and the message
+            # boundary's subscription close (sends)
+            timer_cancel(es, "c", bslot, disarm_idx[bslot])
+            _put(
+                eslot(bdw + bslot),
+                m_disarm_bd & (bslot < bd_n) & (b_mname > 0) & b_extractable,
+                valid=True, rtype=RT_CMD, vtype=VT_MSUB, intent=int(MS.CLOSE),
+                key=-1, **b_sub,
+            )
+
+        # re-slotted step outputs of boundary-carrying rows
+        _put(
+            step_slot, m_createjob & has_bd,
+            valid=True, rtype=RT_CMD, vtype=VT_JOB, intent=int(JI.CREATE),
+            key=-1, elem=batch.elem, aux_key=batch.key,
+            type_id=emeta[:, graph_mod.EM_JOB_TYPE],
+            retries=emeta[:, graph_mod.EM_JOB_RETRIES],
+        )
+        _put(
+            step_slot, outmap_ok & has_bd,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.ELEMENT_COMPLETED), key=batch.key, elem=batch.elem,
+        )
+        _put_payload(step_slot, outmap_ok & has_bd, out_vt, out_num, out_sid)
+        if graph.has_messages:
+            _put(step_slot, sub_ok & has_bd, **sub_open)
+            _put(step_slot, sub_err & has_bd, **sub_incident)
+            # TERMINATE_CATCH_EVENT: close the element's own subscription
+            _put(
+                step_slot, m_term_catch & (msg_name > 0) & corr_extractable,
+                valid=True, rtype=RT_CMD, vtype=VT_MSUB, intent=int(MS.CLOSE),
+                key=-1, type_id=msg_name, retries=corr_vt_ext, worker=corr_bits_ext,
+                instance_key=batch.instance_key, aux_key=batch.key, wf=pid_col,
+            )
+        # TERMINATE_JOB_TASK: cancel the instance's job (the oracle sends a
+        # bare record: type and headers, no payload), then TERMINATED
+        _put(
+            step_slot, mask_jcancel,
+            valid=True, rtype=RT_CMD, vtype=VT_JOB, intent=int(JI.CANCEL),
+            key=job_key_inst, elem=batch.elem, aux_key=batch.key,
+            type_id=torch.where(tj_found, rp["tj_type"], 0),
+            retries=-1,  # the JobRecord default
+            v_vt=0, v_num=0.0, v_str=0,
+        )
+        # TERMINATE_CATCH_EVENT's own timer scan: the oracle writes these
+        # cancels between the step output and TERMINATED; a timer both
+        # disarmed and terminate-scanned cancels TWICE, like the oracle's
+        # two passes over self.timers
+        for t in range(bdw):
+            timer_cancel(eslot(2 * bdw + 1 + t), "tc", t, tcan_idx[t])
+        _put(
+            eslot(3 * bdw + 1), m_term_job | m_term_catch,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.ELEMENT_TERMINATED), key=batch.key, elem=batch.elem,
+        )
+        _put(
+            e0, m_term_elem,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.ELEMENT_TERMINATED), key=batch.key, elem=batch.elem,
+        )
+        # ELEMENT_TERMINATED with a pending boundary: the token continues
+        # at the boundary event with the stored trigger payload
+        _put(
+            e0, m_bd_continue,
+            valid=True, rtype=RT_EVENT, vtype=VT_WI,
+            intent=int(WI.BOUNDARY_EVENT_OCCURRED), key=key0, elem=pending_bd,
+        )
+        cont_vt, cont_sid, cont_num = unpack_payload(rd["ei_pay"])
+        _put_payload(e0, m_bd_continue, cont_vt, cont_num, cont_sid)
+
+    # --- assemble [B, E] (a slot no record wrote is all-zero rows) +
+    # parallel-split and multi-instance fork slots
     em: Dict[str, torch.Tensor] = {}
     for name in e0:
         parts = [e0[name], e1[name]] + [
-            torch.zeros_like(e0[name]) for _ in range(2, e_w)
+            extra_slots[i][name] if i in extra_slots else torch.zeros_like(e0[name])
+            for i in range(2, e_w)
         ]
         em[name] = torch.stack(parts, dim=1)  # [B, E] or [B, E, V]
     for f in range(min(fork_fan, e_w)):
@@ -1136,6 +1645,38 @@ def step_kernel(
         for name in ("v_vt", "v_num", "v_str"):
             em[name][:, f] = torch.where(mf, getattr(batch, name), em[name][:, f])
         em["src"][:, f] = rows
+    if graph.has_multi_instance:
+        # multi-instance fan-out (oracle _h_multi_instance_split, the
+        # cardinality form): one body token per iteration, each carrying
+        # loopCounter = f + 1; the container completes when its last body
+        # token is consumed (token counting, as at a parallel join).
+        # emit_width covers the largest cardinality
+        mi_card = emeta[:, graph_mod.EM_MI_CARD]
+        lv = graph.mi_loop_var
+        mi_vt = batch.v_vt.clone()
+        mi_vt[:, lv] = VT_NUM
+        for f in range(e_w):
+            mask_f = m_mi & (f < mi_card)
+            mf = mask_f[:, None]
+            em["valid"][:, f] = mask_f | em["valid"][:, f]
+            em["rtype"][:, f] = torch.where(mask_f, RT_EVENT, em["rtype"][:, f])
+            em["vtype"][:, f] = torch.where(mask_f, VT_WI, em["vtype"][:, f])
+            em["intent"][:, f] = torch.where(
+                mask_f, int(WI.START_EVENT_OCCURRED), em["intent"][:, f]
+            )
+            em["key"][:, f] = torch.where(mask_f, wf_base + _KEY_STEP * f, em["key"][:, f])
+            em["elem"][:, f] = torch.where(mask_f, start_ev, em["elem"][:, f])
+            em["wf"][:, f] = torch.where(mask_f, batch.wf, em["wf"][:, f])
+            em["instance_key"][:, f] = torch.where(
+                mask_f, batch.instance_key, em["instance_key"][:, f]
+            )
+            em["scope_key"][:, f] = torch.where(mask_f, batch.key, em["scope_key"][:, f])
+            mi_num = batch.v_num.clone()
+            mi_num[:, lv] = float(f + 1)
+            em["v_vt"][:, f] = torch.where(mf, mi_vt, em["v_vt"][:, f])
+            em["v_num"][:, f] = torch.where(mf, mi_num, em["v_num"][:, f])
+            em["v_str"][:, f] = torch.where(mf, batch.v_str, em["v_str"][:, f])
+            em["src"][:, f] = rows
 
     # -------- state writes: fused commits, in place --------
     ei_i64_pl = state.ei_i64.view(_I32)  # [N, 6] planes of the [N, 3] keys
@@ -1160,14 +1701,30 @@ def step_kernel(
     )
     tok_vals, tok_mask = _col_op(ei_k32, EI_TOKENS, tok_v)
     ei_ops.append(ops.TableOp(T_EI32, "add", sc_clip, tok_m, tok_vals, tok_mask))
-    # start-trigger container token count (own row)
-    ts_vals, ts_mask = _col_op(ei_k32, EI_TOKENS, 1)
-    ei_ops.append(ops.TableOp(T_EI32, "set", ei_clip, m_trigstart, ts_vals, ts_mask))
+    if graph.has_boundaries:
+        # a non-interrupting boundary fires: the host's scope gains a token
+        # for the boundary path (oracle: scope.active_tokens += 1)
+        bd_vals, bd_mask = _col_op(ei_k32, EI_TOKENS, 1)
+        ei_ops.append(ops.TableOp(
+            T_EI32, "add", inst_scope_slot.clamp(0, n_cap - 1),
+            ttrig_bd_non | corr_bd_non, bd_vals, bd_mask,
+        ))
+    # start-trigger / multi-instance container token counts (own row; the
+    # container holds one token per body iteration — disjoint step kinds)
+    tokset_m, tokset_v = m_trigstart, 1
+    if graph.has_multi_instance:
+        tokset_m = m_trigstart | m_mi
+        tokset_v = torch.where(m_mi, emeta[:, graph_mod.EM_MI_CARD], 1)
+    ts_vals, ts_mask = _col_op(ei_k32, EI_TOKENS, tokset_v)
+    ei_ops.append(ops.TableOp(T_EI32, "set", ei_clip, tokset_m, ts_vals, ts_mask))
 
-    # scope payload on consume: scope value.payload = record payload
+    # scope payload on consume: scope value.payload = record payload, but
+    # for multi-instance containers, whose iteration-local variables must
+    # not leak into the container payload
     b_pay = pack_payload(batch.v_vt, batch.v_str, batch.v_num)
+    consume_pay_m = m_consume & ~mi_scope if graph.has_multi_instance else m_consume
     ei_ops.append(ops.TableOp(
-        T_EIPAY, "set", sc_clip, _last_writer(sc_clip, m_consume, n_cap), b_pay,
+        T_EIPAY, "set", sc_clip, _last_writer(sc_clip, consume_pay_m, n_cap), b_pay,
     ))
     # scope state transition by consume completer
     cc_vals, cc_mask = _col_op(ei_k32, EI_STATE, int(WI.ELEMENT_COMPLETING))
@@ -1178,26 +1735,45 @@ def step_kernel(
     # is exactly one step kind; the guards exclude two records transitioning
     # one instance row in a round)
     ei_remove = outmap_ok | m_complete_proc
-    # a job completion or a timer trigger completes the instance it names
+    # a job completion or a timer trigger completes the instance it names;
+    # an interrupting boundary terminates it
     completing = jev_completed
     if graph.has_timers:
         completing = completing | ttrig_catch
-    own_slot = torch.where(completing, aik_clip, ei_clip)
-    own_state_m = inmap_ok | completing | ei_remove
-    own_state_v = torch.where(
-        ei_remove, -1,                                     # removal wins last
-        torch.where(
-            completing, int(WI.ELEMENT_COMPLETING), int(WI.ELEMENT_ACTIVATED)
-        ),
-    )
+    own_is_aik, own_state_m = completing, inmap_ok | completing
+    if graph.has_boundaries:
+        bd_int_any = ttrig_bd_int | corr_bd_int
+        term_all = m_term_job | m_term_catch | m_term_elem
+        ei_remove = ei_remove | m_bd_continue
+        own_is_aik = own_is_aik | bd_int_any
+        own_state_m = own_state_m | bd_int_any | term_all
+    own_state_m = own_state_m | ei_remove
+    own_slot = torch.where(own_is_aik, aik_clip, ei_clip)
+    own_state_v = torch.where(completing, int(WI.ELEMENT_COMPLETING),
+                              int(WI.ELEMENT_ACTIVATED))
+    if graph.has_boundaries:
+        own_state_v = torch.where(
+            term_all, int(WI.ELEMENT_TERMINATED),
+            torch.where(bd_int_any, int(WI.ELEMENT_TERMINATING), own_state_v),
+        )
+    own_state_v = torch.where(ei_remove, -1, own_state_v)  # removal wins last
     own_vals, own_mask = _col_op(ei_k32, EI_STATE, own_state_v)
     own_mask[:, EI_STATE] = own_state_m
+    if graph.has_boundaries:
+        # the pending boundary element, recorded with the TERMINATING write
+        pending_v = corr_bd_elem
+        if graph.has_timers:
+            pending_v = torch.where(ttrig_bd_int, trig_elem, corr_bd_elem)
+        own_vals[:, EI_PENDING_BD] = pending_v
+        own_mask[:, EI_PENDING_BD] = bd_int_any
     ei_ops.append(ops.TableOp(
         T_EI32, "set", own_slot, own_state_m, own_vals, own_mask
     ))
     # own-row payloads: input mapping writes the mapped document, job
-    # completion the record payload
+    # completion and a message boundary's interruption the record payload
     own_pay_m = inmap_ok | jev_completed
+    if graph.has_messages and graph.has_boundaries:
+        own_pay_m = own_pay_m | corr_bd_int
     own_pay = b_pay
     if graph.has_mappings:
         own_pay = torch.where(
@@ -1258,6 +1834,15 @@ def step_kernel(
     ei_ops.append(ops.TableOp(
         T_EIIDX, "set", ((ins_key // 5) & (ei_icap - 1)).to(_I32), ins, ins_slot,
     ))
+    if graph.has_messages:
+        # a correlate arrival: the instance completes with the message payload
+        corr_vals, corr_mask = _col_op(ei_k32, EI_STATE, int(WI.ELEMENT_COMPLETING))
+        ei_ops.append(ops.TableOp(
+            T_EI32, "set", aik_clip, corr_inst_ok, corr_vals, corr_mask
+        ))
+        ei_ops.append(ops.TableOp(
+            T_EIPAY, "set", aik_clip, _last_writer(aik_clip, corr_inst_ok, n_cap), b_pay,
+        ))
     ops.fused_table_commit(
         [state.ei_i32, ei_i64_pl, state.ei_pay, state.free_ei, state.ei_index],
         ei_ops,
@@ -1396,8 +1981,63 @@ def step_kernel(
         map_deletes.append(ops.DeleteOp(len(map_deletes), join_key, completer))
         join_arrived = arrived != 0
         overflow = overflow | join_overflow
-    # the step's map deletes (timers, joins) in one launch: nothing later in
-    # the step reads either map
+
+    # ---------------- message stores (fused commits, in place) ----------------
+    if graph.has_messages:
+        neg = _planes(full_b(-1, _I64))
+        # subscriptions: OPEN inserts, CLOSE clears the composite; the
+        # int64 columns as int32 planes, bit for bit
+        msfree = _first_true_indices(state.msub_ckey < 0, b)
+        ms_slot_new = msfree[_excl_cumsum(open_ok).clamp(0, b - 1).to(_I64)]
+        msub_overflow = torch.any(open_ok & (ms_slot_new >= ms_cap))
+        T_MCK, T_M32, T_M64 = range(3)
+        ops.fused_table_commit(
+            [state.msub_ckey.view(_I32).view(ms_cap, 2), state.msub_i32,
+             state.msub_i64.view(_I32)],
+            [
+                ops.TableOp(T_MCK, "set", ms_slot_new, open_ok, _planes(ckey)),
+                ops.TableOp(T_M32, "set", ms_slot_new, open_ok, torch.stack(
+                    [batch.type_id, batch.retries, batch.worker, batch.wf], dim=-1)),
+                ops.TableOp(T_M64, "set", ms_slot_new, open_ok, _planes(
+                    torch.stack([batch.instance_key, batch.aux_key], dim=-1))),
+                ops.TableOp(T_MCK, "set", msub_clip, close_ok, neg),
+            ],
+        )
+        _m, msub_ins_ok = ops.insert(state.msub_map, ckey, ms_slot_new, open_ok)
+        # stored messages: a PUBLISH with a TTL stores, DELETE clears
+        mgfree = _first_true_indices(state.msg_key < 0, b)
+        mg_slot_new = mgfree[_excl_cumsum(pub_store).clamp(0, b - 1).to(_I64)]
+        msg_overflow = torch.any(pub_store & (mg_slot_new >= mg_cap))
+        T_GK, T_GCK, T_G32, T_GDL, T_GPAY = range(5)
+        ops.fused_table_commit(
+            [state.msg_key.view(_I32).view(mg_cap, 2),
+             state.msg_ckey.view(_I32).view(mg_cap, 2), state.msg_i32,
+             state.msg_deadline.view(_I32).view(mg_cap, 2), state.msg_pay],
+            [
+                ops.TableOp(T_GK, "set", mg_slot_new, pub_store, _planes(key0)),
+                ops.TableOp(T_GCK, "set", mg_slot_new, pub_store, _planes(ckey)),
+                ops.TableOp(T_G32, "set", mg_slot_new, pub_store, torch.stack(
+                    [batch.type_id, batch.retries, batch.worker,
+                     batch.aux2_key.to(_I32)], dim=-1)),
+                ops.TableOp(T_GDL, "set", mg_slot_new, pub_store,
+                            _planes(now + batch.deadline)),
+                ops.TableOp(T_GPAY, "set", mg_slot_new, pub_store, b_pay),
+                ops.TableOp(T_GK, "set", mmsg_clip, del_ok, neg),
+                ops.TableOp(T_GDL, "set", mmsg_clip, del_ok, neg),
+            ],
+        )
+        _m, msg_ins_ok = ops.insert(state.msg_map, ckey, mg_slot_new, pub_store)
+        # each insert precedes its delete (in the fused delete below), as
+        # in the JAX kernel; nothing between them reads either map
+        map_tables += [state.msub_map, state.msg_map]
+        map_deletes.append(ops.DeleteOp(len(map_deletes), ckey, close_ok))
+        map_deletes.append(ops.DeleteOp(len(map_deletes), ckey, del_ok))
+        overflow = (
+            overflow | msub_overflow | msg_overflow
+            | ~torch.all(msub_ins_ok == open_ok) | ~torch.all(msg_ins_ok == pub_store)
+        )
+    # the step's map deletes (timers, joins, the message stores) in one
+    # launch: nothing later in the step reads any of the maps
     ops.fused_delete(map_tables, map_deletes)
 
     # ---------------- output compaction ----------------
@@ -1438,3 +2078,72 @@ def step_kernel(
     }
     return new_state, out, stats
 
+
+
+def tick_kernel(state: EngineState, now) -> Tuple[RecordBatch, torch.Tensor]:
+    """Due-timer and job-deadline scan → a batch of TRIGGER / TIME_OUT
+    commands and their count (reference JobTimeOutStreamProcessor and the
+    oracle's check_*_deadlines), ordered by key like the oracle's sorted
+    iteration. Reads the state only; one fused gather takes the due rows."""
+    t_cap = state.timer_key.shape[0]
+    m_cap = state.job_i32.shape[0]
+    size = t_cap + m_cap
+    dev = state.timer_key.device
+    timer_due = (state.timer_key >= 0) & (state.timer_due <= now)
+    job_due = (
+        (state.job_state == int(JI.ACTIVATED))
+        & (state.job_deadline >= 0)
+        & (state.job_deadline <= now)
+    )
+    keys = torch.cat([state.timer_key, state.job_key])
+    due = torch.cat([timer_due, job_due])
+    order = torch.argsort(torch.where(due, keys, 2**62), stable=True)
+    count = torch.sum(due, dtype=_I32)
+    is_timer = order < t_cap
+    tidx = order.clamp(max=t_cap - 1)
+    jidx = (order - t_cap).clamp(0, m_cap - 1)
+    rows = _gather_named({
+        "key": (keys, order),
+        "t_elem": (state.timer_elem, tidx), "t_wf": (state.timer_wf, tidx),
+        "t_ik": (state.timer_instance_key, tidx), "t_aik": (state.timer_aik, tidx),
+        "t_due": (state.timer_due, tidx),
+        "j_i32": (state.job_i32, jidx), "j_i64": (state.job_i64, jidx),
+        "j_pay": (state.job_pay, jidx),
+    })
+    j32, j64 = rows["j_i32"], rows["j_i64"]
+    jb_vt, jb_sid, jb_num = unpack_payload(rows["j_pay"])
+    t_col = is_timer[:, None]
+
+    def pick(timer, job):
+        return torch.where(is_timer, timer, job)
+
+    def full(value, dtype):
+        return torch.full((size,), value, dtype=dtype, device=dev)
+
+    out = RecordBatch(
+        valid=torch.arange(size, dtype=_I32, device=dev) < count,
+        rtype=full(RT_CMD, _I32),
+        vtype=pick(VT_TIMER, VT_JOB).to(_I32),
+        intent=pick(int(TI.TRIGGER), int(JI.TIME_OUT)).to(_I32),
+        key=rows["key"],
+        elem=pick(rows["t_elem"], j32[:, JB_ELEM]),
+        wf=pick(rows["t_wf"], j32[:, JB_WF]),
+        instance_key=pick(rows["t_ik"], j64[:, JBL_IKEY]),
+        scope_key=full(-1, _I64),
+        v_vt=torch.where(t_col, 0, jb_vt).to(torch.int8),
+        v_num=torch.where(t_col, 0.0, jb_num),
+        v_str=torch.where(t_col, 0, jb_sid),
+        req=full(-1, _I64),
+        req_stream=full(-1, _I32),
+        aux_key=pick(rows["t_aik"], j64[:, JBL_AIK]),
+        aux2_key=full(-1, _I64),
+        type_id=pick(0, j32[:, JB_TYPE]),
+        retries=pick(0, j32[:, JB_RETRIES]),
+        deadline=pick(rows["t_due"], j64[:, JBL_DEADLINE]),
+        worker=pick(0, j32[:, JB_WORKER]),
+        src=full(-1, _I32),
+        resp=torch.zeros((size,), dtype=_BOOL, device=dev),
+        push=torch.zeros((size,), dtype=_BOOL, device=dev),
+        rej=torch.zeros((size,), dtype=_I32, device=dev),
+    )
+    return out, count

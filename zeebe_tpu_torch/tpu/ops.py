@@ -1,8 +1,7 @@
 """The step kernel's table primitives: CUDA kernels and their plain versions.
 
-Counterpart of ``zeebe_tpu.tpu.pallas_ops`` for the primitives the ported
-paths run (the order-process graph with every feature gate off, and the
-parallel fork/join graph):
+Counterpart of ``zeebe_tpu.tpu.pallas_ops`` for the primitives the step
+kernel runs with every feature gate:
 
 - ``fused_gather_rows``  ↔ ``pallas_ops.fused_gather_rows`` (csrc/gather_rows.cu)
 - ``fused_table_commit`` ↔ ``pallas_ops.fused_table_commit`` (csrc/table_commit.cu)

@@ -11,8 +11,9 @@ dtypes and shapes, so the arrays of a JAX engine's state (or of its
 - jobs: the same layout for the job state machine
 - parallel joins: key, fan-in, arrival flags, merged payload, flow-position
   stamps and a key → slot hashmap (the fork/join path of the kernel)
-- timers, message subscriptions, stored messages: carried (their kernel
-  paths belong to later feature slices)
+- timers (key, due date, activity instance, handler element) and the
+  message partition's store (open subscriptions, stored messages), each
+  with a key → slot hashmap
 - job worker subscriptions and the strided key counters
 
 Write-path note: the step kernel commits the element-instance group and
