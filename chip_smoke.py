@@ -12,7 +12,9 @@ lookup also as a config-1 step's fused fallback probes against two
 calls and as config 4's five probes in one launch, the insert also at the rebuild shape, round 1 alone, and captured
 in a CUDA graph, the delete also on chains that wrap past the table's
 end or run out, and as the step's two and the demotion's four deletes in
-one ``fused_delete``). It checks the drive loop on the card bit-equal to the same
+one ``fused_delete``), and runs table commits and inserts from two
+threads at once, bit-equal to the same calls one thread after the other
+(the claim scratch the threads share). It checks the drive loop on the card bit-equal to the same
 loop on the CPU on configs 1, 3, 2, 4 (with its tick) and 5 and an
 I/O-mapping graph, one config-4 wave at full width (the main path's
 launch shapes), one mixed and one timer step and two ``tick_kernel``
@@ -42,7 +44,16 @@ equal to the same runs' on the CPU, and config 2's, the timers', config
 4's and config 5's equal to the port's host oracle at full credit. Phase
 7 runs the primitive-cost probe
 (``zeebe_tpu_torch.probe``: the row loop and the hash probe against
-``index_put_``).
+``index_put_``). Phase 8 serves the cluster path (``bench.py:312``
+``run_serving_path``): 8a, 2,048 instances from 8 threads through
+``ClusterClient`` over TCP to one ``ClusterBroker`` (raft append and
+commit, the wave scheduler's drain) with ``[engine] type = "cuda"``, every
+instance completed once, rates, latency percentiles and host and device
+seconds, then the same with the host oracle, whose log must hold the same
+records; 8b, three brokers with two partitions on the card, each
+follower holding the device snapshot, a leader closed and its successor
+restored from the snapshot serving on; 8c, ``python -m zeebe_tpu_torch``
+with ``ZEEBE_ENGINE_TYPE=cuda`` started, served and stopped with SIGTERM.
 
     python3 chip_smoke.py                     # the full check, one CUDA card
     python3 chip_smoke.py --profile --out F   # + one wave of each config (with
@@ -1996,6 +2007,110 @@ def check_probe(dev, gen):
     }
 
 
+# the two-thread case: table commits and inserts a thread, as a cluster
+# node's drain actors issue them (one per broker)
+THREAD_COMMITS = 1000
+THREAD_INSERTS = 100
+
+
+def _thread_calls(dev, gen):
+    """One thread's tables and calls: a [4096, 8] table and a [4096] one
+    under set-heavy commits (B = 1024, a quarter of the slots in 16 rows),
+    and a map of 2^15 buckets under inserts of 128 fresh keys each."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import hashmap, ops
+
+    n, b = 4096, 1024
+
+    def ri(shape):
+        return torch.randint(-1000, 1000, shape, generator=gen, dtype=torch.int32).to(dev)
+
+    def slots():
+        s = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32)
+        s[: b // 4] = torch.randint(0, 16, (b // 4,), generator=gen, dtype=torch.int32)
+        return s.to(dev)
+
+    def active():
+        return (torch.rand((b,), generator=gen) < 0.8).to(dev)
+
+    tables = [ri((n, 8)), ri((n,))]
+    commits = [[ops.TableOp(0, "set", slots(), active(), ri((b, 8))),
+                ops.TableOp(0, "add", slots(), active(), ri((b, 8))),
+                ops.TableOp(1, "set", slots(), active(), ri((b,))),
+                ops.TableOp(0, "set", slots(), active(), ri((b, 8)),
+                            (torch.rand((b, 8), generator=gen) < 0.5).to(dev))]
+               for _ in range(THREAD_COMMITS)]
+    keys = torch.randperm(1 << 20, generator=gen)[: 128 * THREAD_INSERTS].to(dev) + 1
+    inserts = [(keys[128 * i: 128 * (i + 1)], (keys[128 * i: 128 * (i + 1)] % 997)
+                .to(torch.int32), torch.ones(128, dtype=torch.bool, device=dev))
+               for i in range(THREAD_INSERTS)]
+    return tables, hashmap.make(1 << 15, device=dev), commits, inserts
+
+
+def _run_thread_calls(tables, table, commits, inserts):
+    from zeebe_tpu_torch.tpu import ops
+
+    every = THREAD_COMMITS // THREAD_INSERTS
+    for k, cops in enumerate(commits):
+        ops.fused_table_commit(tables, cops)
+        if k % every == every - 1:
+            ops.insert(table, *inserts[k // every])
+
+
+def check_two_threads(dev):
+    """Two threads, each with tables of its own, run THREAD_COMMITS table
+    commits and THREAD_INSERTS inserts at once on one card; every table
+    ends bit-equal to the same calls run one thread after the other. The
+    claim scratch is shared: an epoch launched after a higher one on the
+    same claim words would lose its writes (ops._claims)."""
+    import threading
+
+    import torch
+
+    serial, threaded = ([_thread_calls(dev, torch.Generator().manual_seed(77 + t))
+                         for t in range(2)] for _ in range(2))
+    t0 = time.perf_counter()
+    for tables, table, commits, inserts in serial:
+        _run_thread_calls(tables, table, commits, inserts)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    errors = []
+
+    def run(calls):
+        try:
+            _run_thread_calls(*calls)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # interleave the threads between any two calls
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(calls,)) for calls in threaded]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        torch.cuda.synchronize()
+        threaded_s = time.perf_counter() - t0
+    finally:
+        sys.setswitchinterval(switch)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"two-thread case: {errors or 'a thread did not finish'}")
+    for t, (a, b) in enumerate(zip(serial, threaded)):
+        for name, x, y in (("table", a[0][0], b[0][0]), ("lane table", a[0][1], b[0][1]),
+                           ("map keys", a[1].keys, b[1].keys),
+                           ("map vals", a[1].vals, b[1].vals)):
+            if not torch.equal(x, y):
+                cells = int((x != y).sum())
+                raise AssertionError(
+                    f"two-thread case: thread {t}'s {name} differs from the serial "
+                    f"run in {cells} cells")
+    return {"commits": 2 * THREAD_COMMITS, "inserts": 2 * THREAD_INSERTS,
+            "serial_seconds": serial_s, "threaded_seconds": threaded_s}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the whole path on the card against the same path on the CPU
 # ---------------------------------------------------------------------------
@@ -2695,6 +2810,557 @@ def serve_parity(workdir, instances=SERVE_INSTANCES_C3):
             "cuda_seconds": wa, "cpu_seconds": wc}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the cluster serving path — ClusterClient → TCP → ClusterBroker →
+# raft append and commit → the WaveScheduler drain → CudaPartitionEngine →
+# worker push (bench.py:312 run_serving_path)
+# ---------------------------------------------------------------------------
+
+# bench.py's serving settings: 2,048 instances from 8 pump threads, one
+# worker with 256 credits, capacity max(4096, 2 * 2048) (bench.py:312-420)
+CLUSTER_INSTANCES = 2048
+CLUSTER_PUMPS = 8
+CLUSTER_PHASE_LIMIT_S = 300
+# 8b: three brokers, replication factor 3, two partitions
+FAILOVER_INSTANCES = 256
+# 8c: instances served through python -m zeebe_tpu_torch
+ENTRY_INSTANCES = 64
+# the wrappers a served config-1 wave launches (no rebuild is needed at
+# these key counts, so the insert is the engines' install and warm())
+CLUSTER_KERNELS = ("fused_gather_rows", "fused_table_commit", "lookup")
+
+
+def serve_bench_model():
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    return (Bpmn.create_process("serve-bench").start_event()
+            .service_task("work", type="payment-service").end_event().done())
+
+
+def _cluster_cfg(node_id, engine_type, partitions=1, fast=False):
+    from zeebe_tpu_torch.runtime.config import BrokerCfg
+
+    cfg = BrokerCfg()
+    cfg.network.client_port = 0
+    cfg.network.management_port = 0
+    cfg.network.subscription_port = 0
+    cfg.metrics.port = 0
+    cfg.metrics.enabled = False
+    cfg.cluster.node_id = node_id
+    cfg.cluster.partitions = partitions
+    cfg.engine.type = engine_type
+    cfg.engine.capacity = max(4096, 2 * CLUSTER_INSTANCES)
+    if fast:  # tests/test_cluster.py:39-54's timings
+        cfg.raft.heartbeat_interval_ms = 30
+        cfg.raft.election_timeout_ms = 200
+        cfg.gossip.probe_interval_ms = 50
+        cfg.gossip.probe_timeout_ms = 250
+        cfg.gossip.sync_interval_ms = 500
+        cfg.data.snapshot_replication_period_ms = 300
+    return cfg
+
+
+def _gc_pauses():
+    """Record the garbage collector's pauses from now on. A pause stops
+    every broker of this process at once, and a pause longer than the
+    election timeout reads to their raft as a leader gone quiet. Returns
+    a function that stops recording and gives (pauses over 100 ms, the
+    longest in seconds)."""
+    import gc
+
+    began, pauses = [0.0], []
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            began[0] = time.perf_counter()
+        else:
+            pauses.append(time.perf_counter() - began[0])
+
+    gc.callbacks.append(on_gc)
+
+    def stop():
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
+        return sum(p > 0.1 for p in pauses), max(pauses, default=0.0)
+
+    return stop
+
+
+def _freeze_heap():
+    """Collect, then move every object left to the collector's permanent
+    generation: the brokers a phase starts share this process with what
+    the earlier phases left, and a full collection over it all would pause
+    them together (a node of a real cluster runs in a process of its own)."""
+    import gc
+
+    gc.collect()
+    gc.freeze()
+
+
+def _wait(predicate, timeout, what):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def _completions(log_):
+    """instance key → process-level ELEMENT_COMPLETED events in the
+    committed log, and the counts of (record type, value type, intent)."""
+    import collections
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+
+    done, kinds = collections.Counter(), collections.Counter()
+    for r in log_.reader(0).read_committed():
+        md = r.metadata
+        kinds[(md.record_type.name, md.value_type.name, int(md.intent))] += 1
+        if (md.value_type == ValueType.WORKFLOW_INSTANCE
+                and md.record_type == RecordType.EVENT
+                and int(md.intent) == int(WI.ELEMENT_COMPLETED)
+                and r.key == r.value.workflow_instance_key):
+            done[r.key] += 1
+    return done, kinds
+
+
+def _activations(log_):
+    """Of the committed log: the job keys with more than one ACTIVATE
+    command, the count of ACTIVATE commands, and the count of JOB commands
+    rejected. A job activated twice shows as a second ACTIVATE and its
+    rejection."""
+    import collections
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import JobIntent
+
+    activates, rejected = collections.Counter(), 0
+    for r in log_.reader(0).read_committed():
+        md = r.metadata
+        if md.value_type != ValueType.JOB:
+            continue
+        if md.record_type == RecordType.COMMAND and int(md.intent) == int(JobIntent.ACTIVATE):
+            activates[r.key] += 1
+        rejected += md.record_type == RecordType.COMMAND_REJECTION
+    return [k for k, n in activates.items() if n > 1], sum(activates.values()), rejected
+
+
+def cluster_serve(engine_type, workdir):
+    """8a: one ClusterBroker node with the BrokerCfg() defaults (waveSize
+    512) and ports the OS picks, its engine from
+    ``engine_factory_from_config`` ([engine] type = ``engine_type``), a
+    ClusterClient over TCP, the serve-bench process, one worker with 256
+    credits; one warm-up instance, then CLUSTER_INSTANCES from
+    CLUSTER_PUMPS threads. Every instance must complete exactly once inside
+    the phase limit."""
+    import statistics as stats
+    import tempfile
+    import threading
+
+    from zeebe_tpu_torch.gateway.cluster_client import ClusterClient
+    from zeebe_tpu_torch.runtime.cluster_broker import ClusterBroker
+    from zeebe_tpu_torch.runtime.engines import engine_factory_from_config
+    from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+
+    instances, pumps = CLUSTER_INSTANCES, CLUSTER_PUMPS
+    _freeze_heap()
+    cfg = _cluster_cfg("serve-0", engine_type)
+    broker = ClusterBroker(cfg, tempfile.mkdtemp(prefix="cluster-", dir=workdir),
+                           engine_factory=engine_factory_from_config(cfg))
+    client = None
+    try:
+        t_start = time.perf_counter()
+        broker.open_partition(0).join(600)
+        broker.bootstrap_partition(0, {})
+        _wait(lambda: broker.partitions[0].is_leader, 600, "leadership")
+        leader_s = time.perf_counter() - t_start
+        client = ClusterClient([broker.client_address], num_partitions=1,
+                               request_timeout_ms=300_000)
+        client.deploy_model(serve_bench_model())
+        done_cond = threading.Condition()
+        done_at, pushes = {}, [0]
+
+        def on_job(pid, rec):
+            with done_cond:
+                done_at.setdefault(rec.value.headers.workflow_instance_key,
+                                   time.perf_counter())
+                pushes[0] += 1
+                done_cond.notify_all()
+            return {}
+
+        worker = client.open_job_worker("payment-service", on_job, credits=SERVE_CREDITS)
+        client.create_instance("serve-bench", payload={"w": 1})  # warm-up
+        with done_cond:
+            if not done_cond.wait_for(lambda: pushes[0] > 0, timeout=240):
+                raise AssertionError(f"8a {engine_type}: the warm-up instance never completed")
+        counter = GLOBAL_REGISTRY.counter
+        names = ("serving_waves_total", "serving_wave_records_total",
+                 "serving_host_seconds_total", "serving_device_seconds_total")
+        at_t0 = {n: counter(n).value for n in names}
+        records_t0 = broker.partitions[0].log.next_position
+        warm_pushes = pushes[0]
+        starts, errors = {}, []
+
+        def pump(k):
+            for _ in range(instances // pumps):
+                t_send = time.perf_counter()
+                try:
+                    rsp = client.create_instance("serve-bench", payload={"k": k})
+                except Exception as e:  # noqa: BLE001 - reported below as a failure
+                    errors.append(repr(e)[:200])
+                    return
+                starts[rsp.value.workflow_instance_key] = t_send
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=pump, args=(k,), daemon=True)
+                   for k in range(pumps)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(CLUSTER_PHASE_LIMIT_S)
+        with done_cond:
+            done_cond.wait_for(lambda: pushes[0] - warm_pushes >= instances,
+                               timeout=max(1.0, CLUSTER_PHASE_LIMIT_S
+                                           - (time.perf_counter() - t0)))
+        elapsed = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"8a {engine_type}: pumps failed: {errors[:3]}")
+        if len(starts) != instances or pushes[0] - warm_pushes != instances:
+            raise AssertionError(f"8a {engine_type}: {len(starts)} created, "
+                                 f"{pushes[0] - warm_pushes} pushed of {instances} "
+                                 f"in {elapsed:.1f} s")
+        records = broker.partitions[0].log.next_position - records_t0
+        now = {n: counter(n).value - at_t0[n] for n in names}
+        worker.close()
+        # every instance's end is committed, exactly once
+        log_ = broker.partitions[0].log
+        _wait(lambda: set(starts) <= set(_completions(log_)[0]), 60,
+              "every instance's end in the log")
+        done, kinds = _completions(log_)
+        twice = [k for k in starts if done[k] != 1]
+        if twice or len(done) != instances + 1:
+            raise AssertionError(f"8a {engine_type}: {len(done)} instances completed, "
+                                 f"not once: {twice[:5]}")
+        engine = broker.partitions[0].engine
+        latencies = sorted(done_at[k] - t for k, t in starts.items())
+        out = {
+            "engine": engine_type, "instances": instances, "pumps": pumps,
+            "credits": SERVE_CREDITS, "leader_seconds": leader_s,
+            "records": records, "elapsed_seconds": elapsed,
+            "records_per_sec": records / elapsed, "instances_per_sec": instances / elapsed,
+            "p50_latency_ms": 1000 * latencies[len(latencies) // 2],
+            "p99_latency_ms": 1000 * latencies[min(len(latencies) - 1,
+                                                   int(len(latencies) * 0.99))],
+            "mean_latency_ms": 1000 * stats.fmean(latencies),
+            "waves": now["serving_waves_total"],
+            "wave_records": now["serving_wave_records_total"],
+            "host_seconds": now["serving_host_seconds_total"],
+            "device_seconds": now["serving_device_seconds_total"],
+            "kinds": kinds, "engine_class": type(engine).__name__,
+        }
+        if engine_type == "cuda":
+            from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+            if not isinstance(engine, CudaPartitionEngine):
+                raise AssertionError(f"8a: the partition is served by {type(engine)}")
+            if engine.device.type != "cuda":
+                raise AssertionError(f"8a: the engine is on {engine.device}")
+            if engine.device_records_processed <= 0 or engine.host_only_reasons:
+                raise AssertionError(
+                    f"8a: device records {engine.device_records_processed}, host-only "
+                    f"{engine.host_only_reasons}")
+            out["device_records"] = engine.device_records_processed
+            out["host_records"] = engine.host_records_processed
+        return out
+    finally:
+        if client is not None:
+            client.close()
+        broker.close()
+
+
+def cluster_failover(workdir):
+    """8b: three ClusterBrokers in this process, replication factor 3 and
+    two partitions, both served by CudaPartitionEngine on one card.
+    FAILOVER_INSTANCES per partition, then ``snapshot_all()`` on each leader:
+    every replica holds a snapshot that decodes as FORMAT_DEVICE_V1. The
+    leader of partition 0 is closed; its successor's engine is restored
+    from the snapshot plus a replay of the committed log and serves
+    as many more. Every instance completes exactly once, no job is
+    activated twice in a leader's log, and the surviving replicas'
+    committed logs are equal up to their common commit position. A
+    replica that installed a replicated snapshot holds only the records
+    after it, so each check reads what the survivors' logs hold."""
+    import tempfile
+
+    from zeebe_tpu_torch.gateway.cluster_client import ClusterClient
+    from zeebe_tpu_torch.log import stateser
+    from zeebe_tpu_torch.runtime.cluster_broker import ClusterBroker
+    from zeebe_tpu_torch.runtime.engines import engine_factory_from_config
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+    instances = FAILOVER_INSTANCES
+    root = tempfile.mkdtemp(prefix="failover-", dir=workdir)
+    _freeze_heap()
+    gc_pauses = _gc_pauses()
+    restored = []
+    restore = CudaPartitionEngine.restore_state
+
+    def recording_restore(self, snap):
+        restored.append(self)
+        return restore(self, snap)
+
+    CudaPartitionEngine.restore_state = recording_restore
+    brokers, client = {}, None
+    try:
+        t0 = time.perf_counter()
+        for i in range(3):
+            cfg = _cluster_cfg(f"b{i}", "cuda", partitions=2, fast=True)
+            brokers[f"b{i}"] = ClusterBroker(
+                cfg, os.path.join(root, f"b{i}"),
+                engine_factory=engine_factory_from_config(cfg))
+        nodes = list(brokers.values())
+        for broker in nodes[1:]:
+            broker.join([nodes[0].gossip_address]).join(10)
+        for pid in (0, 1):
+            addrs = {n: b.open_partition(pid).join(10) for n, b in brokers.items()}
+            for n, b in brokers.items():
+                b.bootstrap_partition(pid, {m: a for m, a in addrs.items() if m != n})
+
+        def leader_of(pid):
+            for b in brokers.values():
+                server = b.partitions.get(pid)
+                if server is not None and server.is_leader and server.engine is not None:
+                    return b
+            return None
+
+        _wait(lambda: leader_of(0) and leader_of(1), 120, "both partitions' leaders")
+        client = ClusterClient([b.client_address for b in brokers.values()],
+                               num_partitions=2, request_timeout_ms=120_000)
+        client.deploy_model(serve_bench_model())
+        worker = client.open_job_worker("payment-service", lambda pid, rec: {},
+                                        credits=SERVE_CREDITS)
+
+        def create(pid, n):
+            return [client.create_instance("serve-bench", {"i": i}, partition_id=pid)
+                    .value.workflow_instance_key for i in range(n)]
+
+        def completed(pid):
+            leader = leader_of(pid)
+            return _completions(leader.partitions[pid].log)[0] if leader else {}
+
+        def problems(pid, keys, must):
+            """What the current leader's log shows against exactly once:
+            keys completed twice, completions of no created instance, and
+            ``must`` keys not completed yet."""
+            done = completed(pid)
+            twice = [k for k in done if done[k] != 1]
+            stray = set(done) - set(keys)
+            return twice, stray, set(must) - set(done)
+
+        def views():
+            """Each replica's partitions (raft state, term, serving, engine,
+            commit, read cursor) and the worker's subscriptions, for a
+            failure's message."""
+            replicas = {f"{n}/p{p}": (s.raft.state.value, s.raft.term, s.is_leader,
+                                      s.engine is not None, s.log.commit_position,
+                                      s.next_read_position)
+                        for n, b in brokers.items() for p, s in sorted(b.partitions.items())}
+            return (f"replicas {replicas}; worker subscribed at "
+                    f"{worker._subscribed_addr} terms {worker._subscribed_term}, "
+                    f"{len(worker.handled)} jobs pushed")
+
+        def settle(pid, keys, must, what):
+            deadline = time.monotonic() + 120
+            while any(problems(pid, keys, must)):
+                if time.monotonic() > deadline:
+                    twice, stray, missing = problems(pid, keys, must)
+                    raise AssertionError(
+                        f"8b: {what}: {len(twice)} completed twice {twice[:5]}, "
+                        f"{len(stray)} stray {sorted(stray)[:5]}, {len(missing)} of "
+                        f"{len(set(must))} not completed {sorted(missing)[:5]}; {views()}")
+                time.sleep(0.05)
+
+        created = {pid: create(pid, instances) for pid in (0, 1)}
+        for pid in (0, 1):
+            settle(pid, created[pid], created[pid], f"partition {pid}'s instances")
+        serve_s = time.perf_counter() - t0
+        for pid in (0, 1):
+            leader = leader_of(pid)
+            engine = leader.partitions[pid].engine
+            if not isinstance(engine, CudaPartitionEngine) or engine.device.type != "cuda":
+                raise AssertionError(f"8b: partition {pid} served by {engine}")
+            leader.snapshot_all()
+        _wait(lambda: all(b.partitions[p].snapshots.storage.list()
+                          for b in brokers.values() for p in (0, 1)), 120,
+              "every replica's snapshot")
+        for b in brokers.values():
+            for pid in (0, 1):
+                server = b.partitions[pid]
+                state, _meta = server.snapshots.recover(server.log.next_position - 1)
+                if state is None or state.get("fmt") != stateser.FORMAT_DEVICE_V1:
+                    raise AssertionError(f"8b: {b.node_id} holds no device snapshot "
+                                         f"of partition {pid}")
+        old = leader_of(0)
+        t1 = time.perf_counter()
+        old.close()
+        del brokers[old.node_id]
+        _wait(lambda: leader_of(0) is not None, 120, "partition 0's new leader")
+        failover_s = time.perf_counter() - t1
+        engine = leader_of(0).partitions[0].engine
+        if not isinstance(engine, CudaPartitionEngine) or not any(
+                e is engine for e in restored):
+            raise AssertionError("8b: the new leader's engine is not restored "
+                                 "from the snapshot")
+        t2 = time.perf_counter()
+        after = create(0, instances)
+        settle(0, created[0] + after, after, "partition 0's instances after the failover")
+        after_s = time.perf_counter() - t2
+        _wait(lambda: leader_of(1) is not None, 120, "partition 1's leader")
+        settle(1, created[1], (), "partition 1's instances after the failover")
+        worker.close()
+        activations = {}
+        for pid in (0, 1):
+            twice, activations[pid], rejected = _activations(leader_of(pid).partitions[pid].log)
+            if twice or rejected:
+                raise AssertionError(f"8b: partition {pid}: jobs activated twice "
+                                     f"{twice[:5]}, {rejected} job commands rejected")
+        common_positions = {}
+        for pid in (0, 1):
+            logs = [b.partitions[pid].log for b in brokers.values()]
+            common = min(lg.commit_position for lg in logs)
+            views = [[(r.position, r.raft_term, r.timestamp, int(r.metadata.record_type),
+                       int(r.metadata.value_type), int(r.metadata.intent), r.key,
+                       r.source_record_position)
+                      for r in lg.reader(0).read_committed() if r.position <= common]
+                     for lg in logs]
+            first = max(v[0][0] for v in views if v)
+            views = [[r for r in v if r[0] >= first] for v in views]
+            if not views[0] or any(v != views[0] for v in views[1:]):
+                raise AssertionError(f"8b: partition {pid}'s replicas disagree")
+            common_positions[pid] = (first, common)
+        return {"instances_per_partition": instances, "serve_seconds": serve_s,
+                "failover_seconds": failover_s, "after_failover_seconds": after_s,
+                "leader_terms": {pid: leader_of(pid).partitions[pid].raft.term
+                                 for pid in (0, 1)},
+                "gc_pauses": gc_pauses(),
+                "restored_engines": len(restored), "common_positions": common_positions,
+                "job_activations_checked": activations}
+    finally:
+        CudaPartitionEngine.restore_state = restore
+        gc_pauses()
+        if client is not None:
+            client.close()
+        for b in brokers.values():
+            b.close()
+
+
+def entry_point(workdir):
+    """8c: ``python -m zeebe_tpu_torch`` with the Dockerfile's argument
+    vector and ``ZEEBE_ENGINE_TYPE``, spawned as tests/test_launcher.py
+    spawns the JAX package's node: it starts with ``engine=cuda``, serves
+    ENTRY_INSTANCES through ClusterClient (the gRPC gateway is
+    optional: grpcio may be absent), shows device waves on its /metrics
+    endpoint, and exits 0 on SIGTERM."""
+    import re
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    from zeebe_tpu_torch.gateway.cluster_client import ClusterClient
+    from zeebe_tpu_torch.transport import RemoteAddress
+
+    instances = ENTRY_INSTANCES
+    here = os.path.dirname(os.path.abspath(__file__))
+    offset = None
+    for off in range(100, 900, 7):
+        try:
+            for base in (26500, 26501, 26502, 26503, 26504, 9600):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", base + 10 * off))
+            offset = off
+            break
+        except OSError:
+            continue
+    if offset is None:
+        raise AssertionError("8c: no free port block")
+    env = dict(os.environ, ZEEBE_NODE_ID="node-0", ZEEBE_HOST="127.0.0.1",
+               ZEEBE_PORT_OFFSET=str(offset), ZEEBE_ENGINE_TYPE="cuda")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zeebe_tpu_torch", "--config",
+         os.path.join(here, "dist", "zeebe.cfg.toml"), "--data-dir",
+         tempfile.mkdtemp(prefix="node-", dir=workdir)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line)
+
+    threading.Thread(target=drain, daemon=True).start()
+    client = None
+    try:
+        _wait(lambda: any("zeebe-tpu broker" in ln for ln in lines) or proc.poll() is not None,
+              120, "the node's start-up line")
+        start = next((ln for ln in lines if "zeebe-tpu broker" in ln), "")
+        if "engine=cuda" not in start:
+            raise AssertionError("8c: the node did not start with engine=cuda:\n"
+                                 + "".join(lines))
+        host, port = re.search(r"client=(\S+):(\d+)", start).groups()
+        client = ClusterClient([RemoteAddress(host, int(port))], num_partitions=1,
+                               request_timeout_ms=120_000)
+        deadline = time.monotonic() + 120
+        while True:  # the node bootstraps its partition after the line
+            try:
+                client.deploy_model(serve_bench_model())
+                break
+            except Exception:  # noqa: BLE001 - retried until the deadline
+                if time.monotonic() > deadline or proc.poll() is not None:
+                    raise
+                time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        pushed = []
+        worker = client.open_job_worker("payment-service",
+                                        lambda pid, rec: pushed.append(rec.key) or {})
+        t1 = time.perf_counter()
+        for i in range(instances):
+            client.create_instance("serve-bench", {"i": i})
+        _wait(lambda: len(pushed) >= instances, 120, "8c's jobs")
+        serve_s = time.perf_counter() - t1
+        worker.close()
+        client.close()
+        client = None
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{9600 + 10 * offset}/metrics", timeout=10) as rsp:
+            metrics = rsp.read().decode()
+        device_s = sum(float(m) for m in re.findall(
+            r"^zb_serving_device_seconds_total(?:\{[^}]*\})? (\S+)", metrics, re.M))
+        waves = sum(float(m) for m in re.findall(
+            r"^zb_serving_waves_total(?:\{[^}]*\})? (\S+)", metrics, re.M))
+        if waves <= 0 or device_s <= 0:
+            raise AssertionError(f"8c: the node's /metrics shows {waves} waves and "
+                                 f"{device_s} device seconds")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"8c: the node exited {rc}:\n" + "".join(lines[-20:]))
+        gateway = next((ln.strip() for ln in lines
+                        if "gateway" in ln and ("disabled" in ln or "gRPC" in ln)), "")
+        return {"instances": instances, "ready_seconds": ready_s,
+                "serve_seconds": serve_s, "waves": waves, "device_seconds": device_s,
+                "gateway": gateway, "exit_code": rc, "start_line": start.strip()}
+    finally:
+        if client is not None:
+            client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measured number here (JSON)")
@@ -2773,6 +3439,13 @@ def main(argv) -> int:
             for extra in ("ms_w10", "ms_script_table"):
                 if extra in row:
                     log(f"    {extra}: kernel {row[extra]:.4f} ms")
+
+    if not (args.hash_only or args.scatter_only):
+        report["two_threads"] = check_two_threads("cuda")
+        tt = report["two_threads"]
+        log(f"[2] two threads, tables of their own, {tt['commits']} table commits and "
+            f"{tt['inserts']} inserts at once: bit-equal to the serial run "
+            f"({tt['threaded_seconds']:.3f} s threaded, {tt['serial_seconds']:.3f} s serial)")
 
     if args.hash_only or args.scatter_only:
         result = {"card": smi, "package": ops.__file__, "kernels": kernels}
@@ -2987,6 +3660,74 @@ def main(argv) -> int:
         raise AssertionError(f"the probe never launched {zero}")
     log(f"[7] probe benchmark: {report['probe']}; launches {by_path['probe']}")
 
+    # phase 8: the cluster serving path, each run's launches counted from 0
+    workdir = tempfile.mkdtemp(prefix="cluster-", dir=os.path.join(here, "build",
+                                                                   "chip_smoke"))
+    try:
+        runs = {}
+        for engine_type in ("cuda", "host"):
+            reset_launches()
+            runs[engine_type] = cluster_serve(engine_type, workdir)
+            if engine_type == "cuda":
+                by_path["cluster_serving"] = launch_counts()
+        run, oracle = runs["cuda"], runs["host"]
+        zero = [k for k in CLUSTER_KERNELS if by_path["cluster_serving"][k] <= 0]
+        if zero:
+            raise AssertionError(f"8a: kernels never launched serving: {zero}")
+        if run["kinds"] != oracle["kinds"]:
+            diff = {k: (run["kinds"].get(k), oracle["kinds"].get(k))
+                    for k in set(run["kinds"]) | set(oracle["kinds"])
+                    if run["kinds"].get(k) != oracle["kinds"].get(k)}
+            raise AssertionError(f"8a: the card's and the oracle's logs hold other "
+                                 f"records (card, oracle): {diff}")
+        for r in (run, oracle):
+            r["kinds"] = {"/".join(map(str, k)): n for k, n in sorted(r["kinds"].items())}
+        report["cluster_serving"], report["cluster_serving_oracle"] = run, oracle
+        log(f"[8a] {run['instances']} instances from {run['pumps']} pumps through "
+            f"ClusterClient -> TCP -> ClusterBroker (raft, WaveScheduler) -> "
+            f"CudaPartitionEngine on the card, {run['credits']} credits: every instance "
+            f"completed once in {run['elapsed_seconds']:.3f} s; {run['records']} records "
+            f"= {run['records_per_sec']:.1f} records/s, {run['instances_per_sec']:.1f} "
+            f"instances/s; latency p50 {run['p50_latency_ms']:.1f} ms, p99 "
+            f"{run['p99_latency_ms']:.1f} ms; {run['waves']:.0f} waves; host "
+            f"{run['host_seconds']:.3f} s, device {run['device_seconds']:.3f} s; "
+            f"launches {by_path['cluster_serving']}")
+        log(f"[8a] the same on the host oracle: {oracle['records']} records in "
+            f"{oracle['elapsed_seconds']:.3f} s = {oracle['records_per_sec']:.1f} "
+            f"records/s, {oracle['instances_per_sec']:.1f} instances/s; p50 "
+            f"{oracle['p50_latency_ms']:.1f} ms, p99 {oracle['p99_latency_ms']:.1f} ms; "
+            f"the two logs hold the same counts of every (record type, value type, "
+            f"intent)")
+        reset_launches()
+        t0 = time.perf_counter()
+        fo = cluster_failover(workdir)
+        by_path["cluster_failover"] = launch_counts()
+        zero = [k for k in CLUSTER_KERNELS if by_path["cluster_failover"][k] <= 0]
+        if zero:
+            raise AssertionError(f"8b: kernels never launched: {zero}")
+        fo["seconds"] = time.perf_counter() - t0
+        report["cluster_failover"] = fo
+        log(f"[8b] 3 brokers, 2 partitions on one card: {fo['instances_per_partition']} "
+            f"instances a partition in {fo['serve_seconds']:.3f} s; every replica holds "
+            f"the device snapshot; partition 0's leader closed, a new leader restored "
+            f"from it and replayed in {fo['failover_seconds']:.3f} s, served "
+            f"{fo['instances_per_partition']} more in {fo['after_failover_seconds']:.3f} "
+            f"s; every instance completed once, replicas equal over positions (first, common) "
+            f"{fo['common_positions']}, leaders' raft terms {fo['leader_terms']}, "
+            f"collector pauses over 100 ms {fo['gc_pauses'][0]} (longest "
+            f"{fo['gc_pauses'][1]:.3f} s) "
+            f"({fo['seconds']:.1f} s); launches "
+            f"{by_path['cluster_failover']}")
+        ep = entry_point(workdir)
+        report["entry_point"] = ep
+        log(f"[8c] python -m zeebe_tpu_torch (ZEEBE_ENGINE_TYPE=cuda): "
+            f"'{ep['start_line']}'; served {ep['instances']} instances in "
+            f"{ep['serve_seconds']:.3f} s after {ep['ready_seconds']:.3f} s to ready; "
+            f"/metrics: {ep['waves']:.0f} waves, device {ep['device_seconds']:.3f} s; "
+            f"{ep['gateway']}; exit {ep['exit_code']} on SIGTERM")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     if args.profile:
         report["profile_eval_programs"] = profile_eval_programs(WAVE)
         ev = report["profile_eval_programs"]
@@ -3024,7 +3765,8 @@ def main(argv) -> int:
             f"{scan['scan_peak_extra_bytes'] / 2**20:.1f} MiB); the dense [B, T] form "
             f"{scan['dense_ms']:.4f} ms (peak +{scan['dense_peak_extra_bytes'] / 2**20:.1f} MiB)")
     # launches: the sum over the main-path runs (phases 4 to 5d, 6: the boot
-    # self-check and the six served runs, and 7: the probe), each
+    # self-check and the six served runs, 7: the probe, and 8a and 8b: the
+    # cluster runs in this process; 8c's node is another process), each
     # run's own count beside it; masked_row_add and masked_row_max, which
     # no path calls (config 3's maxima are one fused_accumulate), stay at 0
     for row in kernels:
@@ -3055,4 +3797,8 @@ if __name__ == "__main__":
         sys.exit(main(sys.argv[1:]))
     except Exception:  # any phase failure: report it and exit non-zero
         traceback.print_exc()
-        sys.exit(1)
+        # no interpreter teardown: threads of a phase that failed may still
+        # be inside a library call, and tearing it down under them aborts
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)

@@ -105,9 +105,11 @@ def row_loop(tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     idx = idx.to(torch.int32).contiguous()
     rows = rows.to(torch.int32).contiguous()
     cap, k = tbl.shape
-    scratch, epoch = ops._claim_scratch(tbl.device, cap, 1)
-    launched = _row_loop_fn()(tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(), idx.shape[0],
-                              cap, k, n_writes, scratch.data_ptr(), epoch, 3, ops._stream())
+    with ops._scratch_lock(tbl.device):  # grant to launch (see ops._claims)
+        scratch, epoch = ops._claim_scratch(tbl.device, cap, 1)
+        launched = _row_loop_fn()(tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(),
+                                  idx.shape[0], cap, k, n_writes, scratch.data_ptr(), epoch,
+                                  3, ops._stream())
     if launched < 0:
         raise RuntimeError(f"row_loop: CUDA error {-launched} at launch")
     if launched:

@@ -419,6 +419,12 @@ class Broker:
                 break
             partition.engine.process(record)  # state updates only
             partition.next_read_position = record.position + 1
+        # the tail is written and not processed: an engine that gates the
+        # tick's job backlog on activations in flight counts it before the
+        # first tick
+        note_unprocessed = getattr(partition.engine, "note_unprocessed", None)
+        if note_unprocessed is not None:
+            note_unprocessed(partition.log.reader(partition.next_read_position))
 
     def snapshot(self) -> None:
         """Checkpoint every partition (reference: periodic

@@ -1,0 +1,3109 @@
+"""Clustered broker: gossip topology + raft partitions + leader processing.
+
+Reference parity (broker-core clustering base + orchestration):
+- ``ClusterComponent``: gossip service + join, topology manager aggregating
+  partition/leader info from gossip custom events
+  (``TopologyManagerImpl``, ``GossipCustomEventEncoding``).
+- ``PartitionInstallService``: per partition, install log + raft; when this
+  node becomes raft leader, install the leader partition services (stream
+  processor + client command handling); on follower, just replicate
+  (``PartitionInstallService.onStateChange:213-264``).
+- ``BootstrapExpectNodes`` / ``BootstrapSystemTopic`` /
+  ``BootstrapDefaultTopicsService``: await the configured node count, then
+  create the system partition (0) and configured topics.
+- Topic orchestration: partition creation requests sent to selected nodes
+  over the management API (``TopicCreationService``, ``NodeSelector`` by
+  load, ``CreatePartitionRequest`` → ``ManagementApiRequestHandler``).
+- Client API: commands appended to the leader partition's log with request
+  metadata; responses sent after processing (``ClientApiMessageHandler``).
+- Cross-partition subscription commands routed to the target partition's
+  leader over the subscription transport
+  (``SubscriptionApiCommandMessageHandler``).
+
+Processing model: the raft leader runs the engine. On leadership it
+recovers (snapshot + replay with suppressed side effects, exactly like the
+single-node broker), then processes newly committed records, appending
+follow-ups through raft. Wire messages are msgpack maps; records travel as
+codec frames.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import random
+import zlib
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
+
+from zeebe_tpu_torch.cluster.gossip import Gossip, GossipConfig
+from zeebe_tpu_torch.cluster.raft import Raft, RaftConfig, RaftState
+from zeebe_tpu_torch.engine.interpreter import JobSubscription, PartitionEngine, WorkflowRepository
+from zeebe_tpu_torch.log import LogStream, SegmentedLogStorage
+from zeebe_tpu_torch.log import stateser
+from zeebe_tpu_torch.log.snapshot import SnapshotController, SnapshotMetadata, SnapshotStorage
+from zeebe_tpu_torch.protocol import codec, msgpack
+from zeebe_tpu_torch.protocol.records import Record
+from zeebe_tpu_torch.runtime.actors import Actor, ActorFuture, ActorScheduler
+from zeebe_tpu_torch.runtime.clock import SystemClock
+from zeebe_tpu_torch.runtime.config import BrokerCfg
+from zeebe_tpu_torch.runtime.metrics import (
+    MetricsFileWriter,
+    MetricsRegistry,
+    count_event,
+)
+from zeebe_tpu_torch.transport import ClientTransport, RemoteAddress, ServerTransport
+from zeebe_tpu_torch import tracing
+from zeebe_tpu_torch.tracing.recorder import FLIGHT, record_event
+
+logger = logging.getLogger(__name__)
+
+
+def observe_append(
+    future: ActorFuture, what: str, partition_id: int
+) -> None:
+    """Attach a loss observer to a fire-and-forget raft append.
+
+    Since acked-means-committed (PR 10) a failed append future means the
+    records were DROPPED — deposed leader, truncated tail — and the only
+    trace is this future. Callers that are re-driven elsewhere (ticks,
+    sweeps, backlog probes) still route through here so the loss rate is
+    measurable instead of invisible.
+    """
+
+    def _done(f: ActorFuture) -> None:
+        exc = getattr(f, "_exception", None)
+        if exc is None:
+            return
+        count_event(
+            "raft_append_losses",
+            "Fire-and-forget raft appends whose future failed (records "
+            "dropped on leadership change or truncation)",
+        )
+        logger.warning(
+            "fire-and-forget append of %s on partition %d was lost: %r",
+            what, partition_id, exc,
+        )
+
+    future.on_complete(_done)
+
+
+class _AppendFailed(Exception):
+    """Raft append failed (deposed mid-request); maps to NOT_LEADER."""
+
+
+class Topology:
+    """Queryable cluster view (reference ``Topology`` aggregated by the
+    topology manager from gossip custom events)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # partition id → (leader node id, client addr [h,p], sub addr [h,p], term)
+        self.partition_leaders: Dict[int, Tuple[str, list, list, int]] = {}
+        # node id → management address
+        self.members: Dict[str, list] = {}
+
+    def update_leader(
+        self, partition: int, node_id: str, addr: list, sub_addr: list, term: int
+    ) -> None:
+        with self._lock:
+            current = self.partition_leaders.get(partition)
+            if current is None or term >= current[3]:
+                self.partition_leaders[partition] = (node_id, addr, sub_addr, term)
+
+    def leader_address(self, partition: int) -> Optional[RemoteAddress]:
+        with self._lock:
+            entry = self.partition_leaders.get(partition)
+        if entry is None:
+            return None
+        return RemoteAddress(entry[1][0], int(entry[1][1]))
+
+    def leader_subscription_address(self, partition: int) -> Optional[RemoteAddress]:
+        with self._lock:
+            entry = self.partition_leaders.get(partition)
+        if entry is None:
+            return None
+        return RemoteAddress(entry[2][0], int(entry[2][1]))
+
+    def leader_node(self, partition: int) -> Optional[str]:
+        with self._lock:
+            entry = self.partition_leaders.get(partition)
+        return entry[0] if entry else None
+
+    def partitions(self) -> List[int]:
+        with self._lock:
+            return sorted(self.partition_leaders)
+
+
+class PartitionServer:
+    """One partition on one broker: log + raft + (on leadership) engine."""
+
+    def __init__(self, broker: "ClusterBroker", partition_id: int):
+        self.broker = broker
+        self.partition_id = partition_id
+        pdir = os.path.join(broker.data_dir, f"partition-{partition_id}")
+        self.storage = SegmentedLogStorage(
+            pdir,
+            segment_size=broker.cfg.data.segment_size_bytes,
+            native=broker.cfg.data.native_storage,
+        )
+        self.log = LogStream(
+            self.storage,
+            partition_id=partition_id,
+            clock=broker.clock,
+            recover_commit=False,
+        )
+        self.snapshots = SnapshotController(
+            SnapshotStorage(os.path.join(pdir, "snapshots"))
+        )
+        self.raft = Raft(
+            broker.node_id,
+            self.log,
+            broker.scheduler,
+            config=RaftConfig(
+                heartbeat_interval_ms=broker.cfg.raft.heartbeat_interval_ms,
+                election_timeout_ms=broker.cfg.raft.election_timeout_ms,
+                election_jitter_ms=broker.cfg.raft.election_timeout_ms,
+                # the [tracing] watchdog threshold drives the raft-side
+                # commit-latency watchdog too (it is sampling-independent
+                # but the same operator knob)
+                commit_stall_ms=broker.cfg.tracing.commit_stall_ms,
+            ),
+            host=broker.cfg.network.host,
+            storage_path=os.path.join(pdir, "raft.meta"),
+        )
+        self.engine: Optional[PartitionEngine] = None
+        self.next_read_position = 0
+        # subscriber_key → topic-subscription pusher state (leader-local;
+        # clients reopen on leader change and resume from logged acks)
+        self.topic_pushers: Dict[int, dict] = {}
+        # exporter plane (leader-local like the stream processor; resumes
+        # from the replicated acked positions on any leader)
+        self.exporter_director = None
+        self.is_leader = False
+        self._processing_scheduled = False
+        self._fetch_attempted = False  # one fetch try per parked record
+        # wave-scheduler feed state: parked while a workflow fetch is in
+        # flight (take() yields nothing; the other partitions keep
+        # draining — the whole point of per-partition backpressure)
+        self._parked = False
+        self._fetch_candidate = None  # head record awaiting a fetch check
+        self._due_probe = None  # in-flight async deadline probe (device)
+        # snapshot-while-serving: at most ONE take in flight per partition
+        # (capture happens on the broker actor; commit on a worker thread)
+        self._snapshot_inflight = False
+        self._snapshot_thread: Optional[threading.Thread] = None
+        self.raft.on_state_change(self._on_raft_state_change)
+        self.log.on_commit(self._on_commit)
+
+    def _on_commit(self, position: int) -> None:
+        tracer = tracing.TRACER
+        if tracer is not None:
+            # stamp COMMIT on sampled spans the advance covered
+            tracer.on_commit(self.partition_id, position)
+        self._schedule_processing()
+
+    # -- leadership transitions (reference PartitionInstallService) --------
+    def _on_raft_state_change(self, state: RaftState, term: int) -> None:
+        if state == RaftState.LEADER:
+            self.broker.actor_control.run(lambda: self._install_leader(term))
+        else:
+            # decided on the actor, behind an install that may still be
+            # running for the term just left: it checked the term before
+            # this step-down and would otherwise leave a follower serving
+            self.broker.actor_control.run(
+                lambda: self.is_leader and self._uninstall_leader()
+            )
+
+    def _install_leader(self, term: int, _boundary: Optional[int] = None) -> None:
+        if self.raft.state != RaftState.LEADER or self.raft.term != term:
+            # deposed (or re-elected at a higher term) since this install
+            # was queued or deferred: installing now would serve on a
+            # FOLLOWER in parallel with the real leader. The state-change
+            # event that owns the CURRENT term schedules its own install.
+            return
+        # Replay can only read COMMITTED records, and a fresh leader's
+        # commit catch-up (the §5.4.2 no-op quorum round; on restart the
+        # log recovers with commit at -1) may still be in flight — raft
+        # fires the LEADER state change BEFORE that round lands.
+        # Installing early would replay NOTHING and leave the cursor at
+        # the front, so the drain would later reprocess records whose
+        # follow-ups are already in the log WITH side effects (observed
+        # as duplicate CREATED events after a crash-restart under load).
+        # The boundary check depends only on the log, so it runs BEFORE
+        # the expensive engine build + snapshot recovery; the scanned
+        # boundary is carried across deferral retries (source positions
+        # only grow through PROCESSING, which cannot start before the
+        # install — commands are rejected NOT_LEADER until then), so the
+        # 10ms retries never rescan the log.
+        last_source = _boundary
+        if last_source is None:
+            last_source = -1
+            for record in self.log.reader(0):
+                if record.source_record_position > last_source:
+                    last_source = record.source_record_position
+        if self.log.commit_position < last_source:
+            if (
+                not self.broker._closing
+                and self.raft.state == RaftState.LEADER
+                and self.raft.term == term
+            ):
+                count_event(
+                    "leader_install_deferred_uncommitted",
+                    "Leader installs deferred until the raft commit "
+                    "position covered the replay boundary",
+                )
+                record_event(
+                    "leadership", "install deferred (commit < boundary)",
+                    node=self.broker.node_id, partition=self.partition_id,
+                    term=term, commit=self.log.commit_position,
+                    boundary=last_source,
+                )
+                self.broker.actor_control.run_delayed(
+                    10, lambda: self._install_leader(term, last_source)
+                )
+            return
+        # the engine is the partition's stream processor — installed on
+        # leadership like the reference's PartitionInstallService installing
+        # TypedStreamProcessors (:106-291). Which engine (host oracle or
+        # TPU device engine) is the broker's engine_factory's choice.
+        self.engine = self.broker._new_engine(self.partition_id)
+        # position-based re-reads (incident resolution) serve from the
+        # LOG behind the hot cache window — eviction then needs no spill
+        # copy, and recovery needs no cache pre-fill
+        cache = getattr(self.engine, "records_by_position", None)
+        log_backed = hasattr(cache, "set_log_lookup")
+        if log_backed:
+            cache.set_log_lookup(self.log.record_at)
+        # recovery: snapshot + replay of the committed log, side effects
+        # suppressed (same contract as the single-node broker). Parts are
+        # decoded + installed streamed per family; recover() reports the
+        # read+decode time as snapshot_restore_seconds, and this span —
+        # which additionally includes the engine state install — bounds
+        # what failover time the snapshot contributes (replay is separate).
+        import time as _time
+
+        t0 = _time.perf_counter()
+        state, meta = self.snapshots.recover(self.log.next_position - 1)
+        self.next_read_position = 0
+        if state is not None:
+            self.engine.restore_state(state)
+            self.next_read_position = meta.last_processed_position + 1
+            from zeebe_tpu_torch._events import set_gauge
+
+            set_gauge(
+                "snapshot_install_seconds", _time.perf_counter() - t0,
+                "Duration of the last snapshot recovery INCLUDING the "
+                "engine state install (excludes log replay)",
+            )
+        if not log_backed:  # no log behind the cache: pre-fill it
+            for record in self.log.reader(0):
+                self.engine.records_by_position[record.position] = record
+        # replay bounded by the last source event position: tail records
+        # (appended by the old leader but never processed) are handled by
+        # the normal loop below, with side effects — else their follow-ups
+        # are lost and the instances wedge (reference
+        # StreamProcessorController:189-279 lastSourceEventPosition)
+        reader = self.log.reader(self.next_read_position)
+        for record in reader.read_committed():
+            if record.position > last_source:
+                break
+            self.engine.process(record)
+            self.next_read_position = record.position + 1
+        # the tail is written and not processed: an engine that gates the
+        # tick's job backlog on activations in flight counts it before the
+        # first tick
+        note_unprocessed = getattr(self.engine, "note_unprocessed", None)
+        if note_unprocessed is not None:
+            note_unprocessed(self.log.reader(self.next_read_position))
+        self.is_leader = True
+        record_event(
+            "leadership", "leader installed", node=self.broker.node_id,
+            partition=self.partition_id, term=term,
+            replayed_to=self.next_read_position - 1,
+        )
+        if self.broker.wave_scheduler is not None:
+            # this partition's committed tail now feeds the broker's
+            # shared waves (the scheduler is the single place waves form)
+            self.broker.wave_scheduler.register(self)
+        self._install_exporters()
+        self.broker.on_partition_leader(self.partition_id, term)
+        if self.partition_id == 0:
+            # topics caught mid-creation by the failover: resume
+            # orchestration (reference: pending topic tracking re-drives
+            # partition creation on the new system-partition leader)
+            from zeebe_tpu_torch.protocol.metadata import RecordMetadata
+
+            for name, topic in self.engine.topics.items():
+                if topic["state"] == "CREATING":
+                    self.broker.start_topic_orchestration(
+                        Record(metadata=RecordMetadata(), value=topic["record"])
+                    )
+        self._schedule_processing()
+
+    def _uninstall_leader(self, orphan_spans: bool = True) -> None:
+        """``orphan_spans=False`` is for same-node reinstalls (mesh
+        rebalance fallback): leadership never leaves this broker, so its
+        live spans will still be applied/responded/exported here."""
+        if self.is_leader:
+            record_event(
+                "leadership", "leader uninstalled",
+                node=self.broker.node_id, partition=self.partition_id,
+            )
+        self.is_leader = False
+        self.engine = None
+        if self.broker.wave_scheduler is not None:
+            self.broker.wave_scheduler.unregister(self.partition_id)
+        if self.broker.device_plan is not None:
+            # leadership left: free the mesh slot so the next install
+            # (this partition or another) rebalances onto the emptiest
+            # device
+            self.broker.device_plan.release(self.partition_id)
+        self._parked = False
+        self._fetch_candidate = None
+        self._due_probe = None
+        # topic pushers are LEADER-LOCAL services (reference: push
+        # processors are installed/removed with leadership); a pusher
+        # surviving a leadership flap raced the new leader's pusher and
+        # delivered records out of order (round-4 flake root cause)
+        self.topic_pushers.clear()
+        # exporters likewise: close on step-down (the new leader's
+        # director resumes from the replicated acked positions)
+        if self.exporter_director is not None:
+            self.exporter_director.close()
+            self.exporter_director = None
+        tracer = tracing.TRACER
+        if orphan_spans and tracer is not None and tracer.by_position:
+            # spans stranded by the step-down can never progress on this
+            # node (drain/apply/response/export are all leader-side):
+            # finish them or they pin every per-record stamp path hot
+            # until budget eviction. (Process-global-tracer caveat: in an
+            # in-process multi-broker harness this also closes the NEW
+            # leader's in-flight spans for the partition — position keys
+            # carry no broker identity; see docs/operations/tracing.md.)
+            tracer.finish_partition_spans(
+                self.partition_id, "leader uninstalled"
+            )
+
+    def _install_exporters(self) -> None:
+        """Leader-only exporter plane (reference: the exporter stream
+        processor installs with leadership). Positions come from the
+        recovered engine state, so the new leader resumes the old leader's
+        progress without gaps; acks append through raft."""
+        if self.exporter_director is not None:
+            # re-election without an intervening step-down: replace the
+            # old install (its positions live in engine state, not in the
+            # director, so nothing is lost)
+            self.exporter_director.close()
+            self.exporter_director = None
+        if self.engine is None:
+            return
+        from zeebe_tpu_torch.exporter import (
+            ExporterDirector,
+            ExporterDirectorActor,
+            build_exporter,
+        )
+        from zeebe_tpu_torch.exporter.director import (
+            fold_tail_acks,
+            remove_stale_positions,
+        )
+
+        if not self.broker.cfg.exporters:
+            # no director to install, but recovered positions of
+            # previously configured exporters must still be swept
+            # (REMOVE) or the last-removed exporter's stale entry pins
+            # the compaction floor forever
+            try:
+                stale = remove_stale_positions(
+                    fold_tail_acks(
+                        self.engine.exporter_positions, self.log,
+                        self.next_read_position,
+                    ),
+                    (),
+                )
+                if stale:
+                    observe_append(
+                        self.raft.append(stale),
+                        "stale exporter-position sweep", self.partition_id,
+                    )
+            except Exception as e:  # noqa: BLE001 - sweep must never
+                # wedge the leadership install; the pin merely persists
+                # until a later leader's sweep lands
+                logger.warning(
+                    "stale exporter-position sweep failed on partition "
+                    "%d (floor stays pinned until a later sweep): %r",
+                    self.partition_id, e,
+                )
+            return
+
+        # belt over the boot-time validation: an install failure must
+        # never wedge the leadership install (the partition would report
+        # itself leader but never process a record)
+        try:
+            pairs = [build_exporter(spec) for spec in self.broker.cfg.exporters]
+            director = ExporterDirector(
+                self.partition_id,
+                self.log,
+                pairs,
+                append_fn=self.raft.append,
+                clock=self.broker.clock,
+                node_label=self.broker.node_id,
+            )
+            director.open(fold_tail_acks(
+                self.engine.exporter_positions, self.log,
+                self.next_read_position,
+            ))
+            self.exporter_director = ExporterDirectorActor(
+                director, self.broker.scheduler
+            )
+        except Exception as e:  # noqa: BLE001 - exporters are isolated
+            self.exporter_director = None
+            count_event(
+                "exporter_install_failures",
+                "Leadership exporter installs that raised",
+            )
+            logger.error(
+                "exporter install failed on partition %d (partition keeps "
+                "processing WITHOUT exporters; compaction is not gated): %r",
+                self.partition_id, e,
+            )
+
+    # -- the processing loop (StreamProcessorController hot loop) ----------
+    def _schedule_processing(self) -> None:
+        if not self.is_leader:
+            return
+        if self.broker.wave_scheduler is not None:
+            # shared-wave mode: one drain job per broker packs ALL leader
+            # partitions' committed tails (zeebe_tpu/scheduler/)
+            self.broker._schedule_drain()
+            return
+        if self._processing_scheduled:
+            return
+        self._processing_scheduled = True
+        self.broker.actor_control.run(self._process_committed)
+
+    # -- wave-scheduler feed surface (scheduler.PartitionFeed) -------------
+    # The scheduler packs this partition's committed tail into SHARED
+    # waves: take() consumes at the cursor (one-lock committed_view span),
+    # dispatch/collect ride the engine's existing double-buffered wave
+    # pipeline, and apply stays per partition — the log is bit-identical
+    # to the per-partition drain (tests/test_scheduler.py pins it).
+    @property
+    def device_index(self) -> int:
+        """The mesh device this partition's engine is placed on (per-device
+        wave metrics label; -1 = unplaced/host engine)."""
+        if self.engine is None:
+            return -1
+        return getattr(self.engine, "device_index", -1)
+
+    @property
+    def device_indices(self):
+        """Every plan index this partition occupies — the span of a
+        sharded-state engine, else empty (scheduler falls back to
+        ``device_index``)."""
+        if self.engine is None:
+            return ()
+        return tuple(getattr(self.engine, "device_indices", ()) or ())
+
+    @property
+    def shard_fill(self):
+        """Per-shard staged-row counts of the engine's last dispatched
+        wave (sharded-state v2 fill accounting); empty otherwise."""
+        if self.engine is None:
+            return ()
+        return tuple(getattr(self.engine, "last_shard_fill", ()) or ())
+
+    def backlog(self) -> int:
+        if not self.is_leader:
+            return 0
+        return max(0, self.log.commit_position - self.next_read_position + 1)
+
+    def take(self, limit: int):
+        from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+        from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+
+        if not self.is_leader or self.engine is None or self._parked:
+            return []
+        view = self.log.committed_view(self.next_read_position, limit)
+        n = len(view)
+        if not n:
+            return []
+        # the one-fetch-per-parked-record latch exempts EXACTLY the head
+        # record (the one it parked on — consumed unconditionally so the
+        # engine can reject it); records behind it still get their own
+        # fetch scan, matching the old per-record latch reset
+        start = 0
+        if self._fetch_attempted:
+            self._fetch_attempted = False
+            start = 1
+        cut = n
+        if self.partition_id != 0:
+            # workflow-fetch scan over the COLUMNS: only WI CREATE
+            # commands can park, and those are client-born real rows —
+            # nothing lazy materializes here
+            vts = view.value_types()
+            rts = view.record_types()
+            its = view.intents()
+            wi = int(ValueType.WORKFLOW_INSTANCE)
+            cmd = int(RecordType.COMMAND)
+            create = int(WI.CREATE)
+            for i in range(start, n):
+                if vts[i] == wi and rts[i] == cmd and its[i] == create:
+                    record = view[i]
+                    if self._needs_workflow_fetch(record):
+                        # stop BEFORE the parking record; the prefix
+                        # still packs (a DEPLOYMENT inside it may provide
+                        # the workflow — re-checked after the drain)
+                        cut = i
+                        self._fetch_candidate = record
+                        break
+        if cut == 0:
+            return []
+        positions = view.positions()
+        self.next_read_position = positions[cut - 1] + 1
+        tracer = tracing.TRACER
+        if tracer is not None and tracer.by_position:
+            tracer.stamp_positions(
+                self.partition_id, positions[:cut], tracing.FEED_TAKE
+            )
+        if cut == n:
+            return view
+        return view.select(list(range(cut)))
+
+    def dispatch(self, records):
+        """Feed one shared-wave segment to the engine. Pipelined engines
+        return the pending wave (collected later while the device computes
+        the next one); synchronous engines process AND apply inline."""
+        import time as _time
+
+        dispatch = getattr(self.engine, "dispatch_wave", None)
+        if dispatch is None:
+            t0 = _time.perf_counter()
+            result = self.engine.process_batch(records)
+            self._apply_chunk(records, result)
+            return None, _time.perf_counter() - t0, 0.0
+        return dispatch(records), 0.0, 0.0
+
+    def collect(self, pending):
+        from zeebe_tpu_torch.engine.interpreter import ProcessingResult
+
+        merged = ProcessingResult.merged(self.engine.collect_wave(pending))
+        tracer = tracing.TRACER
+        if tracer is not None and tracer.by_position:
+            tracer.stamp_positions(
+                self.partition_id, tracing.positions_of(pending.records),
+                tracing.DEVICE_COLLECT, device=self.device_index,
+            )
+        self._apply_chunk(pending.records, merged)
+        return pending.host_seconds, pending.device_seconds
+
+    def rewind(self, position: int) -> None:
+        if position >= 0:
+            self.next_read_position = min(self.next_read_position, position)
+
+    def maybe_start_fetch(self) -> None:
+        """After a drain settles: if take() stopped on a record whose
+        workflow is still unknown, park this feed and fetch — the other
+        partitions keep packing waves meanwhile."""
+        record = self._fetch_candidate
+        if record is None:
+            return
+        self._fetch_candidate = None
+        if not self.is_leader:
+            return
+        if not self._needs_workflow_fetch(record):
+            # a deployment drained in the prefix provided it meanwhile
+            self.broker._schedule_drain()
+            return
+        self._parked = True
+        self.broker.fetch_workflow(
+            record.value.bpmn_process_id,
+            record.value.workflow_key,
+            on_done=self._resume_after_fetch,
+        )
+
+    def _resume_after_fetch(self) -> None:
+        # one attempt per parked record: if the fetch produced nothing the
+        # engine now processes the command and rejects it (workflow not
+        # found), instead of fetch-looping forever
+        self._fetch_attempted = True
+        self._parked = False
+        self.broker._schedule_drain()
+
+    def tick(self) -> None:
+        """Deadline/TTL sweep for this partition (reference periodic actor
+        jobs). Engines exposing an async due-probe are polled WITHOUT
+        blocking: the tick only pays the device sweep when a ready probe
+        says something is due; host-oracle deadlines are cheap dict scans
+        swept unconditionally. The resulting commands append through raft
+        and re-enter the shared waves as committed records."""
+        if not self.is_leader or self.engine is None:
+            return
+        from zeebe_tpu_torch.tpu.engine import PROBE_DEADLINES, PROBE_JOB_BACKLOG
+
+        engine = self.engine
+        commands: List[Record] = []
+        probe_fn = getattr(engine, "deadlines_due_probe", None)
+        if probe_fn is not None:
+            commands += engine.host_deadline_commands()
+            commands += engine.backlog_activations()
+            pending = self._due_probe
+            mask = 0
+            if pending is None:
+                self._due_probe = probe_fn()
+            elif pending.is_ready():
+                mask = int(pending)
+                self._due_probe = probe_fn()
+            if mask & PROBE_DEADLINES:
+                commands += engine.device_deadline_commands()
+            if mask & PROBE_JOB_BACKLOG:
+                commands += engine.device_backlog_activations()
+        else:
+            commands += (
+                engine.check_job_deadlines()
+                + engine.check_timer_deadlines()
+                + engine.check_message_ttls()
+                + engine.backlog_activations()
+            )
+        if commands:
+            # re-driven by the next tick if lost, but the loss must count
+            observe_append(
+                self.raft.append(commands), "tick commands", self.partition_id
+            )
+
+    # committed records drain into the engine in batches: the device
+    # engine's throughput comes from SIMD batches (one kernel dispatch per
+    # segment, not per record — reference: StreamProcessorController is
+    # per-record, the TPU redesign's whole point is that this isn't)
+    _DRAIN_BATCH = 512
+
+    def _process_committed(self) -> None:
+        self._processing_scheduled = False
+        if not self.is_leader or self.engine is None:
+            return
+        reader = self.log.reader(self.next_read_position)
+        batch: list = []
+        pending = None  # dispatched-but-uncollected wave (device engine)
+        parked = False
+        try:
+            for record in reader.read_committed():
+                if self._needs_workflow_fetch(record):
+                    # a DEPLOYMENT earlier in this very drain may provide
+                    # the workflow: process the collected prefix FIRST,
+                    # then re-check before parking (the per-record loop got
+                    # this ordering for free)
+                    if batch:
+                        prev, pending = pending, self._dispatch_chunk(batch)
+                        batch = []
+                        if prev is not None:
+                            self._collect_chunk(prev)
+                    if pending is not None:
+                        self._collect_chunk(pending)
+                        pending = None
+                    if self._needs_workflow_fetch(record):
+                        # park processing; resume once the workflow arrives
+                        # from the system partition (reference WorkflowCache
+                        # async fetch — EventLifecycleContext.async
+                        # restructured as pause/resume)
+                        self.broker.fetch_workflow(
+                            record.value.bpmn_process_id,
+                            record.value.workflow_key,
+                            on_done=self._schedule_processing_after_fetch,
+                        )
+                        parked = True
+                        break
+                # the one-fetch-per-parked-record latch applies to the record
+                # it parked on, not to later records swept into this drain
+                self._fetch_attempted = False
+                batch.append(record)
+                if len(batch) >= self._DRAIN_BATCH:
+                    # the swap happens BEFORE collecting the previous wave,
+                    # so even if that collect raises, the just-dispatched
+                    # wave (whose records the cursor already passed) is
+                    # still collected by the finally below — never lost
+                    prev, pending = pending, self._dispatch_chunk(batch)
+                    batch = []
+                    if prev is not None:
+                        self._collect_chunk(prev)
+            if batch:
+                prev, pending = pending, self._dispatch_chunk(batch)
+                if prev is not None:
+                    self._collect_chunk(prev)
+        finally:
+            # the in-flight wave's responses/appends must land even when a
+            # dispatch or an earlier collect raises — its records are
+            # already consumed into engine state and will not re-drain
+            if pending is not None:
+                self._collect_chunk(pending)
+        if parked:
+            return
+        self.pump_topic_subscriptions()
+
+    def _dispatch_chunk(self, records: list):
+        """Process one drained chunk. Engines with the wave pipeline
+        (``dispatch_wave``/``collect_wave`` — the device engine) only
+        DISPATCH here and return the pending wave; the caller collects the
+        PREVIOUS wave while the device computes this one (host staging/
+        readback of waves N+1/N−1 overlap device compute of wave N — JAX
+        async dispatch chains the state dependency on device). Synchronous
+        engines process + apply inline and return None.
+
+        NOTE on granularity: the chunk is the retry unit. If the engine
+        raises mid-chunk (an engine bug — processing is non-throwing by
+        contract), the whole chunk reprocesses on the next drain, same
+        at-least-once hazard the per-record loop had, with a chunk-sized
+        blast radius.
+        """
+        from zeebe_tpu_torch.runtime.metrics import observe_wave
+
+        tracer = tracing.TRACER
+        if tracer is not None and tracer.by_position:
+            tracer.stamp_positions(
+                self.partition_id, tracing.positions_of(records),
+                tracing.WAVE_DISPATCH, device=self.device_index,
+            )
+        dispatch = getattr(self.engine, "dispatch_wave", None)
+        if dispatch is None:
+            import time as _time
+
+            t0 = _time.perf_counter()
+            result = self.engine.process_batch(records)
+            self.next_read_position = records[-1].position + 1
+            self._apply_chunk(records, result)
+            observe_wave(
+                len(records), self._DRAIN_BATCH,
+                host_seconds=_time.perf_counter() - t0,
+            )
+            return None
+        wave = dispatch(records)
+        # advance at dispatch: the records are consumed into device state
+        self.next_read_position = records[-1].position + 1
+        return wave
+
+    def _collect_chunk(self, wave) -> None:
+        """Materialize a dispatched wave's outputs and apply them (appends,
+        responses, sends, pushes) in log order."""
+        from zeebe_tpu_torch.engine.interpreter import ProcessingResult
+        from zeebe_tpu_torch.runtime.metrics import observe_wave
+
+        merged = ProcessingResult.merged(self.engine.collect_wave(wave))
+        tracer = tracing.TRACER
+        if tracer is not None and tracer.by_position:
+            tracer.stamp_positions(
+                self.partition_id, tracing.positions_of(wave.records),
+                tracing.DEVICE_COLLECT, device=self.device_index,
+            )
+        self._apply_chunk(wave.records, merged)
+        observe_wave(
+            len(wave.records), self._DRAIN_BATCH,
+            wave.host_seconds, wave.device_seconds,
+        )
+
+    def _apply_chunk(self, records: list, result) -> None:
+        tracer = tracing.TRACER
+        if tracer is not None and tracer.by_position:
+            tracer.stamp_positions(
+                self.partition_id, tracing.positions_of(records),
+                tracing.APPLY,
+            )
+        if result.written:
+            # every follow-up was source-stamped per record by the engine;
+            # positions are assigned on the raft actor at append time, and
+            # the records register into records_by_position when the
+            # processing loop reads them back as committed. Device
+            # emissions may ride as LAZY columnar refs — as_log_batch
+            # keeps them lazy all the way into the log tail.
+            from zeebe_tpu_torch.protocol.columnar import as_log_batch
+
+            observe_append(
+                self.raft.append(as_log_batch(result.written)),
+                "engine follow-up records", self.partition_id,
+            )
+        for response in result.responses:
+            self.broker.send_client_response(response, server=self)
+        for target_pid, send in result.sends:
+            self.broker.route_send(self.partition_id, target_pid, send)
+        for subscriber_key, push in result.pushes:
+            self.broker.push_to_subscriber(subscriber_key, self.partition_id, push)
+        self.broker.metrics_events_processed.inc(len(records))
+        if self.partition_id == 0:
+            # topic orchestration lives on the system partition only; the
+            # guard also keeps lazy columnar rows on data partitions from
+            # materializing just to be inspected and discarded
+            for record in records:
+                self._maybe_orchestrate_topic(record)
+
+    def _maybe_orchestrate_topic(self, record) -> None:
+        from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+        from zeebe_tpu_torch.protocol.intents import TopicIntent
+
+        if (
+            self.partition_id == 0
+            and record.metadata.value_type == ValueType.TOPIC
+            and record.metadata.record_type == RecordType.EVENT
+            and record.metadata.intent == int(TopicIntent.CREATING)
+        ):
+            self.broker.start_topic_orchestration(record)
+
+    def pump_topic_subscriptions(self) -> None:
+        """Deliver committed records to open topic subscriptions with credit
+        flow control (reference TopicSubscriptionPushProcessor:36)."""
+        from zeebe_tpu_torch.protocol.enums import ValueType
+
+        for key, pusher in list(self.topic_pushers.items()):
+            while len(pusher["unacked"]) < pusher["capacity"]:
+                batch = self.log.reader(pusher["cursor"]).read_committed()
+                if not batch:
+                    break
+                advanced = False
+                for record in batch:
+                    if len(pusher["unacked"]) >= pusher["capacity"]:
+                        break
+                    pusher["cursor"] = record.position + 1
+                    advanced = True
+                    if record.metadata.value_type in (
+                        ValueType.SUBSCRIBER, ValueType.SUBSCRIPTION,
+                        ValueType.EXPORTER,
+                    ):
+                        continue
+                    if not pusher["push"](record):
+                        # dead connection: the close listener removes the
+                        # pusher; stop delivering now
+                        self.topic_pushers.pop(key, None)
+                        advanced = False
+                        break
+                    pusher["unacked"].append(record.position)
+                if not advanced:
+                    break
+
+    def _needs_workflow_fetch(self, record) -> bool:
+        from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+        from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+
+        if self.partition_id == 0 or self._fetch_attempted:
+            return False
+        md = record.metadata
+        if (
+            md.value_type != ValueType.WORKFLOW_INSTANCE
+            or md.record_type != RecordType.COMMAND
+            or md.intent != int(WI.CREATE)
+        ):
+            return False
+        repo = self.broker.repository
+        value = record.value
+        if value.workflow_key >= 0 and value.workflow_key in repo.by_key:
+            return False
+        if value.bpmn_process_id and repo.latest(value.bpmn_process_id) is not None:
+            return False
+        return True
+
+    def _schedule_processing_after_fetch(self) -> None:
+        # one attempt per parked record: if the fetch produced nothing the
+        # engine now processes the command and rejects it (workflow not
+        # found), instead of fetch-looping forever
+        self._fetch_attempted = True
+        self._schedule_processing()
+
+    def snapshot(self) -> Optional[threading.Thread]:
+        """Snapshot-while-serving: a brief fenced CAPTURE here on the
+        broker actor (serialized with the wave drain, so it lands exactly
+        at a wave boundary and grabs/encodes only the dirty state
+        families), then the expensive hash/compress/fsync COMMIT on a
+        worker thread — serving continues during it. At most one take is
+        in flight per partition (an overlapping period tick is skipped and
+        counted). Returns the commit thread, or None when nothing started.
+        """
+        if not self.is_leader or self.engine is None:
+            return None
+        if self._snapshot_inflight:
+            count_event(
+                "snapshot_skipped_inflight",
+                "Snapshot ticks skipped because the partition's previous "
+                "take was still committing",
+            )
+            return None
+        meta = SnapshotMetadata(
+            last_processed_position=self.next_read_position - 1,
+            last_written_position=self.log.next_position - 1,
+            term=self.raft.term,
+        )
+        record_event(
+            "snapshot", "take started", node=self.broker.node_id,
+            partition=self.partition_id,
+            processed=meta.last_processed_position,
+        )
+        try:
+            pending = self.snapshots.capture(self.engine, meta)
+        except Exception as e:  # noqa: BLE001 - a failing capture must not
+            # take down the snapshot loop for other partitions
+            count_event(
+                "snapshot_take_failures",
+                "Snapshot takes that raised (capture or commit)",
+            )
+            logger.error(
+                "snapshot capture failed on partition %d: %r",
+                self.partition_id, e,
+            )
+            return None
+        try:
+            # compaction floor reads engine state — compute it inside the
+            # fence, not on the worker thread
+            pending.compaction_floor = min(
+                meta.last_processed_position + 1,
+                self.engine.compaction_floor(),
+            )
+            self._snapshot_inflight = True
+            thread = threading.Thread(
+                target=self._commit_snapshot,
+                args=(pending,),
+                name=f"zb-snapshot-commit-{self.partition_id}",
+                daemon=True,
+            )
+            self._snapshot_thread = thread
+            thread.start()
+        except Exception as e:  # noqa: BLE001 - the capture fence already
+            # reset the dirty tracking: merge the captured families back so
+            # the next take re-captures them, and never leave the in-flight
+            # guard stuck (e.g. a thread-spawn failure under resource
+            # exhaustion would otherwise disable snapshots forever)
+            self._snapshot_inflight = False
+            count_event(
+                "snapshot_take_failures",
+                "Snapshot takes that raised (capture or commit)",
+            )
+            logger.error(
+                "snapshot start failed on partition %d: %r",
+                self.partition_id, e,
+            )
+            if self.engine is pending.engine and self.engine is not None:
+                self.engine.snapshot_mark_dirty(pending.dirty)
+            return None
+        return thread
+
+    def _commit_snapshot(self, pending) -> None:
+        """Off-actor snapshot commit (hash + compress + fsync + manifest
+        rename + purge). Touches only the captured parts and the snapshot
+        storage — never live engine state."""
+        try:
+            self.snapshots.commit(pending)
+        except Exception as e:  # noqa: BLE001 - isolate per partition
+            count_event(
+                "snapshot_take_failures",
+                "Snapshot takes that raised (capture or commit)",
+            )
+            logger.error(
+                "snapshot commit failed on partition %d (%s): %r",
+                self.partition_id, pending.metadata.dirname, e,
+            )
+            dirty = pending.dirty
+
+            def remark() -> None:
+                # the captured families were never committed: re-mark them
+                # so the next take re-captures (skip if the engine was
+                # replaced — a fresh engine starts with cold tracking)
+                if self.engine is not None and self.engine is pending.engine:
+                    self.engine.snapshot_mark_dirty(dirty)
+
+            try:
+                self.broker.actor_control.run(remark)
+            except Exception:  # noqa: BLE001 - broker closing
+                pass
+        else:
+            # leader-side compaction below the snapshot (bounded by the
+            # engine's incident/exporter floor, computed at capture).
+            # Followers that fall below the new base catch up via snapshot
+            # replication + log fast-forward.
+            floor = pending.compaction_floor
+            try:
+                self.raft.actor.run(lambda: self.log.compact(floor))
+            except Exception:  # noqa: BLE001 - broker closing
+                pass
+        finally:
+            self._snapshot_inflight = False
+
+    def close(self) -> None:
+        if self.broker.wave_scheduler is not None:
+            self.broker.wave_scheduler.unregister(self.partition_id)
+        if self.broker.device_plan is not None:
+            self.broker.device_plan.release(self.partition_id)
+        if self.exporter_director is not None:
+            self.exporter_director.close()
+            self.exporter_director = None
+        thread = self._snapshot_thread
+        if thread is not None and thread.is_alive():
+            # bounded: an in-flight commit interrupted here is exactly a
+            # crash mid-commit, which the storage's salvage sweep handles
+            thread.join(5)
+        self.raft.close()
+        self.storage.close()
+
+
+class ClusterBroker(Actor):
+    """A broker node: gossip + topology + partitions + client/management
+    APIs. Create several in one process for a cluster (the reference's
+    ClusteringRule runs 3 real brokers in one JVM)."""
+
+    def __init__(
+        self,
+        cfg: BrokerCfg,
+        data_dir: str,
+        scheduler: Optional[ActorScheduler] = None,
+        clock: Optional[Callable[[], int]] = None,
+        engine_factory: Optional[
+            Callable[[int, "ClusterBroker"], PartitionEngine]
+        ] = None,
+    ):
+        super().__init__(f"broker-{cfg.cluster.node_id}")
+        self.cfg = cfg
+        # fail construction loudly on a misconfigured exporter (same
+        # contract as the in-process Broker): deferred to the leadership
+        # install, the error would fire inside an actor job and wedge the
+        # partition as a leader that never processes
+        if cfg.exporters:
+            from zeebe_tpu_torch.exporter import build_exporter
+
+            seen_ids = set()
+            for spec in cfg.exporters:
+                if spec.id in seen_ids:
+                    # shared replicated position entry: the faster
+                    # exporter's ack would mask the slower one's gap
+                    raise ValueError(f"duplicate exporter id {spec.id!r}")
+                seen_ids.add(spec.id)
+                build_exporter(spec)
+        self._engine_factory = engine_factory
+        self.node_id = cfg.cluster.node_id
+        self.data_dir = data_dir
+        os.makedirs(data_dir, exist_ok=True)
+        self.clock = clock or SystemClock()
+        self._own_scheduler = scheduler is None
+        self._closing = False
+        self._bootstrap_started = False
+        self._default_topics_created = False
+        self.scheduler = scheduler or ActorScheduler(
+            cpu_threads=cfg.threads.cpu_thread_count,
+            io_threads=cfg.threads.io_thread_count,
+        ).start()
+
+        self.metrics = MetricsRegistry()
+        self.metrics_events_processed = self.metrics.counter(
+            "stream_processor_events_processed", "Committed records processed"
+        )
+        # actor failures are escalated, never silently swallowed (reference
+        # ActorTask failure handling; round-4 lesson — a NameError in the
+        # broker tick survived 468 green tests): every failure counts into
+        # metrics, repeated failures flip broker health.
+        self.metrics_actor_failures = self.metrics.counter(
+            "actor_failures", "Actor jobs that raised an exception"
+        )
+        self._unhealthy_reason: Optional[str] = None
+        # only watch a scheduler this broker owns: on a SHARED scheduler
+        # another broker's failures must not flip this broker's health
+        # (and close() must not leave a bound-method listener behind)
+        if self._own_scheduler:
+            self.scheduler.on_actor_failure(self._on_actor_failure)
+        self.metrics_http = None
+        if cfg.metrics.enabled:
+            self.metrics_writer = MetricsFileWriter(
+                self.metrics,
+                os.path.join(data_dir, cfg.metrics.file),
+                self.scheduler,
+                cfg.metrics.flush_period_ms,
+            )
+            if cfg.metrics.port:
+                from zeebe_tpu_torch.runtime.metrics import MetricsHttpServer
+
+                try:
+                    self.metrics_http = MetricsHttpServer(
+                        self.metrics, host=cfg.network.host, port=cfg.metrics.port
+                    )
+                except OSError as e:
+                    # a second broker on the host (no portOffset) or any
+                    # process on the port must not make broker construction
+                    # fail — metrics serving is best-effort, the file
+                    # writer keeps running (round-3 advisor finding)
+                    logger.warning(
+                        "metrics endpoint bind failed on %s:%d (%s); "
+                        "continuing without /metrics",
+                        cfg.network.host, cfg.metrics.port, e,
+                    )
+                    self.metrics_http = None
+
+        self.repository = WorkflowRepository()
+        self.topology = Topology()
+        # partition id → in-flight snapshot-replication fetch thread
+        self._snapshot_fetches: Dict[int, threading.Thread] = {}
+        self.partitions: Dict[int, PartitionServer] = {}
+        self._pending_responses: Dict[int, ActorFuture] = {}
+        # client-command dedup: cid → response future of the first append
+        # (bounded FIFO; see _handle_command)
+        self._cmd_dedup: Dict[str, ActorFuture] = {}
+
+        # continuous-batching wave scheduler: ONE drain job per broker
+        # packs committed records from ALL leader partitions into shared
+        # device waves (cfg.scheduler.enabled=false restores the
+        # per-partition drain — the bench's A/B baseline)
+        from zeebe_tpu_torch.scheduler import (
+            AdmissionConfig,
+            AdmissionController,
+            WaveScheduler,
+        )
+
+        sc = cfg.scheduler
+        self.wave_scheduler = (
+            WaveScheduler(
+                wave_size=sc.wave_size,
+                quantum=sc.quantum or None,
+                backpressure_limit=sc.backpressure_limit or None,
+                # like the raft commit watchdog, the slow-wave threshold
+                # is an operator knob independent of [tracing] enabled
+                slow_wave_ms=cfg.tracing.slow_wave_ms,
+            )
+            if sc.enabled
+            else None
+        )
+        self._drain_scheduled = False
+        # mesh-sharded serving plane: leader partitions place across the
+        # visible devices (scheduler/placement.DevicePlan) so different
+        # partitions' wave segments compute on DIFFERENT devices within
+        # one scheduling round. Built lazily on the first placement ask
+        # (host-engine brokers never touch jax device init); cross-
+        # partition command frames optionally ride the mesh's all_to_all
+        # exchange instead of the host transport hop (route_send).
+        self.device_plan = None
+        self._mesh_exchange_obj = None
+        self._mesh_exchange_failed = False
+        # gateway admission: bounded in-flight per client connection +
+        # queue-depth shed, checked on the transport IO thread BEFORE a
+        # command touches the broker actor (shed-before-collapse)
+        ad = cfg.admission
+        self.admission = AdmissionController(
+            AdmissionConfig(
+                enabled=ad.enabled,
+                max_inflight_per_connection=ad.max_inflight_per_connection,
+                queue_depth_high=ad.queue_depth_high,
+                retry_after_ms=ad.retry_after_ms,
+            ),
+            queue_depth_probe=self._queue_depth,
+        )
+        self._admission_conns: set = set()
+        # request ids are stamped INTO replicated records and responses
+        # are matched by id alone on whichever broker processes the
+        # record — so the id space must not collide across brokers (a
+        # failover can make broker B emit the response for a command
+        # broker A appended, and a sequential id starting at 0 on every
+        # broker then completes an UNRELATED pending request on B with
+        # it: a deploy response surfacing from create_instance). A random
+        # 47-bit base per broker incarnation makes overlap negligible
+        # and also covers ids replayed across a restart.
+        self._next_request_id = random.getrandbits(47)
+        self._push_listeners: Dict[int, Callable[[int, Record], None]] = {}
+        self._request_lock = threading.Lock()
+        # bounded cache for chunked snapshot serving (avoids re-reading
+        # and re-checksumming the file once per 256K chunk); keyed by
+        # (partition, snapshot metadata), insertion-ordered for LRU drop
+        self._snapshot_serve_cache: Dict[tuple, tuple] = {}
+
+        # gossip (management-plane membership + topology dissemination)
+        self.gossip = Gossip(
+            self.node_id,
+            self.scheduler,
+            config=GossipConfig(
+                probe_interval_ms=cfg.gossip.probe_interval_ms,
+                probe_timeout_ms=cfg.gossip.probe_timeout_ms,
+                probe_indirect_nodes=cfg.gossip.probe_indirect_nodes,
+                suspicion_multiplier=cfg.gossip.suspicion_multiplier,
+                sync_interval_ms=cfg.gossip.sync_interval_ms,
+            ),
+            host=cfg.network.host,
+            port=cfg.network.management_port,
+        )
+        self.gossip.on_custom_event("partition-leader", self._on_leader_event)
+        self.gossip.on_custom_event("node-info", self._on_node_info_event)
+
+        # client + subscription servers on the configured socket bindings
+        # (reference zeebe.cfg.toml [network.*]; tests set the ports to 0
+        # for ephemeral binds, the reference EmbeddedBrokerRule pattern)
+        self.client_server = ServerTransport(
+            host=cfg.network.host,
+            port=cfg.network.client_port,
+            request_handler=self._on_client_request,
+        )
+        self.subscription_server = ServerTransport(
+            host=cfg.network.host,
+            port=cfg.network.subscription_port,
+            request_handler=self._on_subscription_request,
+            message_handler=self._on_subscription_message,
+        )
+        self.client_transport = ClientTransport()
+
+        self.scheduler.submit_actor(self)  # zblint: disable=unobserved-actor-future (boot submit; start failures land in the scheduler failure ring)
+        self.actor_control = None  # set in on_actor_started
+
+        # periodic snapshotting (reference snapshotPeriod)
+        self._snapshot_period_ms = cfg.data.snapshot_period_ms
+
+        # record-lifecycle tracing: one span tracer per process (like the
+        # global metrics registry); [tracing] enabled=false uninstalls it
+        # and every stamp site degrades to a single read of tracing.TRACER
+        tracing.ensure_tracer(cfg.tracing)
+        # boot marker: restarts anchor every flight-recorder dump
+        record_event(
+            "broker", "broker started", node=self.node_id,
+            partitions=cfg.cluster.partitions, engine=cfg.engine.type,
+        )
+
+    # -- lifecycle ---------------------------------------------------------
+    def on_actor_started(self) -> None:
+        self.actor_control = self.actor
+        self.actor.run_at_fixed_rate(
+            self._snapshot_period_ms, self._snapshot_all_on_actor
+        )
+        self.actor.run_at_fixed_rate(100, self._tick_engines)
+        # disseminate this node's client endpoint so the topic orchestrator
+        # can reach any member over the management plane (reference: local
+        # node info broadcast via gossip custom events)
+        self._publish_node_info()
+        self.actor.run_at_fixed_rate(2000, self._publish_node_info)
+        # followers poll partition leaders for snapshots (reference
+        # snapshotReplicationPeriod, default 5m)
+        self.actor.run_at_fixed_rate(
+            self.cfg.data.snapshot_replication_period_ms, self._replicate_snapshots
+        )
+        # self-assembly (reference BootstrapExpectNodes/BootstrapSystemTopic/
+        # BootstrapDefaultTopicsService): join configured contact points, and
+        # once the expected node count gossips alive, the smallest node id
+        # bootstraps the system partition, then the configured topics
+        if self.cfg.cluster.initial_contact_points:
+            self.join(
+                [
+                    RemoteAddress(hp.split(":")[0], int(hp.split(":")[1]))
+                    for hp in self.cfg.cluster.initial_contact_points
+                ]
+            ).on_complete(self._on_join_result)
+        self.actor.run_at_fixed_rate(500, self._maybe_bootstrap)
+
+    def _publish_node_info(self) -> None:
+        self.gossip.publish_custom_event(
+            "node-info",
+            {
+                "node": self.node_id,
+                "client": [self.client_address.host, self.client_address.port],
+            },
+        )
+
+    def _on_node_info_event(self, _sender: str, payload) -> None:
+        if isinstance(payload, dict) and payload.get("node"):
+            self.topology.members[str(payload["node"])] = list(
+                payload.get("client", ["", 0])
+            )
+
+    @property
+    def gossip_address(self) -> RemoteAddress:
+        return self.gossip.address
+
+    @property
+    def client_address(self) -> RemoteAddress:
+        return self.client_server.address
+
+    def join(self, contact_points: List[RemoteAddress]) -> ActorFuture:
+        return self.gossip.join(contact_points)
+
+    def _on_join_result(self, future: ActorFuture) -> None:
+        """A node that exhausts its join retries is alive but invisible to
+        the cluster — without this, the only symptom is a topology that
+        never reaches the expected node count."""
+        exc = getattr(future, "_exception", None)
+        if exc is not None:
+            count_event(
+                "gossip_join_failures",
+                "Boot-time gossip joins that exhausted their retries",
+            )
+            logger.error(
+                "broker %s: join via configured contact points failed "
+                "(node is up but not in the cluster topology): %r",
+                self.node_id, exc,
+            )
+
+    def open_partition(self, partition_id: int) -> ActorFuture:
+        """Create/open a partition (log + raft endpoint, not yet clustered);
+        completes with the local raft address. Reference:
+        CreatePartitionRequest → PartitionInstallService composite install."""
+
+        def do():
+            if partition_id not in self.partitions:
+                self.partitions[partition_id] = PartitionServer(self, partition_id)
+            return self.partitions[partition_id].raft.address
+
+        return self.actor.call(do)
+
+    def bootstrap_partition(
+        self, partition_id: int, members: Dict[str, RemoteAddress]
+    ) -> None:
+        """Install the raft membership (self included) and start the
+        election clock."""
+
+        def do():
+            server = self.partitions[partition_id]
+            raft_members = dict(members)
+            raft_members[self.node_id] = server.raft.address
+            server.raft.bootstrap(raft_members)
+
+        self.actor.run(do)
+
+    def _new_engine(self, partition_id: int):
+        """Build the stream-processing engine for a partition this node
+        leads. Default is the host oracle engine; pass ``engine_factory``
+        (e.g. ``TpuPartitionEngine``) to serve partitions from the device
+        kernel — the factory is the cluster analogue of the single-node
+        Broker's ``engine_factory``."""
+        if self._engine_factory is not None:
+            # fixed, documented signature: factory(partition_id, broker) —
+            # the broker gives factories access to the shared repository
+            # and clock without arity guessing
+            return self._engine_factory(partition_id, self)
+        return PartitionEngine(
+            partition_id=partition_id,
+            num_partitions=self.cfg.cluster.partitions,
+            repository=self.repository,
+            clock=self.clock,
+        )
+
+    # -- mesh placement (scheduler/placement.DevicePlan) --------------------
+    def _mesh_plan(self):
+        if not self.cfg.mesh.enabled:
+            return None
+        if self.device_plan is None:
+            from zeebe_tpu_torch.scheduler.placement import DevicePlan
+
+            self.device_plan = DevicePlan(max_devices=self.cfg.mesh.devices)
+        return self.device_plan
+
+    def planned_device(self, partition_id: int):
+        """(device, device index) for a leader partition — assigned sticky
+        by the DevicePlan at engine install; (None, -1) when the mesh is
+        disabled. Engine factories consult this (runtime/engines.py)."""
+        plan = self._mesh_plan()
+        if plan is None:
+            return None, -1
+        idx = plan.assign(partition_id)
+        return plan.devices[idx], idx
+
+    def planned_span(self, partition_id: int):
+        """(devices, plan indices) for a SHARDED-state leader partition —
+        a span of ``[mesh] shardedPartitions`` devices its row tables
+        block-shard over. ([], []) when the mesh is disabled or sharding
+        is off; the factory then falls back to ``planned_device``."""
+        span = int(getattr(self.cfg.mesh, "sharded_partitions", 0))
+        if span <= 1:
+            return [], []
+        plan = self._mesh_plan()
+        if plan is None:
+            return [], []
+        indices = plan.assign_span(partition_id, span)
+        return [plan.devices[i] for i in indices], indices
+
+    def _mesh_exchange(self):
+        """The all_to_all frame exchange, built once over the plan's
+        devices; None when unavailable (single device, mesh disabled, or
+        a build failure — counted, transport keeps working)."""
+        if self._mesh_exchange_obj is not None:
+            return self._mesh_exchange_obj
+        if self._mesh_exchange_failed:
+            return None
+        plan = self.device_plan
+        if plan is None or len(plan.devices) < 2:
+            return None
+        try:
+            from zeebe_tpu_torch.scheduler.placement import MeshExchange
+
+            self._mesh_exchange_obj = MeshExchange(
+                plan.devices,
+                slots=self.cfg.mesh.exchange_slots,
+                frame_bytes=self.cfg.mesh.exchange_frame_bytes,
+            )
+        except Exception as e:  # noqa: BLE001 - the transport hop is the
+            # always-correct fallback; never wedge serving on the exchange
+            self._mesh_exchange_failed = True
+            record_event(
+                "mesh", "exchange unavailable (transport fallback)",
+                node=self.node_id, error=repr(e),
+            )
+            logger.error(
+                "mesh frame exchange unavailable (falling back to the "
+                "host transport hop): %r", e,
+            )
+        return self._mesh_exchange_obj
+
+    def exclude_device(self, device_index: int) -> ActorFuture:
+        """Operator/health entry: mark a mesh device dead. Its partitions
+        rebalance onto the remaining healthy devices and their LIVE engine
+        state migrates there (``place_on``). Runs on the broker actor —
+        serialized with the wave drain, so no wave is in flight across the
+        migration. Completes with {partition_id: new device index}."""
+
+        def do():
+            plan = self.device_plan
+            if plan is None:
+                return {}
+            moves = plan.exclude(device_index)
+            # the frame exchange spans ALL plan devices — a collective
+            # over a dead chip hangs/fails, so cross-partition frames
+            # fall back to the host transport hop from here on
+            self._mesh_exchange_obj = None
+            self._mesh_exchange_failed = True
+            for pid, new_idx in moves.items():
+                server = self.partitions.get(pid)
+                if server is None or server.engine is None:
+                    continue
+                place = getattr(server.engine, "place_on", None)
+                if place is None:
+                    continue
+                try:
+                    place(plan.devices[new_idx], new_idx)
+                except Exception:  # noqa: BLE001 - the chip is REALLY
+                    # gone: its committed arrays are unreadable, so the
+                    # state migrates the durable way instead — rebuild
+                    # the engine from snapshot + committed-log replay
+                    # (both host-side) via the normal leadership install,
+                    # which places onto the rebalanced device
+                    count_event(
+                        "mesh_state_migration_failures",
+                        "Live-state migrations off an excluded device "
+                        "that failed (partition reinstalled from "
+                        "snapshot + replay instead)",
+                    )
+                    logger.exception(
+                        "live-state migration off device %d failed for "
+                        "partition %d; reinstalling from snapshot+replay",
+                        device_index, pid,
+                    )
+                    term = server.raft.term
+                    # same-node reinstall: leadership stays here, so the
+                    # partition's live spans are NOT orphaned
+                    server._uninstall_leader(orphan_spans=False)
+                    server._install_leader(term)
+            if moves:
+                record_event(
+                    "mesh", "device excluded", node=self.node_id,
+                    device=device_index, moves=dict(moves),
+                )
+                logger.warning(
+                    "mesh device %d excluded; partitions rebalanced: %s",
+                    device_index, moves,
+                )
+            return moves
+
+        return self.actor.call(do)
+
+    def readmit_device(self, device_index: int) -> ActorFuture:
+        """Undo ``exclude_device`` once the device is healthy again: new
+        placements may land on it, and the frame exchange (disabled at
+        exclusion — its collective spans every plan device) rebuilds
+        lazily on the next eligible send. Already-moved partitions stay
+        where they are; leadership churn rebalances over time."""
+
+        def do():
+            plan = self.device_plan
+            if plan is None:
+                return
+            plan.readmit(device_index)
+            self._mesh_exchange_failed = False
+
+        return self.actor.call(do)
+
+    def route_send(self, source_partition: int, target_partition: int,
+                   record: Record) -> None:
+        """Cross-partition command routing: when BOTH partitions are
+        device-resident leaders on this broker, the encoded frame rides
+        the mesh's all_to_all exchange (flushed once per scheduling round
+        in ``_drain_committed``) instead of the host transport hop;
+        everything else takes ``send_subscription_command``."""
+        if self._queue_mesh_send(source_partition, target_partition, record):
+            return
+        self.send_subscription_command(target_partition, record)
+
+    def _queue_mesh_send(self, source_partition: int, target_partition: int,
+                         record: Record) -> bool:
+        if self.wave_scheduler is None or not self.cfg.mesh.exchange:
+            return False
+        plan = self.device_plan
+        if plan is None:
+            return False
+        target = self.partitions.get(target_partition)
+        if target is None or not target.is_leader or target.engine is None:
+            return False
+        src = plan.device_index(source_partition)
+        dst = plan.device_index(target_partition)
+        if src < 0 or dst < 0:
+            return False
+        if src == dst:
+            # same device: there is no hop to ride (not even ICI) — the
+            # direct local append is strictly cheaper
+            return False
+        exchange = self._mesh_exchange()
+        if exchange is None:
+            return False
+        if exchange.queue(
+            src, dst, target_partition, codec.encode_record(record)
+        ):
+            return True
+        # refused (oversize / pair slots full): frames queued EARLIER in
+        # this round must land first — flush them now, then let the
+        # caller take the transport path, so per-destination command
+        # order is preserved across the mixed routing (a CLOSE appended
+        # before the OPEN it follows would strand a stale subscription)
+        if exchange.pending():
+            self._flush_mesh_exchange()
+        return False
+
+    def _flush_mesh_exchange(self) -> None:
+        """One collective exchange for the scheduling round's queued
+        frames; arrivals append at their destination partition exactly
+        like transport arrivals would (decode → position/timestamp reset →
+        raft append, deposed-leader failures re-entering the retry loop)."""
+        exchange = self._mesh_exchange_obj
+        if exchange is None or not exchange.pending():
+            return
+        try:
+            exchange.flush(self._deliver_mesh_frame)
+        except Exception as e:  # noqa: BLE001 - belt: flush handles
+            # collective/delivery failures internally (direct host
+            # delivery of the snapshot), so this only catches bugs in
+            # the flush plumbing itself
+            count_event(
+                "mesh_exchange_flush_failures",
+                "Mesh exchange frame deliveries that raised",
+            )
+            logger.error("mesh exchange flush failed: %r", e)
+
+    def _deliver_mesh_frame(self, partition_id: int, frame: bytes) -> None:
+        record, _ = codec.decode_record(bytes(frame))
+        record.position = -1
+        record.timestamp = -1
+        # same append contract as the transport path (leadership may have
+        # moved between queue and flush: send_subscription_command's
+        # fast-path/retry split handles every case)
+        self.send_subscription_command(partition_id, record)
+
+    def _on_actor_failure(self, actor, exc: BaseException) -> None:
+        """Scheduler failure listener: every swallowed actor exception is
+        counted; 3+ during a broker's lifetime flip health to unhealthy
+        (reference: actor failure escalates through ActorTask and fails
+        the component's health check)."""
+        if self._closing:
+            return  # shutdown races (sockets closing under actors) don't
+            # indict a live broker's health
+        self.metrics_actor_failures.inc()
+        if self.metrics_actor_failures.value >= 3 and self._unhealthy_reason is None:
+            self._unhealthy_reason = f"repeated actor failures (last: {actor.name}: {exc!r})"
+            logger.error(
+                "broker %s marked UNHEALTHY: %s", self.node_id, self._unhealthy_reason
+            )
+
+    def healthy(self) -> bool:
+        """False once repeated actor failures were observed; surfaced so
+        harnesses/tests fail loudly instead of running on a broken tick."""
+        return self._unhealthy_reason is None
+
+    def close(self) -> None:
+        self._closing = True
+        record_event("broker", "broker closed", node=self.node_id)
+        self.scheduler.remove_actor_failure_listener(self._on_actor_failure)
+        if self.metrics_http is not None:
+            self.metrics_http.close()
+        for server in self.partitions.values():
+            server.close()
+        self.gossip.close()
+        self.client_server.close()
+        self.subscription_server.close()
+        self.client_transport.close()
+        if self._own_scheduler:
+            self.scheduler.stop()
+
+    # -- topology dissemination (gossip custom events) ----------------------
+    def on_partition_leader(self, partition_id: int, term: int) -> None:
+        """Called when THIS node becomes a partition's leader: update the
+        local view and broadcast (reference: leadership broadcast as gossip
+        custom event)."""
+        addr = [self.client_address.host, self.client_address.port]
+        sub = [self.subscription_server.address.host, self.subscription_server.address.port]
+        self.topology.update_leader(partition_id, self.node_id, addr, sub, term)
+        self.gossip.publish_custom_event(
+            "partition-leader",
+            {
+                "partition": partition_id,
+                "node": self.node_id,
+                "addr": addr,
+                "sub": sub,
+                "term": term,
+            },
+        )
+
+    def _on_leader_event(self, _sender: str, payload) -> None:
+        if not isinstance(payload, dict):
+            return
+        self.topology.update_leader(
+            int(payload.get("partition", -1)),
+            payload.get("node", ""),
+            payload.get("addr", ["", 0]),
+            payload.get("sub", ["", 0]),
+            int(payload.get("term", 0)),
+        )
+
+    # -- shared-wave drain (scheduler mode) ---------------------------------
+    def _schedule_drain(self) -> None:
+        """One drain job per burst of commits, broker-wide: every leader
+        partition's committed tail packs into the same shared waves."""
+        if self.wave_scheduler is None or self._drain_scheduled:
+            return
+        self._drain_scheduled = True
+        self.actor_control.run(self._drain_committed)
+
+    def _drain_committed(self) -> None:
+        self._drain_scheduled = False
+        if self.wave_scheduler is None:
+            return
+        try:
+            self.wave_scheduler.drain()
+        finally:
+            # the round's cross-partition frames ride ONE collective over
+            # the mesh (route_send queued them during the waves' applies)
+            self._flush_mesh_exchange()
+        for server in list(self.partitions.values()):
+            if server.is_leader:
+                # parked-record fetches start only once every in-flight
+                # wave collected (a DEPLOYMENT inside the drain may have
+                # provided the workflow)
+                server.maybe_start_fetch()
+                server.pump_topic_subscriptions()
+
+    def _queue_depth(self) -> int:
+        """Admission probe: committed records awaiting the drain (plus
+        dispatched-but-unapplied, in scheduler mode) plus responses
+        awaiting processing. Reads plain ints cross-thread — approximate
+        by design (a watermark, not an invariant)."""
+        depth = len(self._pending_responses)
+        if self.wave_scheduler is not None:
+            return depth + self.wave_scheduler.backlog()
+        for server in list(self.partitions.values()):
+            depth += server.backlog()
+        return depth
+
+    def _forget_admission(self, conn_key: int) -> None:
+        self.admission.forget_connection(conn_key)
+        self._admission_conns.discard(conn_key)
+
+    # -- client API (reference ClientApiMessageHandler) ---------------------
+    def _on_client_request(self, payload: bytes, conn):
+        try:
+            msg = msgpack.unpack(payload)
+        except Exception:  # noqa: BLE001
+            return None
+        t = msg.get("t")
+        if t == "command":
+            # record-lifecycle tracing samples HERE — the earliest hop a
+            # command is visible at (one global read when tracing is off)
+            tracer = tracing.TRACER
+            span = None
+            if tracer is not None:
+                span = tracer.maybe_sample(int(msg.get("partition", 0)))
+            # admission runs HERE, on the transport thread, before the
+            # command can queue behind the broker actor: overload is
+            # answered with a retryable rejection in O(1), never with
+            # queue time (shed-before-collapse)
+            conn_key = getattr(conn, "key", None) if conn is not None else None
+            if conn_key is not None:
+                reason = self.admission.try_admit(conn_key)
+                if reason is not None:
+                    if span is not None:
+                        # shed: the lifecycle ends here — finish the span
+                        # so it never sits in the live budget
+                        tracer.finish(
+                            span, tracing.ADMISSION, verdict=reason
+                        )
+                    return msgpack.pack(self.admission.rejection_body(reason))
+                if conn_key not in self._admission_conns:
+                    self._admission_conns.add(conn_key)
+                    conn.on_close(
+                        lambda k=conn_key: self._forget_admission(k)
+                    )
+            if span is not None:
+                tracer.stamp(span, tracing.ADMISSION, verdict="admitted")
+                tracer.stamp(span, tracing.ACTOR_ENQUEUE)
+                msg["_trace"] = span
+            result = ActorFuture()
+            if conn_key is not None:
+                # the in-flight slot frees when the response (or error)
+                # completes — every _handle_command path completes it
+                result.on_complete(
+                    lambda _f, k=conn_key: self.admission.release(k)
+                )
+            self.actor.run(lambda: self._handle_command(msg, result))
+            return result
+        if t == "topology":
+            # answered inline on the transport thread: topology state has
+            # its own lock, and the broker actor can be busy for the whole
+            # duration of a cold device-kernel compile — every 2s-timeout
+            # topology probe would fail, and clients see "no leader known"
+            # while the leader is merely warming up
+            return self._handle_topology_request()
+        if t == "job-subscription":
+            result = ActorFuture()
+            self.actor.run(lambda: self._handle_job_subscription(msg, conn, result))
+            return result
+        if t == "topic-subscription":
+            result = ActorFuture()
+            self.actor.run(lambda: self._handle_topic_subscription(msg, conn, result))
+            return result
+        if t == "fetch-workflow":
+            return self.actor.call(lambda: self._handle_fetch_workflow(msg))
+        if t == "list-workflows":
+            return self.actor.call(lambda: self._handle_list_workflows(msg))
+        if t == "get-workflow":
+            return self.actor.call(lambda: self._handle_get_workflow(msg))
+        if t == "create-partition":
+            return self._handle_create_partition(msg)
+        if t == "bootstrap-partition":
+            return self._handle_bootstrap_partition(msg)
+        if t == "list-snapshots":
+            return self._handle_list_snapshots(msg)
+        if t == "fetch-snapshot-chunk":
+            return self._handle_fetch_snapshot_chunk(msg)
+        if t == "fetch-snapshot-manifest":
+            return self._handle_fetch_snapshot_manifest(msg)
+        if t == "fetch-snapshot-segment":
+            return self._handle_fetch_snapshot_segment(msg)
+        return None
+
+    # -- snapshot replication (reference SnapshotReplicationService:55-128:
+    # followers poll the leader and fetch snapshots chunk-wise so a
+    # failover recovers from a snapshot instead of replaying the full log)
+    def _handle_list_snapshots(self, msg: dict) -> bytes:
+        server = self.partitions.get(int(msg.get("partition", 0)))
+        if server is None:
+            return msgpack.pack({"t": "ok", "snapshots": []})
+        return msgpack.pack(
+            {
+                "t": "ok",
+                "snapshots": [
+                    {
+                        "processed": m.last_processed_position,
+                        "written": m.last_written_position,
+                        "term": m.term,
+                        # raft term OF the last-processed record: the
+                        # fast-forwarded follower's last-entry term in
+                        # elections (the leader's own term would inflate
+                        # its log and let it depose better-logged peers)
+                        "lp_term": server.log.term_at(
+                            m.last_processed_position
+                        ),
+                    }
+                    for m in server.snapshots.storage.list()
+                ],
+            }
+        )
+
+    def _handle_fetch_snapshot_chunk(self, msg: dict) -> bytes:
+        from zeebe_tpu_torch.log.snapshot import SnapshotMetadata
+
+        server = self.partitions.get(int(msg.get("partition", 0)))
+        if server is None:
+            return msgpack.pack({"t": "error", "code": "NO_PARTITION"})
+        meta = SnapshotMetadata(
+            last_processed_position=int(msg.get("processed", -1)),
+            last_written_position=int(msg.get("written", -1)),
+            term=int(msg.get("term", 0)),
+        )
+        # serve ranged reads out of a small per-transfer cache — re-reading
+        # and checksumming the whole snapshot per 256K chunk is quadratic
+        # IO. Keyed per (partition, meta) so concurrent transfers (one
+        # leader serving several follower partitions) don't thrash; bounded
+        # LRU so completed transfers don't pin payloads forever.
+        cache_key = (int(msg.get("partition", 0)), meta)
+        cached = self._snapshot_serve_cache.get(cache_key)
+        if cached is None:
+            payload = server.snapshots.storage.read(meta)
+            if payload is None:
+                return msgpack.pack({"t": "error", "code": "NO_SNAPSHOT"})
+            cached = (payload, zlib.crc32(payload))
+            self._snapshot_serve_cache[cache_key] = cached
+            while len(self._snapshot_serve_cache) > 4:
+                self._snapshot_serve_cache.pop(
+                    next(iter(self._snapshot_serve_cache))
+                )
+        payload, crc = cached
+        offset = int(msg.get("offset", 0))
+        length = min(max(int(msg.get("length", 1024 * 1024)), 0), 4 * 1024 * 1024)
+        return msgpack.pack(
+            {
+                "t": "ok",
+                "total": len(payload),
+                "crc": crc,
+                "chunk": payload[offset : offset + length],
+            }
+        )
+
+    def _handle_fetch_snapshot_manifest(self, msg: dict) -> bytes:
+        """Incremental replication: the part list of a manifest snapshot;
+        the follower fetches only segments it does not already hold."""
+        from zeebe_tpu_torch.log.snapshot import SnapshotMetadata
+
+        server = self.partitions.get(int(msg.get("partition", 0)))
+        if server is None:
+            return msgpack.pack({"t": "error", "code": "NO_PARTITION"})
+        meta = SnapshotMetadata(
+            last_processed_position=int(msg.get("processed", -1)),
+            last_written_position=int(msg.get("written", -1)),
+            term=int(msg.get("term", 0)),
+        )
+        entries = server.snapshots.storage.manifest(meta)
+        if entries is None:
+            # legacy single-blob snapshot (or gone): the follower falls
+            # back to the ranged chunk fetch
+            return msgpack.pack({"t": "error", "code": "NO_MANIFEST"})
+        return msgpack.pack({"t": "ok", "parts": entries})
+
+    def _handle_fetch_snapshot_segment(self, msg: dict) -> bytes:
+        from zeebe_tpu_torch.log.snapshot import SnapshotMetadata
+
+        server = self.partitions.get(int(msg.get("partition", 0)))
+        if server is None:
+            return msgpack.pack({"t": "error", "code": "NO_PARTITION"})
+        # the metadata keys scope the request to a live snapshot: segments
+        # of purged snapshots may be GC'd mid-transfer, and the follower
+        # restarts the transfer from list-snapshots in that case
+        meta = SnapshotMetadata(
+            last_processed_position=int(msg.get("processed", -1)),
+            last_written_position=int(msg.get("written", -1)),
+            term=int(msg.get("term", 0)),
+        )
+        entries = server.snapshots.storage.manifest(meta)
+        if entries is None:
+            return msgpack.pack({"t": "error", "code": "NO_MANIFEST"})
+        h = str(msg.get("h", ""))
+        if not any(e["h"] == h for e in entries):
+            return msgpack.pack({"t": "error", "code": "NO_SEGMENT"})
+        # ranged reads come 1MB at a time: serve from the bounded transfer
+        # cache, not a full file re-read per chunk (quadratic IO on big
+        # device-table segments — same fix as the legacy chunk handler)
+        cache_key = (int(msg.get("partition", 0)), meta, h)
+        cached = self._snapshot_serve_cache.get(cache_key)
+        if cached is None:
+            data = server.snapshots.storage.read_segment(h)
+            if data is None:
+                return msgpack.pack({"t": "error", "code": "NO_SEGMENT"})
+            cached = (data, 0)
+            self._snapshot_serve_cache[cache_key] = cached
+            while len(self._snapshot_serve_cache) > 4:
+                self._snapshot_serve_cache.pop(
+                    next(iter(self._snapshot_serve_cache))
+                )
+        data = cached[0]
+        offset = int(msg.get("offset", 0))
+        length = min(max(int(msg.get("length", 1024 * 1024)), 0), 4 * 1024 * 1024)
+        return msgpack.pack(
+            {
+                "t": "ok",
+                "total": len(data),
+                "chunk": data[offset : offset + length],
+            }
+        )
+
+    def _replicate_snapshots(self) -> None:
+        """Follower side: poll each partition's leader for new snapshots and
+        fetch them chunk-wise (installed per follower partition —
+        SnapshotReplicationInstallService parity). One in-flight fetch per
+        partition: the poll period (can be 100s of ms in tests) must not
+        pile up threads behind a slow leader — each fetch involves requests
+        with multi-second timeouts."""
+        for pid, server in list(self.partitions.items()):
+            if server.is_leader:
+                continue
+            addr = self.topology.leader_address(pid)
+            if addr is None:
+                continue
+            prev = self._snapshot_fetches.get(pid)
+            if prev is not None and prev.is_alive():
+                continue
+            t = threading.Thread(
+                target=self._fetch_snapshots_from_leader,
+                args=(pid, server, addr),
+                daemon=True,
+                name=f"zb-snapshot-replication-{pid}",
+            )
+            self._snapshot_fetches[pid] = t
+            t.start()
+
+    def _fetch_snapshots_from_leader(self, pid: int, server, addr) -> None:
+        from zeebe_tpu_torch.log.snapshot import SnapshotMetadata
+
+        try:
+            rsp = msgpack.unpack(
+                self.client_transport.send_request(
+                    addr,
+                    msgpack.pack({"t": "list-snapshots", "partition": pid}),
+                    timeout_ms=3000,
+                ).join(4)
+            )
+            if rsp.get("t") != "ok" or not rsp.get("snapshots"):
+                return
+            newest = max(rsp["snapshots"], key=lambda s: int(s["processed"]))
+            meta = SnapshotMetadata(
+                last_processed_position=int(newest["processed"]),
+                last_written_position=int(newest["written"]),
+                term=int(newest["term"]),
+            )
+            have = {
+                (m.last_processed_position, m.last_written_position, m.term)
+                for m in server.snapshots.storage.list()
+            }
+            key = (meta.last_processed_position, meta.last_written_position, meta.term)
+            if key in have:
+                return
+            if not self._fetch_snapshot_into_storage(pid, server, addr, meta):
+                return
+            # snapshot catch-up ONLY when the leader told us we are below
+            # its compaction floor (the snapshot_needed probe): a merely
+            # lagging follower must keep receiving ordinary replication —
+            # fast-forwarding it would discard records the snapshot does
+            # not cover and mark them committed. The jump lands at the
+            # snapshot's PROCESSED boundary; the tail (processed..written]
+            # still exists on the leader (its floor never passes the
+            # processed position) and replicates normally.
+            if (
+                server.raft.snapshot_needed
+                and meta.last_processed_position >= server.log.next_position
+            ):
+                lp_term = int(newest.get("lp_term", -1))
+
+                def _fast_forward():
+                    server.log.fast_forward(
+                        meta.last_processed_position + 1, term=lp_term
+                    )
+                    # the reset bypassed set_commit_position, so pending
+                    # acked-means-committed futures (a deposed leader's)
+                    # would never resolve — fail them so callers retry
+                    server.raft.on_snapshot_fast_forward()
+
+                server.raft.actor.run(_fast_forward)
+        except Exception as e:  # noqa: BLE001 - next poll retries
+            logger.debug(
+                "snapshot replication fetch from %s for partition %d "
+                "failed (next poll retries): %r", addr, pid, e,
+            )
+
+    def _fetch_snapshot_into_storage(self, pid: int, server, addr, meta) -> bool:
+        """Transfer one snapshot from the leader into local storage.
+
+        Incremental path first: fetch the manifest, then ONLY the segments
+        this node does not already hold (unchanged tables from a prior
+        checkpoint never re-cross the wire). Legacy single-blob snapshots
+        fall back to the ranged chunk fetch."""
+        man_rsp = msgpack.unpack(
+            self.client_transport.send_request(
+                addr,
+                msgpack.pack({
+                    "t": "fetch-snapshot-manifest",
+                    "partition": pid,
+                    "processed": meta.last_processed_position,
+                    "written": meta.last_written_position,
+                    "term": meta.term,
+                }),
+                timeout_ms=3000,
+            ).join(4)
+        )
+        if man_rsp.get("t") == "ok":
+            return self._fetch_snapshot_parts(
+                pid, server, addr, meta, man_rsp.get("parts")
+            )
+        if man_rsp.get("code") == "NO_MANIFEST":
+            return self._fetch_snapshot_legacy(pid, server, addr, meta)
+        return False
+
+    def _fetch_snapshot_parts(self, pid, server, addr, meta, entries) -> bool:
+        from zeebe_tpu_torch.log import snapshot as snapmod
+
+        storage = server.snapshots.storage
+        # validate the untrusted manifest before fetching anything
+        if not isinstance(entries, list) or len(entries) > 10_000:
+            return False
+        clean = []
+        total = 0
+        for e in entries:
+            try:
+                name, h, length = str(e["n"]), str(e["h"]), int(e["l"])
+            except (KeyError, TypeError, ValueError):
+                return False
+            if length < 0 or not snapmod._HASH_HEX_RE.match(h):
+                return False
+            total += length
+            if total > stateser.MAX_SNAPSHOT_BYTES:
+                return False
+            clean.append({"n": name, "h": h, "l": length})
+        parts: dict = {}
+        for e in clean:
+            h, length = e["h"], e["l"]
+            data = None
+            compressed = storage.read_segment(h) if storage.has_segment(h) else None
+            if compressed is None:
+                fetched = self._fetch_segment(pid, addr, meta, h)
+                if fetched is None:
+                    return False
+                data = storage.install_segment(h, fetched, max_len=length)
+                if data is None:
+                    return False
+            else:
+                # local segment from a prior transfer: re-verify through
+                # the shared check before the pre-install decode
+                data = storage.verify_segment(h, compressed, length)
+                if data is None:
+                    return False
+            if len(data) != length:
+                return False
+            parts[e["n"]] = data
+        # the fetched snapshot must decode under the data-only codec before
+        # it can ever be offered to recovery
+        try:
+            stateser.decode_state_parts(parts)
+        except stateser.SnapshotFormatError:
+            return False
+        return storage.install_manifest(meta, clean)
+
+    def _fetch_chunked(self, addr, body_base: dict):
+        """Ranged fetch of one remote blob. Returns (payload, crc-or-None)
+        or None on any protocol violation; the remote size field is never
+        trusted blindly (bounded buffering, stable across chunks)."""
+        chunks = []
+        offset = 0
+        expect_total = None
+        expect_crc = None
+        while True:
+            rsp = msgpack.unpack(
+                self.client_transport.send_request(
+                    addr,
+                    msgpack.pack({**body_base, "offset": offset}),
+                    timeout_ms=5000,
+                ).join(6)
+            )
+            if rsp.get("t") != "ok":
+                return None
+            total = int(rsp.get("total", 0))
+            if total < 0 or total > stateser.MAX_SNAPSHOT_BYTES:
+                return None
+            if expect_total is None:
+                expect_total = total
+                expect_crc = rsp.get("crc")
+            elif total != expect_total:
+                return None
+            chunk = bytes(rsp.get("chunk", b""))
+            chunks.append(chunk)
+            offset += len(chunk)
+            if offset > expect_total:
+                return None
+            if offset >= expect_total or not chunk:
+                break
+        return b"".join(chunks), expect_crc
+
+    def _fetch_segment(self, pid, addr, meta, h) -> "bytes | None":
+        got = self._fetch_chunked(addr, {
+            "t": "fetch-snapshot-segment",
+            "partition": pid,
+            "processed": meta.last_processed_position,
+            "written": meta.last_written_position,
+            "term": meta.term,
+            "h": h,
+        })
+        return None if got is None else got[0]
+
+    def _fetch_snapshot_legacy(self, pid, server, addr, meta) -> bool:
+        got = self._fetch_chunked(addr, {
+            "t": "fetch-snapshot-chunk",
+            "partition": pid,
+            "processed": meta.last_processed_position,
+            "written": meta.last_written_position,
+            "term": meta.term,
+        })
+        if got is None:
+            return False
+        payload, expect_crc = got
+        # end-to-end integrity from the leader's serve cache, then a
+        # full decode check: a fetched snapshot must be parseable by
+        # the data-only codec before it can ever be offered to recovery
+        if expect_crc is not None and zlib.crc32(payload) != int(expect_crc):
+            return False
+        try:
+            stateser.decode_state(payload)
+        except stateser.SnapshotFormatError:
+            return False
+        server.snapshots.storage.write(meta, payload)
+        return True
+
+    # -- topic subscriptions over the client API ----------------------------
+    def _handle_topic_subscription(self, msg: dict, conn, result: ActorFuture) -> None:
+        """reference: TopicSubscriptionManagementProcessor — SUBSCRIBE opens a
+        per-subscriber push processor on the partition leader; ACKNOWLEDGE
+        commands persist progress in the log so a reopen (same name) resumes
+        where the consumer left off, on any future leader."""
+        from zeebe_tpu_torch.protocol.enums import RecordType
+        from zeebe_tpu_torch.protocol.intents import SubscriberIntent, SubscriptionIntent
+        from zeebe_tpu_torch.protocol.metadata import RecordMetadata
+        from zeebe_tpu_torch.protocol.records import (
+            TopicSubscriberRecord,
+            TopicSubscriptionRecord,
+        )
+
+        action = msg.get("action")
+        partition_id = int(msg.get("partition", 0))
+        server = self.partitions.get(partition_id)
+        if server is None or not server.is_leader or server.engine is None:
+            result.complete(msgpack.pack({"t": "error", "code": "NOT_LEADER"}))
+            return
+        name = str(msg.get("name", ""))
+        subscriber_key = int(msg.get("subscriber_key", -1))
+        if action == "open":
+            start_position = int(msg.get("start_position", -1))
+            force_start = bool(msg.get("force_start", False))
+            acked = server.engine.topic_sub_acks.get(name)
+            if acked is not None and not force_start:
+                cursor = acked + 1
+            elif start_position >= 0:
+                cursor = start_position
+            else:
+                cursor = 0
+            # durable audit record (+ ack reset on force_start)
+            observe_append(server.raft.append([
+                Record(
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=TopicSubscriberRecord.VALUE_TYPE,
+                        intent=int(SubscriberIntent.SUBSCRIBE),
+                    ),
+                    value=TopicSubscriberRecord(
+                        name=name, start_position=start_position,
+                        buffer_size=int(msg.get("credits", 32)),
+                        force_start=force_start,
+                    ),
+                )
+            ]), "topic-subscriber audit record", partition_id)
+            if conn is not None:
+                epoch = int(msg.get("epoch", -1))
+
+                def push(record, _conn=conn, _key=subscriber_key,
+                         _pid=partition_id, _epoch=epoch):
+                    return _conn.push(
+                        msgpack.pack(
+                            {
+                                "t": "pushed-record",
+                                "partition": _pid,
+                                "subscriber_key": _key,
+                                "epoch": _epoch,
+                                "frame": self._record_frame(record),
+                            }
+                        )
+                    )
+
+                logger.debug(
+                    "broker %s: opening topic pusher %d (%r) on partition "
+                    "%d at cursor %d", self.node_id, subscriber_key, name,
+                    partition_id, cursor,
+                )
+                server.topic_pushers[subscriber_key] = {
+                    "name": name,
+                    "cursor": cursor,
+                    "capacity": int(msg.get("credits", 32)),
+                    "unacked": [],
+                    "push": push,
+                    "epoch": epoch,
+                }
+                conn.on_close(
+                    lambda: self._drop_topic_subscription(partition_id, subscriber_key)
+                )
+                server.pump_topic_subscriptions()
+        elif action == "ack":
+            position = int(msg.get("position", -1))
+            observe_append(server.raft.append([
+                Record(
+                    key=subscriber_key,
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=TopicSubscriptionRecord.VALUE_TYPE,
+                        intent=int(SubscriptionIntent.ACKNOWLEDGE),
+                    ),
+                    value=TopicSubscriptionRecord(name=name, ack_position=position),
+                )
+            ]), "topic-subscription ack", partition_id)
+            pusher = server.topic_pushers.get(subscriber_key)
+            if pusher is not None:
+                pusher["unacked"] = [p for p in pusher["unacked"] if p > position]
+                server.pump_topic_subscriptions()
+        elif action == "close":
+            self._drop_topic_subscription(partition_id, subscriber_key)
+        elif action == "check":
+            # subscription liveness probe: the client's monitor verifies
+            # its pusher survived leadership churn (pushers are
+            # leader-local and clear on uninstall — a same-address flap
+            # would otherwise deafen the subscriber silently)
+            pusher = server.topic_pushers.get(subscriber_key)
+            result.complete(msgpack.pack({
+                "t": "ok",
+                "known": pusher is not None,
+                "epoch": pusher.get("epoch", -1) if pusher else -1,
+            }))
+            return
+        result.complete(msgpack.pack({"t": "ok"}))
+
+    def _drop_topic_subscription(self, partition_id: int, subscriber_key: int) -> None:
+        server = self.partitions.get(partition_id)
+        if server is not None:
+            if subscriber_key in server.topic_pushers:
+                logger.debug(
+                    "broker %s: dropping topic pusher %d on partition %d "
+                    "(connection closed)", self.node_id, subscriber_key,
+                    partition_id,
+                )
+            server.topic_pushers.pop(subscriber_key, None)
+
+    # -- cluster self-assembly (reference bootstrap services) ---------------
+    def _maybe_bootstrap(self) -> None:
+        if self._closing:
+            return
+        self._maybe_create_default_topics()
+        if self._bootstrap_started:
+            return
+        if 0 in self.partitions or self.topology.leader_address(0) is not None:
+            self._bootstrap_started = True  # already bootstrapped or joined
+            return
+        alive = set(self.gossip.alive_members()) | {self.node_id}
+        if len(alive) < max(1, self.cfg.cluster.bootstrap_expect):
+            return
+        # deterministic elector: the smallest node id drives the bootstrap
+        if min(alive) != self.node_id:
+            return
+        # all chosen members must be reachable over the management plane
+        members = sorted(alive)[: max(1, self.cfg.cluster.replication_factor)]
+        if any(self._member_client_addr(n) is None for n in members):
+            return
+        self._bootstrap_started = True
+        threading.Thread(
+            target=self._bootstrap_system_partition, args=(members,),
+            daemon=True, name="zb-bootstrap",
+        ).start()
+
+    def _bootstrap_system_partition(self, members) -> None:
+        try:
+            raft_addrs: Dict[str, list] = {}
+            for node in members:
+                addr = self._member_client_addr(node)
+                rsp = msgpack.unpack(
+                    self.client_transport.send_request(
+                        addr,
+                        msgpack.pack({"t": "create-partition", "partition": 0}),
+                        timeout_ms=5000,
+                    ).join(6)
+                )
+                if rsp.get("t") == "ok":
+                    raft_addrs[node] = list(rsp.get("raft", ["", 0]))
+            for node in raft_addrs:
+                addr = self._member_client_addr(node)
+                peers = {n: a for n, a in raft_addrs.items() if n != node}
+                self.client_transport.send_request(
+                    addr,
+                    msgpack.pack(
+                        {"t": "bootstrap-partition", "partition": 0, "members": peers}
+                    ),
+                    timeout_ms=5000,
+                ).join(6)
+        except Exception:  # noqa: BLE001 - the periodic check retries
+            self._bootstrap_started = False
+
+    def _maybe_create_default_topics(self) -> None:
+        """Configured [[topics]] created once the system partition is led by
+        this node (duplicate CREATEs are rejected — idempotent)."""
+        server = self.partitions.get(0)
+        if not self.cfg.topics or server is None or not server.is_leader:
+            return
+        if self._default_topics_created:
+            return
+        self._default_topics_created = True
+        from zeebe_tpu_torch.protocol.intents import TopicIntent
+        from zeebe_tpu_torch.protocol.metadata import RecordMetadata
+        from zeebe_tpu_torch.protocol.records import TopicRecord
+        from zeebe_tpu_torch.protocol.enums import RecordType as RT
+
+        for topic in self.cfg.topics:
+            observe_append(server.raft.append([
+                Record(
+                    metadata=RecordMetadata(
+                        record_type=RT.COMMAND,
+                        value_type=TopicRecord.VALUE_TYPE,
+                        intent=int(TopicIntent.CREATE),
+                    ),
+                    value=TopicRecord(
+                        name=topic.name,
+                        partitions=topic.partitions,
+                        replication_factor=topic.replication_factor,
+                    ),
+                )
+            ]), "default-topic CREATE", 0)
+
+    # -- topic orchestration (reference TopicCreationService + NodeSelector
+    # + CreatePartitionRequest → ManagementApiRequestHandler) ---------------
+    def start_topic_orchestration(self, creating_record: Record) -> None:
+        """On the system-partition leader: bring the CREATING topic's
+        partitions up on the least-loaded members, then confirm with a
+        CREATE_COMPLETE command (the engine answers the waiting client)."""
+        record = creating_record
+        threading.Thread(
+            target=self._orchestrate_topic, args=(record,), daemon=True,
+            name=f"zb-topic-orchestrator-{record.value.name}",
+        ).start()
+
+    def _node_loads(self) -> Dict[str, int]:
+        loads: Dict[str, int] = {self.node_id: 0}
+        for node in list(self.topology.members):
+            loads.setdefault(node, 0)
+        with self.topology._lock:
+            for _pid, entry in self.topology.partition_leaders.items():
+                loads[entry[0]] = loads.get(entry[0], 0) + 1
+        return loads
+
+    def _member_client_addr(self, node: str) -> Optional[RemoteAddress]:
+        if node == self.node_id:
+            return self.client_address
+        entry = self.topology.members.get(node)
+        if not entry or not entry[0]:
+            return None
+        return RemoteAddress(entry[0], int(entry[1]))
+
+    def _orchestrate_topic(self, record: Record) -> None:
+        import time as _time
+
+        value = record.value
+        replication = max(1, int(value.replication_factor))
+        deadline = _time.monotonic() + 60.0
+        loads = self._node_loads()
+        try:
+            for pid in list(value.partition_ids):
+                # NodeSelector: fewest-led-partitions first, stable order
+                candidates = sorted(loads, key=lambda n: (loads[n], n))
+                chosen = candidates[: min(replication, len(candidates))]
+                raft_addrs: Dict[str, list] = {}
+                for node in chosen:
+                    addr = self._member_client_addr(node)
+                    if addr is None:
+                        continue
+                    rsp = msgpack.unpack(
+                        self.client_transport.send_request(
+                            addr,
+                            msgpack.pack({"t": "create-partition", "partition": pid}),
+                            timeout_ms=5000,
+                        ).join(6)
+                    )
+                    if rsp.get("t") == "ok":
+                        raft_addrs[node] = list(rsp.get("raft", ["", 0]))
+                for node in list(raft_addrs):
+                    addr = self._member_client_addr(node)
+                    peers = {n: a for n, a in raft_addrs.items() if n != node}
+                    self.client_transport.send_request(
+                        addr,
+                        msgpack.pack(
+                            {
+                                "t": "bootstrap-partition",
+                                "partition": pid,
+                                "members": peers,
+                            }
+                        ),
+                        timeout_ms=5000,
+                    ).join(6)
+                    loads[node] = loads.get(node, 0) + 1
+
+            # leaders elected for every partition? then confirm
+            def all_led():
+                return all(
+                    self.topology.leader_address(pid) is not None
+                    for pid in value.partition_ids
+                )
+
+            while _time.monotonic() < deadline and not self._closing:
+                if all_led():
+                    break
+                _time.sleep(0.05)
+            if not all_led():
+                return  # recovery re-triggers orchestration for CREATING topics
+            server = self.partitions.get(0)
+            if server is None or not server.is_leader:
+                return
+            from zeebe_tpu_torch.protocol.intents import TopicIntent
+            from zeebe_tpu_torch.protocol.metadata import RecordMetadata
+            from zeebe_tpu_torch.protocol.records import TopicRecord
+            from zeebe_tpu_torch.protocol.enums import RecordType as RT
+
+            observe_append(server.raft.append([
+                Record(
+                    key=record.key,
+                    metadata=RecordMetadata(
+                        record_type=RT.COMMAND,
+                        value_type=TopicRecord.VALUE_TYPE,
+                        intent=int(TopicIntent.CREATE_COMPLETE),
+                        request_id=record.metadata.request_id,
+                        request_stream_id=record.metadata.request_stream_id,
+                    ),
+                    value=TopicRecord(name=value.name),
+                )
+            ]), "topic CREATE_COMPLETE", 0)
+        except Exception:  # noqa: BLE001 - orchestration retried on recovery
+            import traceback
+
+            traceback.print_exc()
+
+    def _handle_create_partition(self, msg: dict):
+        partition_id = int(msg.get("partition", 0))
+        result = ActorFuture()
+        self.open_partition(partition_id).on_complete(
+            lambda f: result.complete(
+                msgpack.pack(
+                    {"t": "ok", "raft": [f._value.host, f._value.port]}
+                    if f._exception is None
+                    else {"t": "error", "code": "CREATE_FAILED"}
+                )
+            )
+        )
+        return result
+
+    def _handle_bootstrap_partition(self, msg: dict):
+        partition_id = int(msg.get("partition", 0))
+        members = {
+            str(node): RemoteAddress(a[0], int(a[1]))
+            for node, a in dict(msg.get("members", {})).items()
+        }
+        self.bootstrap_partition(partition_id, members)
+        return msgpack.pack({"t": "ok"})
+
+    # -- workflow repository queries (reference WorkflowRepositoryService
+    # list-workflows / get-workflow control messages) ------------------------
+    def _handle_list_workflows(self, msg: dict) -> bytes:
+        process_id = msg.get("process_id") or ""
+        if process_id:
+            workflows = list(self.repository.versions.get(process_id, []))
+        else:
+            workflows = list(self.repository.by_key.values())
+        return msgpack.pack(
+            {
+                "t": "ok",
+                "workflows": [
+                    {"id": wf.id, "version": wf.version, "key": wf.key}
+                    for wf in sorted(workflows, key=lambda w: w.key)
+                ],
+            }
+        )
+
+    def _handle_get_workflow(self, msg: dict) -> bytes:
+        workflow_key = int(msg.get("workflow_key", -1))
+        process_id = msg.get("process_id") or ""
+        version = int(msg.get("version", -1))
+        wf = None
+        if workflow_key >= 0:
+            wf = self.repository.by_key.get(workflow_key)
+        elif process_id and version >= 0:
+            wf = self.repository.by_id_and_version(process_id, version)
+        elif process_id:
+            wf = self.repository.latest(process_id)
+        if wf is None:
+            return msgpack.pack({"t": "error", "code": "NOT_FOUND"})
+        return msgpack.pack(
+            {
+                "t": "ok",
+                "id": wf.id,
+                "version": wf.version,
+                "key": wf.key,
+                "resource": wf.source_resource,
+                "resource_type": wf.source_type,
+            }
+        )
+
+    # -- deployment distribution (reference FetchWorkflowRequest served by
+    # the system partition's WorkflowRepositoryService; WorkflowCache on the
+    # requesting side) ------------------------------------------------------
+    def _handle_fetch_workflow(self, msg: dict) -> bytes:
+        process_id = msg.get("process_id") or ""
+        workflow_key = int(msg.get("workflow_key", -1))
+        workflows = []
+        if workflow_key >= 0:
+            wf = self.repository.by_key.get(workflow_key)
+            workflows = [wf] if wf else []
+        elif process_id:
+            workflows = list(self.repository.versions.get(process_id, []))
+        return msgpack.pack(
+            {
+                "t": "fetch-workflow-rsp",
+                "workflows": [
+                    {
+                        "id": wf.id,
+                        "version": wf.version,
+                        "key": wf.key,
+                        "resource": wf.source_resource,
+                        "resource_type": wf.source_type,
+                    }
+                    for wf in workflows
+                ],
+            }
+        )
+
+    def fetch_workflow(
+        self, process_id: str, workflow_key: int, on_done: Callable[[], None]
+    ) -> None:
+        """Fetch a workflow from the system partition leader and register it
+        locally; ``on_done`` fires (on the broker actor) regardless of
+        outcome — the caller re-processes and lets the engine reject if the
+        workflow truly does not exist."""
+        addr = self.topology.leader_address(0)
+        if addr is None:
+            self.actor.run_delayed(100, on_done)
+            return
+        request = msgpack.pack(
+            {
+                "t": "fetch-workflow",
+                "process_id": process_id,
+                "workflow_key": workflow_key,
+            }
+        )
+        future = self.client_transport.send_request(addr, request, timeout_ms=2000)
+
+        def on_response(f: ActorFuture):
+            def apply():
+                if f._exception is None:
+                    try:
+                        self._register_fetched_workflows(msgpack.unpack(f._value))
+                    except ValueError:
+                        pass
+                on_done()
+
+            self.actor.run(apply)
+
+        future.on_complete(on_response)
+
+    def _register_fetched_workflows(self, msg: dict) -> None:
+        from zeebe_tpu_torch.models.bpmn.xml import read_model
+        from zeebe_tpu_torch.models.bpmn.yaml_front import read_yaml_workflow
+        from zeebe_tpu_torch.models.transform.transformer import transform_model
+
+        for entry in msg.get("workflows", []):
+            if int(entry.get("key", -1)) in self.repository.by_key:
+                continue
+            data = bytes(entry.get("resource", b""))
+            if not data:
+                continue
+            try:
+                if entry.get("resource_type") == "YAML_WORKFLOW":
+                    model = read_yaml_workflow(data.decode("utf-8"))
+                else:
+                    model = read_model(data, strict=False)  # accepted at deploy
+                for wf in transform_model(model):
+                    if wf.id != entry.get("id"):
+                        continue
+                    wf.version = int(entry.get("version", 1))
+                    wf.key = int(entry.get("key", -1))
+                    wf.source_resource = data
+                    wf.source_type = entry.get("resource_type", "BPMN_XML")
+                    self.repository.merge([wf])
+            except Exception:  # noqa: BLE001 - a bad resource only skips
+                continue
+
+    def _handle_topology_request(self) -> bytes:
+        with self.topology._lock:
+            entries = dict(self.topology.partition_leaders)
+        leaders = {
+            str(pid): {
+                "node": entry[0],
+                "addr": entry[1],
+                "term": entry[3] if len(entry) > 3 else entry[2],
+            }
+            for pid, entry in entries.items()
+        }
+        return msgpack.pack({"t": "topology-rsp", "leaders": leaders})
+
+    @staticmethod
+    def _record_frame(record) -> bytes:
+        """Wire frame for a response/push record, reusing the frame the
+        log append already encoded for it (``LogStream.append`` caches the
+        frame on request-relevant records) instead of paying a second
+        full encode + crc per response; columns → frame happens ONCE per
+        record."""
+        cached = getattr(record, "_frame", None)
+        if cached is not None and cached[0] == record.position:
+            return cached[1]
+        return codec.encode_record(record)
+
+    @classmethod
+    def _command_responder(cls, result: ActorFuture):
+        def on_response(f: ActorFuture):
+            if isinstance(f._exception, _AppendFailed):
+                result.complete(
+                    msgpack.pack({"t": "error", "code": "NOT_LEADER", "leader": ""})
+                )
+            elif f._exception is not None:
+                result.complete(
+                    msgpack.pack({"t": "error", "code": "INTERNAL", "message": str(f._exception)})
+                )
+            else:
+                result.complete(
+                    msgpack.pack({"t": "command-rsp", "frame": cls._record_frame(f._value)})
+                )
+
+        return on_response
+
+    def _handle_command(self, msg: dict, result: ActorFuture) -> None:
+        partition_id = int(msg.get("partition", 0))
+        span = msg.pop("_trace", None)
+
+        def finish_span(reason: str) -> None:
+            # early lifecycle end (not leader / duplicate / malformed):
+            # release the span from the live budget with the reason
+            tracer = tracing.TRACER
+            if span is not None and tracer is not None:
+                tracer.finish(span, tracing.RESPONSE, verdict=reason)
+
+        server = self.partitions.get(partition_id)
+        if server is None or not server.is_leader:
+            leader = self.topology.leader_node(partition_id)
+            finish_span("NOT_LEADER")
+            result.complete(
+                msgpack.pack(
+                    {"t": "error", "code": "NOT_LEADER", "leader": leader or ""}
+                )
+            )
+            return
+        # client retries re-send a command with the SAME cid after a lost
+        # or slow response (cluster_client.send_command): answer duplicates
+        # from the original append's response future instead of appending
+        # twice — a retried CREATE must not create two instances. (Scope:
+        # per-broker; a retry that lands on a NEW leader after failover is
+        # at-least-once, as in the reference.)
+        cid = str(msg.get("cid") or "")
+        if cid:
+            with self._request_lock:
+                existing = self._cmd_dedup.get(cid)
+            if existing is not None:
+                finish_span("DUPLICATE")
+                existing.on_complete(self._command_responder(result))
+                return
+        try:
+            record, _ = codec.decode_record(bytes(msg.get("frame", b"")))
+        except ValueError:
+            finish_span("MALFORMED")
+            result.complete(msgpack.pack({"t": "error", "code": "MALFORMED"}))
+            return
+        with self._request_lock:
+            request_id = self._next_request_id
+            self._next_request_id += 1
+        record.metadata.request_id = request_id
+        record.position = -1  # assigned on append
+        record.timestamp = -1
+        if span is not None:
+            tracer = tracing.TRACER
+            if tracer is not None:
+                # from here the span is findable by request id (raft's
+                # group commit binds the log position at fsync time)
+                tracer.bind_request(span, request_id, partition_id)
+                tracer.stamp(span, tracing.RAFT_QUEUE)
+
+        response_future = ActorFuture()
+        self._pending_responses[request_id] = response_future
+        if cid:
+            with self._request_lock:
+                self._cmd_dedup[cid] = response_future
+                while len(self._cmd_dedup) > 4096:
+                    self._cmd_dedup.pop(next(iter(self._cmd_dedup)))
+
+        response_future.on_complete(self._command_responder(result))
+
+        append = server.raft.append([record])
+
+        def on_append(f: ActorFuture):
+            if f._exception is not None:
+                self._pending_responses.pop(request_id, None)
+                if cid:
+                    with self._request_lock:
+                        self._cmd_dedup.pop(cid, None)
+                tracer = tracing.TRACER
+                if tracer is not None and tracer.tracking_requests():
+                    # the append failed before a position was bound: this
+                    # is the span's terminal stage — nothing downstream
+                    # can ever reach it (the client's retry arrives as a
+                    # fresh sampled command), and an unfinishable span
+                    # would pin every per-record stamp path hot
+                    tracer.stamp_request(
+                        request_id, "append_failed", final=True,
+                        error=str(f._exception),
+                    )
+                # complete the SHARED future, not just this request's
+                # result: retries deduped onto it must also learn
+                # NOT_LEADER instead of hanging until their timeout
+                response_future.complete_exceptionally(
+                    _AppendFailed(str(f._exception))
+                )
+
+        append.on_complete(on_append)
+
+    def send_client_response(self, response: Record, server) -> None:
+        request_id = response.metadata.request_id
+        if request_id < 0:
+            return
+        future = self._pending_responses.pop(request_id, None)
+        if future is not None:
+            tracer = tracing.TRACER
+            if tracer is not None and tracer.tracking_requests():
+                # the shared no-ack-plane rule (tracing.no_ack_plane):
+                # no exporter plane on the responding partition, or every
+                # exporter broke at open = no ack will ever finish the
+                # span, so the response is its last stage
+                tracer.stamp_request(
+                    request_id, tracing.RESPONSE,
+                    final=tracing.no_ack_plane(server),
+                )
+            future.complete(response)
+
+    # -- job subscriptions over the client API ------------------------------
+    def _handle_job_subscription(self, msg: dict, conn, result: ActorFuture) -> None:
+        """reference: AddJobSubscriptionHandler /
+        IncreaseJobSubscriptionCreditsHandler control messages; ACTIVATED
+        records are pushed down the subscriber's own connection
+        (SubscribedRecordWriter)."""
+        action = msg.get("action")
+        partition_id = int(msg.get("partition", 0))
+        server = self.partitions.get(partition_id)
+        if server is None or not server.is_leader or server.engine is None:
+            result.complete(msgpack.pack({"t": "error", "code": "NOT_LEADER"}))
+            return
+        if action == "add":
+            subscriber_key = int(msg["subscriber_key"])
+            if conn is not None:
+                self.on_push(
+                    subscriber_key,
+                    lambda pid, rec: conn.push(
+                        msgpack.pack(
+                            {
+                                "t": "pushed-record",
+                                "partition": pid,
+                                "subscriber_key": subscriber_key,
+                                "frame": self._record_frame(rec),
+                            }
+                        )
+                    ),
+                )
+                # tear the subscription down when the worker's connection
+                # dies, else activated jobs black-hole into dead credits
+                # (reference: transport channel close listeners)
+                conn.on_close(
+                    lambda: self._drop_job_subscription(partition_id, subscriber_key)
+                )
+            backlog = server.engine.add_job_subscription(
+                JobSubscription(
+                    subscriber_key=subscriber_key,
+                    job_type=msg["job_type"],
+                    worker=msg.get("worker", "worker"),
+                    timeout=int(msg.get("timeout", 300_000)),
+                    credits=int(msg.get("credits", 32)),
+                )
+            )
+            if backlog:
+                observe_append(
+                    server.raft.append(backlog),
+                    "job-subscription backlog", partition_id,
+                )
+        elif action == "credits":
+            server.engine.increase_job_credits(
+                int(msg["subscriber_key"]), int(msg.get("credits", 1))
+            )
+            # returned credits must revisit the backlog (jobs that became
+            # activatable while every subscription was dry) — host side
+            # immediately; device side via the tick's PROBE_JOB_BACKLOG
+            backlog = server.engine.backlog_activations()
+            if backlog:
+                observe_append(
+                    server.raft.append(backlog),
+                    "returned-credit backlog", partition_id,
+                )
+        elif action == "remove":
+            self._drop_job_subscription(partition_id, int(msg["subscriber_key"]))
+        result.complete(msgpack.pack({"t": "ok"}))
+
+    def _drop_job_subscription(self, partition_id: int, subscriber_key: int) -> None:
+        self._push_listeners.pop(subscriber_key, None)
+        server = self.partitions.get(partition_id)
+        if server is not None and server.engine is not None:
+            server.engine.remove_job_subscription(subscriber_key)
+
+    def on_push(self, subscriber_key: int, listener: Callable[[int, Record], None]) -> None:
+        self._push_listeners[subscriber_key] = listener
+
+    def push_to_subscriber(self, subscriber_key: int, partition_id: int, record: Record) -> None:
+        listener = self._push_listeners.get(subscriber_key)
+        if listener is not None:
+            listener(partition_id, record)
+
+    # -- cross-partition subscription commands ------------------------------
+    def send_subscription_command(self, target_partition: int, record: Record) -> None:
+        """Route to the target partition's leader over the subscription
+        transport (reference SubscriptionCommandSender hash routing; the
+        partition choice already happened in the engine). Remote sends are
+        acked and retried until a leader accepts them (the reference's
+        subscription command resend loop) — topology may lag an election."""
+        server = self.partitions.get(target_partition)
+        if server is not None and server.is_leader:
+            # local fast path — but raft.append reports "not leader"
+            # through the FUTURE, never by raising here. A stale
+            # is_leader (step-down racing this send) used to lose the
+            # command forever with the retry loop never started: a
+            # cross-partition subscription OPEN vanishing means the
+            # waiting instance never correlates
+            future = server.raft.append([record])
+            future.on_complete(lambda f: (
+                self._retry_subscription_send(target_partition, record)
+                if getattr(f, "_exception", None) is not None else None
+            ))
+            return
+        self._retry_subscription_send(target_partition, record)
+
+    def _retry_subscription_send(self, target_partition: int, record: Record) -> None:
+        request = msgpack.pack(
+            {
+                "t": "subscription-cmd",
+                "partition": target_partition,
+                "frame": codec.encode_record(record),
+            }
+        )
+
+        def retry_loop():
+            import time as _time
+
+            deadline = _time.monotonic() + 30.0
+            while _time.monotonic() < deadline and not self._closing:
+                # leadership may have landed here meanwhile; join the
+                # append so a deposed leader's failure keeps retrying
+                # instead of silently dropping the command
+                local = self.partitions.get(target_partition)
+                if local is not None and local.is_leader:
+                    future = local.raft.append([record])
+                    try:
+                        future.join(3)
+                        return
+                    except TimeoutError:
+                        # acked-means-committed: a slow quorum can hold
+                        # the future past the join window while the
+                        # record already sits in the leader's log —
+                        # re-appending here would duplicate the command
+                        # every 3s. Hand liveness to the future instead:
+                        # a later failure (truncate/step-down) restarts
+                        # the retry from its callback.
+                        future.on_complete(lambda f: (
+                            self._retry_subscription_send(
+                                target_partition, record
+                            )
+                            if getattr(f, "_exception", None) is not None
+                            and not self._closing
+                            else None
+                        ))
+                        return
+                    except Exception:  # noqa: BLE001 - deposed mid-append
+                        pass
+                addr = self.topology.leader_subscription_address(target_partition)
+                if addr is not None:
+                    try:
+                        payload = self.client_transport.send_request(
+                            addr, request, timeout_ms=2000
+                        ).join(3)
+                        if msgpack.unpack(payload).get("t") == "ok":
+                            return
+                    except Exception:  # noqa: BLE001 - retry through outages
+                        pass
+                _time.sleep(0.1)
+            count_event(
+                "subscription_send_expired",
+                "Cross-partition subscription commands dropped after the "
+                "retry deadline (no leader accepted them)",
+            )
+            logger.error(
+                "cross-partition subscription command to partition %d "
+                "dropped after 30s of retries", target_partition,
+            )
+
+        threading.Thread(target=retry_loop, daemon=True).start()
+
+    def _on_subscription_request(self, payload: bytes, conn=None):
+        """Acked subscription command (REQUEST frame): append on the leader,
+        tell the sender to retry elsewhere otherwise."""
+        try:
+            msg = msgpack.unpack(payload)
+        except Exception:  # noqa: BLE001
+            return msgpack.pack({"t": "error", "code": "BAD_REQUEST"})
+        if msg.get("t") != "subscription-cmd":
+            return msgpack.pack({"t": "error", "code": "BAD_REQUEST"})
+        result = ActorFuture()
+
+        def do():
+            partition_id = int(msg.get("partition", 0))
+            server = self.partitions.get(partition_id)
+            if server is None or not server.is_leader:
+                result.complete(msgpack.pack({"t": "error", "code": "NOT_LEADER"}))
+                return
+            try:
+                record, _ = codec.decode_record(bytes(msg.get("frame", b"")))
+            except ValueError:
+                result.complete(msgpack.pack({"t": "error", "code": "BAD_REQUEST"}))
+                return
+            record.position = -1
+            record.timestamp = -1
+            observe_append(
+                server.raft.append([record]),
+                "subscription-cmd record", partition_id,
+            )
+            result.complete(msgpack.pack({"t": "ok"}))
+
+        self.actor.run(do)
+        return result
+
+    def _on_subscription_message(self, payload: bytes) -> None:
+        try:
+            msg = msgpack.unpack(payload)
+        except Exception:  # noqa: BLE001
+            return
+        if msg.get("t") != "subscription-cmd":
+            return
+
+        def do():
+            partition_id = int(msg.get("partition", 0))
+            server = self.partitions.get(partition_id)
+            if server is None or not server.is_leader:
+                return
+            try:
+                record, _ = codec.decode_record(bytes(msg.get("frame", b"")))
+            except ValueError:
+                return
+            record.position = -1
+            record.timestamp = -1
+            observe_append(
+                server.raft.append([record]),
+                "subscription message record", partition_id,
+            )
+
+        self.actor.run(do)
+
+    # -- client command entry used by the in-process gateway ----------------
+    def subscription_address(self) -> RemoteAddress:
+        return self.subscription_server.address
+
+    # -- periodic work -------------------------------------------------------
+    def snapshot_all(self) -> None:
+        """Checkpoint every led partition and WAIT for the commits (tests
+        and admin calls expect the snapshot durable on return; the periodic
+        tick uses _snapshot_all_on_actor directly and does not wait).
+        Safe from any thread: the CAPTURE runs on the broker actor,
+        serialized with record processing — a capture reads the same
+        engine state processing mutates, and the device engine
+        additionally DONATES its buffers to XLA each step (a concurrent
+        read would hit deleted arrays). The commit (hash/compress/fsync)
+        runs on worker threads off the serving path."""
+        try:
+            threads = self.actor.call(self._snapshot_all_on_actor).join(60)
+        except TimeoutError:
+            # a silently-skipped checkpoint turns into an unexplainable
+            # missing-snapshot failure much later (round-4 flake hunt);
+            # fail where the cause is
+            raise TimeoutError(
+                "snapshot_all: broker actor did not run the checkpoint "
+                "within 60s (actor wedged or overloaded)"
+            )
+        for thread in threads:
+            thread.join(60)
+            if thread.is_alive():
+                raise TimeoutError(
+                    "snapshot_all: a snapshot commit did not finish within "
+                    "60s (storage wedged?)"
+                )
+
+    def _snapshot_all_on_actor(self) -> List[threading.Thread]:
+        """One capture per led partition, failures isolated per partition:
+        a raising take on one partition must not starve the rest of their
+        checkpoints (chaos break_fsync drives this path)."""
+        threads: List[threading.Thread] = []
+        for server in self.partitions.values():
+            try:
+                thread = server.snapshot()
+            except Exception as e:  # noqa: BLE001 - per-partition isolation
+                count_event(
+                    "snapshot_take_failures",
+                    "Snapshot takes that raised (capture or commit)",
+                )
+                logger.error(
+                    "snapshot failed on partition %d: %r",
+                    server.partition_id, e,
+                )
+                continue
+            if thread is None:
+                # a periodic-tick take may already be committing: hand its
+                # thread to snapshot_all so the durable-on-return contract
+                # holds (the in-flight take is at most one tick old)
+                thread = server._snapshot_thread
+            if thread is not None and thread.is_alive():
+                threads.append(thread)
+        return threads
+
+    def _tick_engines(self) -> None:
+        """Timer/TTL sweeps on leader partitions (reference periodic actor
+        jobs: JobTimeOutStreamProcessor, MessageTimeToLiveChecker). The
+        per-partition probe/sweep logic lives in ``PartitionServer.tick``
+        (see its docstring for the async-probe rationale); in shared-wave
+        mode the scheduler drives it through the registered feeds, so the
+        sweep commands enter the same shared waves as client traffic."""
+        self._check_span_commit_stalls()
+        if self.wave_scheduler is not None:
+            self.wave_scheduler.tick()
+            return
+        for server in self.partitions.values():
+            server.tick()
+
+    def _check_span_commit_stalls(self) -> None:
+        """Commit-latency watchdog over the SAMPLED spans (the raft actor
+        has its own, sampling-independent one): a traced command appended
+        but uncommitted past the threshold is logged once with the
+        relevant flight-recorder slice and counted process-globally."""
+        tracer = tracing.TRACER
+        if tracer is None or not tracer.by_position:
+            return
+        # claim only partitions this broker LEADS: the tracer is process-
+        # global, and an in-process peer's tick must not report (and
+        # mislabel) another leader's stall
+        led = {
+            pid for pid, server in self.partitions.items()
+            if server.is_leader
+        }
+        if not led:
+            return
+        stalled = tracer.check_commit_stalls(led)
+        if not stalled:
+            return
+        count_event(
+            "serving_commit_stalls",
+            "Sampled commands appended but uncommitted past the "
+            "commit-latency watchdog threshold",
+            delta=len(stalled),
+        )
+        for span in stalled:
+            record_event(
+                "stall", "sampled command commit stall",
+                node=self.node_id, partition=span.partition,
+                position=span.position, request_id=span.request_id,
+            )
+        # one log line (and ONE flight slice) per sweep — a wedged
+        # partition can cross the threshold with a whole budget of spans
+        # at once, and 256 copies of the same 25-line slice would bury
+        # the forensics it exists to surface
+        first = stalled[0]
+        logger.warning(
+            "broker %s: %d sampled command(s) (first: partition %d "
+            "position %d) appended but uncommitted for >%dms; recent "
+            "flight-recorder events:\n%s",
+            self.node_id, len(stalled), first.partition, first.position,
+            tracer.commit_stall_ms, FLIGHT.format_slice(last=25),
+        )

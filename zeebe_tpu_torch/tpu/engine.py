@@ -87,6 +87,19 @@ _MESSAGE_VALUE_TYPES = {
     int(ValueType.WORKFLOW_INSTANCE_SUBSCRIPTION),
 }
 
+# JOB (record type, intent) pairs that decide a job's activation: its
+# ACTIVATE command and the events that enter the activation pool
+_ACTIVATION_DECIDING = {
+    (int(RecordType.COMMAND), int(JI.ACTIVATE)),
+    (int(RecordType.EVENT), int(JI.CREATED)),
+    (int(RecordType.EVENT), int(JI.TIMED_OUT)),
+    (int(RecordType.EVENT), int(JI.FAILED)),
+    (int(RecordType.EVENT), int(JI.RETRIES_UPDATED)),
+}
+_ACTIVATION_DECIDING_CODES = np.array(
+    sorted(rt * 256 + intent for rt, intent in _ACTIVATION_DECIDING), np.int64
+)
+
 PROBE_DEADLINES = 1  # bit0: some job/timer/message deadline is due
 PROBE_JOB_BACKLOG = 2  # bit1: assignable jobs exist AND credits are free
 
@@ -118,6 +131,31 @@ def _due_probe_kernel(state: state_mod.EngineState, now: int) -> torch.Tensor:
         (job_due | timer_due | msg_due).to(torch.int32) * PROBE_DEADLINES
         + backlog.to(torch.int32) * PROBE_JOB_BACKLOG
     )
+
+
+class DueProbe:
+    """A launched ``_due_probe_kernel`` that the broker's tick polls
+    without blocking: ``is_ready()`` asks the CUDA event recorded after the
+    mask's copy into pinned host memory, ``int()`` waits on it and reads
+    the copy. On the CPU the mask is there at once."""
+
+    def __init__(self, mask: torch.Tensor):
+        self._event = None
+        if mask.is_cuda:
+            host = torch.empty((), dtype=mask.dtype, pin_memory=True)
+            host.copy_(mask, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(mask.device))
+            mask = host
+        self._mask = mask
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def __int__(self) -> int:
+        if self._event is not None:
+            self._event.synchronize()
+        return int(self._mask)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -273,6 +311,17 @@ class CudaPartitionEngine:
         self.host_only_reasons: Dict[int, str] = {}
         self.device_records_processed = 0
         self.host_records_processed = 0
+        # device-table job key -> records written for it and not processed
+        # yet that decide its activation: an ACTIVATE command (the kernel's
+        # assignment, device_backlog_activations' or a new subscription's
+        # backlog), or an event that enters the activation pool (CREATED,
+        # TIMED_OUT, FAILED, RETRIES_UPDATED). Until they are processed the
+        # table already says activatable, but the job is not stranded: the
+        # oracle's backlog holds only jobs whose pool event found no credit,
+        # so the tick's backlog scan and a new subscription leave these out.
+        # A broker's replay ends with note_unprocessed, which counts the tail
+        # it leaves unprocessed
+        self._job_records_in_flight: Dict[int, int] = {}
         self._device_keys_dirty = False
         # message store side (see _recompile): True = the device tables
         # serve MESSAGE / MESSAGE_SUBSCRIPTION records
@@ -778,7 +827,9 @@ class CudaPartitionEngine:
     def add_job_subscription(self, sub: JobSubscription) -> List[Record]:
         """Idempotent per subscriber key. Returns ACTIVATE commands for the
         backlog of already-created matching jobs (device table and host
-        oracle); the caller appends them to the partition log."""
+        oracle); the caller appends them to the partition log. A job whose
+        activation is in flight is not backlog yet (see
+        ``_job_records_in_flight``)."""
         self.remove_job_subscription(sub.subscriber_key)
         host_backlog = self._host.add_job_subscription(dataclasses.replace(sub))
         s = self.state
@@ -801,6 +852,7 @@ class CudaPartitionEngine:
                 & (job_i32[:, state_mod.JB_RETRIES] > 0)
             )[0]
             if int(job_i32[slot, state_mod.JB_STATE]) in activatable
+            and int(job_keys[slot]) not in self._job_records_in_flight
         ]
         for key, slot in sorted(candidates):
             if credits <= 0:
@@ -831,6 +883,8 @@ class CudaPartitionEngine:
         s.sub_credits[free] = credits
         s.sub_timeout[free] = sub.timeout
         s.sub_valid[free] = True
+        for r in backlog:
+            self._note_job_records(r.key, 1)
         return host_backlog + backlog
 
     def remove_job_subscription(self, subscriber_key: int) -> None:
@@ -848,13 +902,15 @@ class CudaPartitionEngine:
         )
 
     # -- deadline scans (broker tick) --------------------------------------
-    def deadlines_due_probe(self) -> torch.Tensor:
-        """Device 0-dim int32 bitmask (PROBE_DEADLINES | PROBE_JOB_BACKLOG):
-        is any device-side deadline due now, and is there unassigned job
-        backlog a free credit could serve? The in-process broker reads it
-        synchronously each tick; host-oracle deadlines are swept by
+    def deadlines_due_probe(self) -> DueProbe:
+        """The bitmask (PROBE_DEADLINES | PROBE_JOB_BACKLOG) of
+        ``_due_probe_kernel``, launched now and read by ``int()``: is any
+        device-side deadline due, and is there unassigned job backlog a
+        free credit could serve? The in-process broker reads it at once
+        each tick; the cluster broker polls ``is_ready()`` and reads it on
+        a later tick. Host-oracle deadlines are swept by
         ``host_deadline_commands``."""
-        return _due_probe_kernel(self.state, int(self.clock()))
+        return DueProbe(_due_probe_kernel(self.state, int(self.clock())))
 
     def backlog_activations(self) -> List[Record]:
         """Host-oracle side only; the device job backlog is served by
@@ -886,6 +942,7 @@ class CudaPartitionEngine:
                 & (job_i32[:, state_mod.JB_RETRIES] > 0)
             )[0]
             if int(job_i32[slot, state_mod.JB_STATE]) in activatable
+            and int(job_keys[slot]) not in self._job_records_in_flight
         ]
         out: List[Record] = []
         now = self.clock()
@@ -924,7 +981,33 @@ class CudaPartitionEngine:
             self._mark_device_dirty("sub")
             s.sub_credits.copy_(torch.from_numpy(sub_credits))
             s.sub_rr.fill_(rr)
+            for r in out:
+                self._note_job_records(r.key, 1)
         return out
+
+    def _note_job_records(self, key: int, delta: int) -> None:
+        """Count a written (+1) or processed (-1) record that decides the
+        activation of job ``key`` (see ``_job_records_in_flight``); one
+        processed without being counted is ignored."""
+        n = self._job_records_in_flight.get(key, 0) + delta
+        if n > 0:
+            self._job_records_in_flight[key] = n
+        else:
+            self._job_records_in_flight.pop(key, None)
+
+    def note_unprocessed(self, records) -> None:
+        """Recount ``_job_records_in_flight`` from ``records``, every record
+        written and not processed yet. A broker calls it once its replay is
+        done: the tail the last run appended and never processed holds
+        ACTIVATE commands and pool events that no output of this engine
+        counted (a snapshot covers the records that wrote them)."""
+        counts: Dict[int, int] = {}
+        for r in records:
+            md = r.metadata
+            if (int(md.value_type) == int(ValueType.JOB)
+                    and (int(md.record_type), int(md.intent)) in _ACTIVATION_DECIDING):
+                counts[r.key] = counts.get(r.key, 0) + 1
+        self._job_records_in_flight = counts
 
     def host_deadline_commands(self) -> List[Record]:
         """The embedded oracle's due commands only (per-family key order)."""
@@ -1339,6 +1422,12 @@ class CudaPartitionEngine:
                 intent = int(md.intent)
                 pos, key = entry.position, entry.key
             positions.append(pos)
+            if (
+                self._job_records_in_flight
+                and vt == int(ValueType.JOB)
+                and (rt, intent) in _ACTIVATION_DECIDING
+            ):
+                self._note_job_records(key, -1)
             device_vt = vt in _DEVICE_VALUE_TYPES or (
                 vt in _MESSAGE_VALUE_TYPES
                 and self.graph is not None
@@ -1656,6 +1745,28 @@ class CudaPartitionEngine:
             kw[name] = torch.from_numpy(cols[name]).to(dev)
         return RecordBatch(**kw)
 
+    def warm(self) -> None:
+        """Step one empty wave before the partition serves, so every kernel
+        library is built and launched once at install time: a first build
+        inside the first served batch would hold the broker actor while
+        client requests wait. A library is built once for every shape, so
+        one wave of the smallest staged size does. A wave with no valid row
+        changes no table. With nothing deployed the wave steps an empty
+        graph."""
+        if self.graph is None:
+            self._recompile()
+        graph = self.graph
+        if graph is None:
+            graph, _meta = graph_mod.compile_graph(
+                [], interns=InternTable(), device=self.device
+            )
+        self.state, _out, _stats = kernel.step_kernel(
+            graph, self.state, self._stage([]), int(self.clock()),
+            partition_id=self.partition_id,
+        )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _run_step(self, batch: RecordBatch, now: int) -> tuple:
         """Launch ONE wave through the step kernel, rebinding ``self.state``
         and returning ``(out, stats)``."""
@@ -1896,6 +2007,11 @@ class CudaPartitionEngine:
         o = {
             name: _np(getattr(seg.out, name)[:count]) for name in rb.FIELDS
         }
+        deciding = (o["vtype"] == int(ValueType.JOB)) & np.isin(
+            o["rtype"].astype(np.int64) * 256 + o["intent"], _ACTIVATION_DECIDING_CODES
+        )
+        for key in o["key"][deciding].tolist():
+            self._note_job_records(key, 1)
         # collection is one-shot: clear the device refs BEFORE decoding
         seg.out = None
         seg.stats = None

@@ -46,6 +46,7 @@ import ctypes
 import dataclasses
 import functools
 import struct
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -66,6 +67,9 @@ LAUNCHES: Dict[str, int] = {
 # device kernel launches the same calls enqueued: one a call, but for the
 # table commits (a pass or two per stage of the op list: commit_plan)
 DEVICE_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+# the counts are read-modify-writes, and a cluster node launches from
+# several threads (one drain actor per broker)
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -79,8 +83,9 @@ def _count(name: str, launched: int) -> None:
     entry enqueued; a negative ``launched`` is minus a CUDA error."""
     if launched < 0:
         raise RuntimeError(f"{name}: CUDA error {-launched} at launch")
-    LAUNCHES[name] += 1
-    DEVICE_LAUNCHES[name] += launched
+    with _count_lock:
+        LAUNCHES[name] += 1
+        DEVICE_LAUNCHES[name] += launched
 
 
 def _on_cuda(tensors: Sequence[torch.Tensor], what: str) -> bool:
@@ -458,8 +463,31 @@ _COMMIT_LAYOUT = struct.Struct("<7Q4iIi")
 
 # per-device claim scratch for "set" ops: [words] int64, and the last epoch
 # handed out (see csrc/table_commit.cu); zeroed only when (re)allocated or
-# when the 32-bit epoch space wraps
+# when the 32-bit epoch space wraps.
+#
+# A writer writes only where the largest claim equals its own tag, so an
+# epoch must reach the device in the order it was granted: a lower epoch
+# launched after a higher one on the same words loses its writes without
+# a trace. Two invariants keep that order:
+# - a caller holds the device's ``_scratch_lock`` from ``_claim_scratch``
+#   (and the insert's ``_worklist_scratch``) through the launch that uses
+#   it, so grant order is enqueue order across threads; the lock also
+#   keeps a scratch that a larger request replaces alive until the
+#   launch that was given it is enqueued;
+# - every launch that uses one scratch goes to one stream, so enqueue
+#   order is execution order. Every launch here goes to the calling
+#   thread's current stream (``_stream``) and no path of the package sets
+#   a stream, so all of them share the device's default stream. A caller
+#   that gives engines streams of their own needs a scratch per stream.
 _claims: Dict[torch.device, list] = {}
+_scratch_locks: Dict[torch.device, threading.Lock] = {}
+
+
+def _scratch_lock(device: torch.device) -> threading.Lock:
+    lock = _scratch_locks.get(device)
+    if lock is None:
+        lock = _scratch_locks.setdefault(device, threading.Lock())
+    return lock
 
 
 def _claim_scratch(device: torch.device, words: int, epochs: int):
@@ -539,8 +567,9 @@ def _commit_descs(tables, ops):
 
 
 def _commit_cuda(tables, ops) -> List[torch.Tensor]:
-    descs, _keep = _commit_descs(tables, ops)
-    _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream()))
+    with _scratch_lock(tables[ops[0].table].device):
+        descs, _keep = _commit_descs(tables, ops)
+        _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream()))
     return list(tables)
 
 
@@ -734,8 +763,9 @@ def _scatter_desc(name, table, kind, slots, active, vals, mask):
 
 
 def _scatter_cuda(name, table, kind, slots, active, vals, mask) -> None:
-    d, _keep = _scatter_desc(name, table, kind, slots, active, vals, mask)
-    _count(name, _commit_fn()(ctypes.byref(d), 1, _stream()))
+    with _scratch_lock(table.device):
+        d, _keep = _scatter_desc(name, table, kind, slots, active, vals, mask)
+        _count(name, _commit_fn()(ctypes.byref(d), 1, _stream()))
 
 
 def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
@@ -984,7 +1014,9 @@ def insert_plan(n: int) -> int:
 
 
 # per-device worklist scratch of the insert kernel, 2 * _INSERT_BLOCKS *
-# share pairs of int32 as int64 words; grown when a call needs more
+# share pairs of int32 as int64 words; grown when a call needs more. Its
+# users serialise on the stream; ``_scratch_lock`` covers a growth that
+# would free the buffer a granted, not yet enqueued insert writes
 _worklists: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -1045,10 +1077,11 @@ def _insert_fn():
 
 
 def _insert_cuda(table: HashTable, keys, vals, valid) -> torch.Tensor:
-    args, ok, _keep = _insert_args(table, keys, vals, valid)
-    launched = _insert_fn()(ctypes.byref(args), _stream())
-    if launched:
-        _count("insert", launched)
+    with _scratch_lock(keys.device):
+        args, ok, _keep = _insert_args(table, keys, vals, valid)
+        launched = _insert_fn()(ctypes.byref(args), _stream())
+        if launched:
+            _count("insert", launched)
     return ok
 
 
