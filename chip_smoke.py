@@ -143,13 +143,32 @@ TRANSITIONS_PER_INSTANCE_C5 = 70
 # the device functions of zeebe_tpu_torch/csrc, as the profiler names them
 OUR_KERNELS = ("gather_rows_kernel", "commit_pass_kernel", "scatter_accum_kernel",
                "hash_lookup_kernel", "hash_insert_kernel", "hash_delete_kernel")
-# a spin of this many clock cycles (about 11 ms at 1.98 GHz) holds the
-# stream while the host enqueues the launches device_us times
-SPIN_CYCLES = 20_000_000
+# a spin of this many clock cycles (about 30 ms at 1.98 GHz) holds the
+# stream while the host enqueues the launches device_us times (a slow host
+# took 11.6 ms for phase 2's hundred fused-lookup calls)
+SPIN_CYCLES = 60_000_000
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def current_stream() -> int:
+    """The raw handle of the current card's current stream: where the
+    wrappers launch on that card."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import ops
+
+    return ops._stream(torch.device("cuda", torch.cuda.current_device()))
+
+
+def _enter_guard(device) -> None:
+    """Enter and leave a wrapper's launch guard (its host cost)."""
+    from zeebe_tpu_torch.tpu import ops
+
+    with ops._device_guard(device):
+        pass
 
 
 def smi_line() -> str:
@@ -920,7 +939,7 @@ def check_gather(dev, gen):
         return [tables[op.table].index_select(0, ix) for op, ix in zip(gops, idx64)]
 
     args, _outs, _keep = ops._gather_args(tables, gops)
-    fn, stream = ops._gather_fn(), ops._stream()
+    fn, stream = ops._gather_fn(), current_stream()
     # the outputs' allocation: one torch.empty per op, or one arena split
     # into views (the wrapper's choice rests on these two numbers)
     shapes = [((op.slots.shape[0],) + tuple(tables[op.table].shape[1:]),
@@ -1022,7 +1041,7 @@ def check_commit(dev, gen):
         nbytes += lanes * 4 * (2 if op.kind != "set" else 1)  # RMW for add/max
     work = tables_copy()
     descs, _keep = ops._commit_descs(work, cops)
-    fn, stream = ops._commit_fn(), ops._stream()
+    fn, stream = ops._commit_fn(), current_stream()
     plan = ops.commit_plan(work, cops)
     return {
         "name": "fused_table_commit", "route": "cuda",
@@ -1322,7 +1341,7 @@ def check_scatters(dev, gen):
         keep: list = []
         if name in ACCUMULATES:
             entry = ops._accum_fn()
-            call = ops._ACCUM_CALLS[1].pack(ops._stream(), 1, *ops._accum_fields(
+            call = ops._ACCUM_CALLS[1].pack(current_stream(), 1, *ops._accum_fields(
                 name, work, kind, slots, active, vals, mask, keep))
 
             def launch():
@@ -1334,7 +1353,7 @@ def check_scatters(dev, gen):
                                             None)
             else:
                 d, keep = ops._scatter_desc(name, work, kind, slots, active, vals, mask)
-            commit, stream = ops._commit_fn(), ops._stream()
+            commit, stream = ops._commit_fn(), current_stream()
 
             def launch():
                 return commit(ctypes.byref(d), 1, stream)
@@ -1383,7 +1402,7 @@ def accumulate_host_pieces(dev, gen) -> dict:
     from zeebe_tpu_torch.tpu import ops
 
     table, slots, active, vals, _m = _scatter_case(dev, gen, (_J, 4), torch.int32, False)
-    name, stream = "masked_row_max", ops._stream()
+    name, stream = "masked_row_max", current_stream()
     op = ops.TableOp(0, "max", slots, active, vals)
     fields = ops._accum_fields(name, table, "max", slots, active, vals, None, [])
     call, _keep = ops._accum_call(name, [table], [op], stream, True)
@@ -1395,9 +1414,9 @@ def accumulate_host_pieces(dev, gen) -> dict:
                      0)
     routes = {
         "shared": {
-            "is_cuda x5": lambda: (table.is_cuda and slots.is_cuda and active.is_cuda
-                                   and vals.is_cuda and (None is None or None.is_cuda)),
-            "_stream": ops._stream,
+            "_cuda_device": lambda: ops._cuda_device([table, slots, active, vals], name),
+            "_device_guard": lambda: _enter_guard(table.device),
+            "_stream": current_stream,
             "_count": lambda: ops._count(name, 1),
         },
         "accumulate": {
@@ -1474,7 +1493,7 @@ def _accumulate_pair(dev, gen):
         ops.masked_row_max(w1, slots, active, v1)
         ops.masked_row_max(w2, slots, active, v2)
     entry = ops._accum_fn()
-    call, _keep = ops._accum_call("fused_accumulate", [w1, w2], pair, ops._stream(), True)
+    call, _keep = ops._accum_call("fused_accumulate", [w1, w2], pair, current_stream(), True)
     return {
         "name": "fused_accumulate", "route": "cuda",
         "source": "zeebe_tpu_torch/csrc/scatter_accum.cu",
@@ -1627,7 +1646,7 @@ def check_insert(dev, gen):
     captured = _captured_insert(base, keys, vals, valid)
     # round 1 alone: the C entry told to stop after one round; the argument
     # blocks point into the copies, which live until the calls are done
-    entry, stream = ops._insert_fn(), ops._stream()
+    entry, stream = ops._insert_fn(), current_stream()
     copies = _copies(fresh, 101)
     blocks = [ops._insert_args(c, rkeys, rvals, rlive, rounds=1) for c in copies]
     rebuild["round1_device_us"] = device_us_calls(
@@ -1900,7 +1919,7 @@ def check_row_loop(dev, gen):
     passes_us = {"both_w10": device_us_calls([lambda: probe.row_loop(work, idx, rows, 10)] * 101)}
     # each pass alone, on an epoch newer than every tag in the scratch: the
     # write pass reads the claims the claim pass left
-    fn, stream = probe._row_loop_fn(), ops._stream()
+    fn, stream = probe._row_loop_fn(), current_stream()
     scratch, epoch = ops._claim_scratch(work.device, cap, 1)
 
     def passes(n_writes, which):
@@ -2897,12 +2916,12 @@ def _freeze_heap():
     gc.freeze()
 
 
-def _wait(predicate, timeout, what):
+def _wait(predicate, timeout, what, interval=0.02):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if predicate():
             return
-        time.sleep(0.02)
+        time.sleep(interval)
     raise AssertionError(f"timed out after {timeout} s waiting for {what}")
 
 
@@ -3361,6 +3380,635 @@ def entry_point(workdir):
             proc.wait(timeout=30)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the mesh
+# ---------------------------------------------------------------------------
+
+# 9a: one partition's state sharded, config 1 at its accelerator capacity
+MESH_CAPACITY = 1 << 16
+MESH_WAVE = 512  # the BrokerCfg() wave
+MESH_RESIDENT = 4096
+MESH_INSTANCES = 2048
+# (span, routing, routed lane slots): the single-device baseline first; the
+# last run's lanes are narrower than a wave, so its CREATE waves overflow
+MESH_RUNS = ((1, "gathered", 512), (2, "gathered", 512), (2, "resident", 512),
+             (4, "gathered", 512), (4, "resident", 512), (4, "resident", 256))
+MESH_KERNELS = CONFIG1_KERNELS
+# 9b: bench.py:787 run_mesh_serving's defaults
+MESH_PARTITIONS = 8
+MESH_PLAN_DEVICES = 4
+MESH_CLIENTS = 8
+MESH_PER_CLIENT = 8
+MESH_SHARDED = 2
+MESH_CORRELATED = 64
+MESH_AFTER_EXCLUSION = 64
+MESH_PHASE_LIMIT_S = 300
+
+
+def mesh_devices(n):
+    """``n`` places on the cards there are: distinct cards while there are
+    enough, else the cards named again in turn (one card, n times)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def mesh_resident_model():
+    """bench.py:900's resident process: a service task no worker serves."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    return (Bpmn.create_process("mesh-resident").start_event()
+            .service_task("hold", type="mesh-resident-service").end_event().done())
+
+
+def mesh_flow_model():
+    """bench.py:893's mesh flow: start → service task → end."""
+    from zeebe_tpu_torch.models.bpmn.builder import Bpmn
+
+    return (Bpmn.create_process("mesh-flow").start_event()
+            .service_task("work", type="mesh-service").end_event().done())
+
+
+def _sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+class _StepCounts:
+    """Counts the step kernel's and the lookup-state rebuild's calls (every
+    route to them: the engine's, the sharded steps')."""
+
+    def __enter__(self):
+        from zeebe_tpu_torch.tpu import kernel, shard, state as state_mod
+
+        self.steps = self.rebuilds = 0
+        self._real = (kernel.step_kernel, state_mod.rebuild_lookup_state)
+        real_step, real_rebuild = self._real
+
+        def step(*a, **k):
+            self.steps += 1
+            return real_step(*a, **k)
+
+        def rebuild(*a, **k):
+            self.rebuilds += 1
+            return real_rebuild(*a, **k)
+
+        kernel.step_kernel = shard.step_kernel = step
+        state_mod.rebuild_lookup_state = rebuild
+        return self
+
+    def zero(self):
+        self.steps = self.rebuilds = 0
+
+    def __exit__(self, *exc):
+        from zeebe_tpu_torch.tpu import kernel, shard, state as state_mod
+
+        kernel.step_kernel = shard.step_kernel = self._real[0]
+        state_mod.rebuild_lookup_state = self._real[1]
+        return False
+
+
+def mesh_state_run(span, routing, lane_slots, workdir, capacity=MESH_CAPACITY,
+                   resident=MESH_RESIDENT, instances=MESH_INSTANCES, device="cuda",
+                   around=None):
+    """9a, one run: ``CudaPartitionEngine`` with config 1's graph at
+    ``capacity``, its tables over ``span`` places (``mesh_devices``), served
+    through the port's in-process Broker in waves of 512: a resident set
+    left waiting at a service task no worker serves, then, counted from 0,
+    ``instances`` timed instances with one worker of 256 credits, ticks
+    until quiet; ``around``, a context manager factory, is entered around
+    that timed part. ``device="cpu"`` rehearses it on the CPU."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from zeebe_tpu_torch.engine.interpreter import WorkflowRepository
+    from zeebe_tpu_torch.gateway import JobWorker, ZeebeClient
+    from zeebe_tpu_torch.protocol.enums import ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.protocol.records import WorkflowInstanceRecord
+    from zeebe_tpu_torch.runtime import Broker, ControlledClock
+    from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+    cuda = device == "cuda"
+    places = mesh_devices(span) if cuda else [torch.device("cpu")] * span
+    kw = ({"state_shards": span, "shard_devices": places, "routing": routing,
+           "routed_lane_slots": lane_slots} if span > 1 else {"device": places[0]})
+    clock = ControlledClock(start_ms=1_000_000)
+    repo = WorkflowRepository()
+    broker = Broker(
+        num_partitions=1, clock=clock, data_dir=tempfile.mkdtemp(prefix="mesh-", dir=workdir),
+        engine_factory=lambda pid: CudaPartitionEngine(
+            pid, 1, repository=repo, clock=clock, capacity=capacity, num_vars=16,
+            sub_capacity=16, **kw),
+    )
+    broker.wave_size = MESH_WAVE
+    engine = broker.partitions[0].engine
+    exchanged = GLOBAL_REGISTRY.counter("mesh_shard_exchange_bytes_total")
+    try:
+        with _StepCounts() as counts:
+            client = ZeebeClient(broker)
+            client.deploy_model(config1_model())
+            client.deploy_model(mesh_resident_model())
+            JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
+                      credits=SERVE_CREDITS)
+            for i in range(resident):
+                broker.write_command(0, WorkflowInstanceRecord(
+                    bpmn_process_id="mesh-resident", payload={"r": i}), WI.CREATE)
+            broker.run_until_idle()
+            log_ = broker.partitions[0].log
+            mark = log_.next_position
+            if cuda:
+                _sync_all()
+            reset_launches()
+            counts.zero()
+            waves0 = (engine.sharded_waves, engine.routed_waves, engine.fallback_waves)
+            bytes0 = exchanged.value
+            window = (around or contextlib.nullcontext)()
+            window.__enter__()
+            t0 = time.perf_counter()
+            for i in range(instances):
+                broker.write_command(0, WorkflowInstanceRecord(
+                    bpmn_process_id="order-process", payload=order_payload(i)), WI.CREATE)
+            broker.run_until_idle()
+            ticks = 0
+            while True:
+                before = log_.next_position
+                broker.tick()
+                broker.run_until_idle()
+                ticks += 1
+                if log_.next_position == before:
+                    break
+            if cuda:
+                _sync_all()
+            wall = time.perf_counter() - t0
+            window.__exit__(None, None, None)
+            launches = launch_counts()
+            steps, rebuilds = counts.steps, counts.rebuilds
+        records = broker.records(0)
+    finally:
+        broker.close()
+    sig = record_signature(records)
+    timed = sum(1 for r in records if r.position >= mark)
+    completed = sum(
+        1 for r in records
+        if r.position >= mark and int(r.metadata.value_type) == int(ValueType.WORKFLOW_INSTANCE)
+        and int(r.metadata.intent) == int(WI.ELEMENT_COMPLETED)
+        and r.key == getattr(r.value, "workflow_instance_key", None))
+    label = f"9a span {span} {routing}" + (f", lanes {lane_slots}" if span > 1 else "")
+    if completed != instances:
+        raise AssertionError(f"{label}: {completed} of {instances} instances completed")
+    waves = tuple(b - a for a, b in zip(waves0, (engine.sharded_waves, engine.routed_waves,
+                                                 engine.fallback_waves)))
+    out = {
+        "span": span, "routing": routing, "lane_slots": lane_slots,
+        "places": [str(d) for d in places], "capacity": capacity, "resident": resident,
+        "instances": instances, "records": timed, "wall_seconds": wall,
+        "records_per_sec": timed / wall, "ticks": ticks, "steps": steps,
+        "rebuilds": rebuilds, "sharded_waves": waves[0], "routed_waves": waves[1],
+        "fallback_waves": waves[2], "routed_overflows": engine.routed_overflows,
+        "exchange_bytes": exchanged.value - bytes0,
+        "state_exchange_bytes": engine._shard_exchange_bytes,
+        "launches": launches, "signature": sig,
+    }
+    if span > 1:
+        if steps != waves[0]:
+            raise AssertionError(f"{label}: {steps} steps but {waves[0]} sharded waves")
+        if routing == "gathered" and out["exchange_bytes"] != engine._shard_exchange_bytes * steps:
+            raise AssertionError(
+                f"{label}: {out['exchange_bytes']} exchange bytes != "
+                f"{engine._shard_exchange_bytes} x {steps} waves")
+        if routing == "resident":
+            if rebuilds != waves[1] + waves[2]:
+                raise AssertionError(f"{label}: {rebuilds} rebuilds for {waves[1]} routed "
+                                     f"and {waves[2]} fallback waves")
+            if lane_slots >= MESH_WAVE and waves[1] <= 0:
+                raise AssertionError(f"{label}: no wave took the routed step")
+            if lane_slots < MESH_WAVE and (engine.routed_overflows <= 0 or waves[2] <= 0):
+                raise AssertionError(f"{label}: the narrow lanes never overflowed")
+    if cuda:
+        want = {k: 0 for k in launches}
+        for k, n in PER_ROUND["config1"].items():
+            want[k] = n * steps
+        want["insert"] += INSERTS_PER_REBUILD * rebuilds
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches} != {want} ({steps} steps, "
+                                 f"{rebuilds} rebuilds)")
+        # the insert launches only in rebuilds, which a short run may not need
+        zero = [k for k in MESH_KERNELS if launches[k] <= 0 and (k != "insert" or rebuilds)]
+        if zero:
+            raise AssertionError(f"{label}: kernels never launched: {zero}")
+    return out
+
+
+def mesh_rebuild_ms(span, capacity=MESH_CAPACITY, reps=20):
+    """The lookup-state rebuild of one shard's block (capacity / span rows;
+    span 1: the whole table), CUDA events over ``reps`` rebuilds."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    st = state_mod.make_state(capacity=capacity // span, num_vars=16, sub_capacity=16,
+                              device="cuda")
+    state_mod.rebuild_lookup_state(st)
+    return time_ms(lambda: state_mod.rebuild_lookup_state(st), reps=reps)
+
+
+def mesh_state_phase(workdir):
+    """9a: every run of MESH_RUNS, each log's signature equal to the
+    single-device run's."""
+    runs = []
+    for span, routing, lanes in MESH_RUNS:
+        run = mesh_state_run(span, routing, lanes, workdir)
+        if runs and run["signature"] != runs[0]["signature"]:
+            base = runs[0]["signature"]
+            i = next((i for i, (a, b) in enumerate(zip(run["signature"], base)) if a != b),
+                     min(len(base), len(run["signature"])))
+            raise AssertionError(f"9a span {span} {routing}: the log differs from the "
+                                 f"single-device log at signature record {i}")
+        runs.append(run)
+    for run in runs:
+        run["signature_records"] = len(run.pop("signature"))
+    return {"runs": runs,
+            "rebuild_ms": {str(s): mesh_rebuild_ms(s) for s in (1, 2, 4)}}
+
+
+def _kinds(logs):
+    """Counts of (record type, value type, intent) over committed logs."""
+    import collections
+
+    kinds = collections.Counter()
+    for log_ in logs:
+        for r in log_.reader(0).read_committed():
+            md = r.metadata
+            kinds[(int(md.record_type), int(md.value_type), int(md.intent))] += 1
+    return kinds
+
+
+def _roots_completed(logs, process_ids=None):
+    """(partition, instance key) → process-level ELEMENT_COMPLETED events."""
+    import collections
+
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+
+    done = collections.Counter()
+    for pid, log_ in enumerate(logs):
+        for r in log_.reader(0).read_committed():
+            md = r.metadata
+            if (md.value_type == ValueType.WORKFLOW_INSTANCE
+                    and md.record_type == RecordType.EVENT
+                    and int(md.intent) == int(WI.ELEMENT_COMPLETED)
+                    and r.key == r.value.workflow_instance_key
+                    and (process_ids is None or r.value.bpmn_process_id in process_ids)):
+                done[(pid, r.key)] += 1
+    return done
+
+
+def _subscriptions(logs, intent):
+    """MESSAGE_SUBSCRIPTION events of ``intent`` over committed logs (an
+    OPENED one: a publish then finds the subscription on its message
+    partition)."""
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+
+    n = 0
+    for log_ in logs:
+        for r in log_.reader(0).read_committed():
+            md = r.metadata
+            n += (md.record_type == RecordType.EVENT
+                  and md.value_type == ValueType.MESSAGE_SUBSCRIPTION
+                  and int(md.intent) == int(intent))
+    return n
+
+
+def _settled(logs, still=1.0):
+    """A predicate for ``_wait``: true once no log has grown for ``still``
+    seconds."""
+    seen = [None, 0.0]
+
+    def settled():
+        sizes = tuple(log_.next_position for log_ in logs)
+        if sizes != seen[0]:
+            seen[:] = [sizes, time.monotonic()]
+            return False
+        return time.monotonic() - seen[1] >= still
+
+    return settled
+
+
+def _in_threads(fn, items, threads):
+    """``fn(item)`` for every item, from ``threads`` threads at once (the
+    requests of a client's pumps); raises the first failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        for _ in pool.map(fn, items):
+            pass
+
+
+def mesh_serving(engine_type, workdir, partitions=MESH_PARTITIONS, clients=MESH_CLIENTS,
+                 per_client=MESH_PER_CLIENT, correlated=MESH_CORRELATED,
+                 after=MESH_AFTER_EXCLUSION, sharded=MESH_SHARDED, capacity=4096,
+                 plan_devices=None):
+    """9b: bench.py:787 ``run_mesh_serving`` on the port: one ClusterBroker
+    with ``partitions`` partitions and ``[mesh] shardedPartitions =
+    sharded`` (each partition's tables over a span of the plan's places),
+    ``[mesh] exchange`` on, ``[engine] type = engine_type``; the plan over
+    ``plan_devices`` (default: MESH_PLAN_DEVICES places on the cards
+    there are). The mesh flow from ``clients`` threads of ``per_client``
+    instances each on partitions picked at random (seeded), config 4's
+    process on every partition with correlation keys hashed over them,
+    its messages published once every subscription is open, then, once
+    every instance has ended (their subscriptions' CLOSEs still on the
+    way), a device excluded and ``after`` more mesh-flow instances. Every
+    instance completes once, and every subscription closes.""" 
+    import random
+    import tempfile
+    import threading
+
+    from zeebe_tpu_torch.gateway.cluster_client import ClusterClient
+    from zeebe_tpu_torch.protocol.intents import MessageSubscriptionIntent
+    from zeebe_tpu_torch.runtime import ControlledClock
+    from zeebe_tpu_torch.runtime.cluster_broker import ClusterBroker
+    from zeebe_tpu_torch.runtime.engines import engine_factory_from_config
+    from zeebe_tpu_torch.runtime.metrics import event_count
+    from zeebe_tpu_torch.scheduler.placement import DevicePlan
+
+    _freeze_heap()
+    cfg = _cluster_cfg("mesh-0", engine_type, partitions=partitions)
+    cfg.engine.capacity = capacity
+    cfg.mesh.sharded_partitions = sharded
+    cfg.mesh.exchange = True
+    device = None if engine_type != "cuda" or plan_devices is None else "cpu"
+    # the records' clock stands still: config 4's 30 s boundary timer would
+    # otherwise race the requests' latency, and the counts are held to the
+    # oracle's (raft keeps its own clock)
+    broker = ClusterBroker(cfg, tempfile.mkdtemp(prefix="mesh-", dir=workdir),
+                           engine_factory=engine_factory_from_config(cfg, device=device),
+                           clock=ControlledClock(start_ms=1_000_000))
+    plan = None
+    if engine_type == "cuda":
+        plan = broker.device_plan = DevicePlan(
+            devices=plan_devices or mesh_devices(MESH_PLAN_DEVICES))
+    client = None
+    frames0 = event_count("mesh_exchange_frames")
+    fallbacks0 = event_count("mesh_exchange_fallbacks")
+    try:
+        t_start = time.perf_counter()
+        for pid in range(partitions):
+            broker.open_partition(pid).join(600)
+            broker.bootstrap_partition(pid, {})
+        _wait(lambda: all(broker.partitions[p].is_leader for p in range(partitions)),
+              600, "leadership of every partition")
+        ready_s = time.perf_counter() - t_start
+        logs = [broker.partitions[p].log for p in range(partitions)]
+        client = ClusterClient([broker.client_address], num_partitions=partitions,
+                               request_timeout_ms=300_000)
+        client.deploy_model(mesh_flow_model())
+        client.deploy_model(config4_model())
+        worker = client.open_job_worker("mesh-service", lambda pid, rec: {},
+                                        credits=SERVE_CREDITS)
+        spans = None
+        if plan is not None:
+            spans = {p: list(broker.partitions[p].engine.device_indices)
+                     for p in range(partitions)}
+            if any(spans[p] != plan.device_indices(p) or len(spans[p]) != sharded
+                   for p in spans):
+                raise AssertionError(f"9b: spans {spans} != the plan's")
+        created, errors = [], []
+        lock = threading.Lock()
+
+        def tenant(k):
+            rng = random.Random(11 * 1000 + k)
+            for _ in range(per_client):
+                pid = rng.randrange(partitions)
+                try:
+                    rsp = client.create_instance("mesh-flow", payload={"t": k},
+                                                 partition_id=pid)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e)[:200])
+                    return
+                with lock:
+                    created.append((pid, rsp.value.workflow_instance_key))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tenant, args=(k,), daemon=True)
+                   for k in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(MESH_PHASE_LIMIT_S)
+        if errors or len(created) != clients * per_client:
+            raise AssertionError(f"9b: {len(created)} created; {errors[:3]}")
+        def correlated_create(i):
+            # the key "m-i" hashes to partition i % partitions: the instance
+            # on the next one sends its OPEN, and gets its CORRELATE, across
+            # partitions (and across places of the plan)
+            pid = (i + 1) % partitions
+            rsp = client.create_instance("c4", payload={"oid": f"m-{i}"}, partition_id=pid)
+            with lock:
+                created.append((pid, rsp.value.workflow_instance_key))
+
+        _in_threads(correlated_create, range(correlated), clients)
+        # the logs' scans hold the interpreter the brokers' threads share:
+        # poll them a few times a second
+        _wait(lambda: _subscriptions(logs, MessageSubscriptionIntent.OPENED) >= correlated,
+              MESH_PHASE_LIMIT_S, "every message subscription open", interval=0.25)
+        _in_threads(lambda i: client.publish_message("paid", f"m-{i}", payload={"paid": True}),
+                    range(correlated), clients)
+        _wait(lambda: set(created) <= set(_roots_completed(logs)), MESH_PHASE_LIMIT_S,
+              "every instance's end", interval=0.25)
+        served_s = time.perf_counter() - t0
+        moves = {}
+        if plan is not None:
+            moves = broker.exclude_device(1).join(120)
+            _wait(lambda: all(broker.partitions[p].is_leader
+                              and broker.partitions[p].engine is not None
+                              for p in range(partitions)), 120, "the moved partitions")
+            for p in range(partitions):
+                span = list(broker.partitions[p].engine.device_indices)
+                if span != plan.device_indices(p) or 1 in span:
+                    raise AssertionError(f"9b: partition {p} on {span} after the "
+                                         f"exclusion, the plan says {plan.device_indices(p)}")
+        else:
+            broker.exclude_device(1).join(120)
+        t1 = time.perf_counter()
+        rng = random.Random(7)
+        targets = [rng.randrange(partitions) for _ in range(after)]
+
+        def after_create(i):
+            rsp = client.create_instance("mesh-flow", payload={"x": i},
+                                         partition_id=targets[i])
+            with lock:
+                created.append((targets[i], rsp.value.workflow_instance_key))
+
+        _in_threads(after_create, range(after), clients)
+        _wait(lambda: set(created) <= set(_roots_completed(logs)), MESH_PHASE_LIMIT_S,
+              "every instance's end after the exclusion", interval=0.25)
+        after_s = time.perf_counter() - t1
+        # every subscription closed (a completed instance's CLOSE lands after
+        # its end, some of them after the exclusion) and the logs at rest
+        # before they are counted
+        _wait(lambda: _subscriptions(logs, MessageSubscriptionIntent.CLOSED) >= correlated,
+              MESH_PHASE_LIMIT_S, "every message subscription closed", interval=0.25)
+        _wait(_settled(logs), MESH_PHASE_LIMIT_S, "the logs at rest", interval=0.25)
+        worker.close()
+        done = _roots_completed(logs)
+        twice = [k for k in created if done[k] != 1]
+        if twice or len(done) != len(created):
+            raise AssertionError(f"9b: {len(done)} instances completed for {len(created)} "
+                                 f"created, not once: {twice[:5]}")
+        return {
+            "engine": engine_type, "partitions": partitions, "sharded": sharded,
+            "plan": [str(d) for d in plan.devices] if plan is not None else None,
+            "spans": spans, "moves": {str(k): v for k, v in moves.items()},
+            "instances": len(created), "ready_seconds": ready_s,
+            "served_seconds": served_s, "after_exclusion_seconds": after_s,
+            "exchange_frames": event_count("mesh_exchange_frames") - frames0,
+            "correlated_across": sum(1 for i in range(correlated)
+                                     if broker.partitions[0].engine.partition_for_correlation_key(
+                                         f"m-{i}") != (i + 1) % partitions),
+            "exchange_fallbacks": event_count("mesh_exchange_fallbacks") - fallbacks0,
+            "kinds": _kinds(logs),
+        }
+    finally:
+        if client is not None:
+            client.close()
+        broker.close()
+
+
+def profile_mesh(workdir):
+    """9a under torch.profiler: the timed part (512 instances over the
+    resident set) of the single-device, the 4-way gathered and the 4-way
+    resident run; device busy time against the wall time of the places'
+    cards, and the kernels that take it."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for span, routing in ((1, "gathered"), (4, "gathered"), (4, "resident")):
+        box = []
+
+        @contextlib.contextmanager
+        def around():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                yield
+            box.append(prof)
+
+        run = mesh_state_run(span, routing, MESH_WAVE, workdir, instances=512, around=around)
+        events, dev_us = _device_events(box[0])
+        busy_ms = sum(dev_us(e) for e in events) / 1e3
+        cards = len(set(run["places"]))
+        wall_ms = run["wall_seconds"] * 1e3
+        top = sorted(events, key=dev_us, reverse=True)[:8]
+        out.append({
+            "span": span, "routing": routing, "cards": cards, "records": run["records"],
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall_ms * cards),
+            "steps": run["steps"], "rebuilds": run["rebuilds"],
+            "device_launches": sum(e.count for e in events),
+            "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
+                    for e in top],
+        })
+    return out
+
+
+def mesh_phase(here, report, by_path, profile=False):
+    """Phase 9: 9a (one partition's state over spans of 1, 2 and 4 places)
+    and 9b (bench.py:787's mesh serving on the card, then on the host
+    oracle), each run's launches counted from 0."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    count = torch.cuda.device_count()
+    places = mesh_devices(MESH_PLAN_DEVICES)
+    distinct = len(set(places))
+    log(f"[9] {count} card(s): spans of 2 and 4 places lie on "
+        + ("distinct cards" if distinct == MESH_PLAN_DEVICES else
+           f"{distinct} card(s), each named {MESH_PLAN_DEVICES // distinct} times")
+        + f" ({', '.join(map(str, places))})")
+    report["mesh_cards"] = {"count": count, "places": [str(d) for d in places]}
+    workdir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="mesh-", dir=workdir)
+    try:
+        t0 = time.perf_counter()
+        state = mesh_state_phase(workdir)
+        report["mesh_state"] = state
+        base = state["runs"][0]
+        for run in state["runs"]:
+            key = f"mesh_state_{run['span']}_{run['routing']}_{run['lane_slots']}"
+            by_path[key] = run["launches"]
+            log(f"[9a] span {run['span']} {run['routing']}"
+                + (f" (lanes {run['lane_slots']})" if run["span"] > 1 else "")
+                + f" on {','.join(run['places'])}: {run['instances']} instances over "
+                f"{run['resident']} resident at capacity {run['capacity']}: "
+                f"{run['records']} records in {run['wall_seconds']:.3f} s = "
+                f"{run['records_per_sec']:.1f} records/s (single device "
+                f"{base['records_per_sec']:.1f}); {run['steps']} steps, {run['rebuilds']} "
+                f"rebuilds, routed {run['routed_waves']}, fallback {run['fallback_waves']}, "
+                f"overflows {run['routed_overflows']}; exchange {run['exchange_bytes']:.0f} B "
+                f"({run['state_exchange_bytes']} B a gathered wave); log signature "
+                f"({run['signature_records']} records) equal to the single device's; "
+                f"launches {run['launches']}")
+        log(f"[9a] the lookup-state rebuild of one block (capacity {MESH_CAPACITY} / span): "
+            + ", ".join(f"span {s} {ms:.4f} ms" for s, ms in state["rebuild_ms"].items())
+            + f" ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        reset_launches()
+        serving = mesh_serving("cuda", workdir)
+        by_path["mesh_serving"] = launch_counts()
+        zero = [k for k in CONFIG4_KERNELS if by_path["mesh_serving"][k] <= 0]
+        if zero:
+            raise AssertionError(f"9b: kernels never launched: {zero}")
+        oracle = mesh_serving("host", workdir)
+        if serving["kinds"] != oracle["kinds"]:
+            diff = {k: (serving["kinds"].get(k), oracle["kinds"].get(k))
+                    for k in set(serving["kinds"]) | set(oracle["kinds"])
+                    if serving["kinds"].get(k) != oracle["kinds"].get(k)}
+            raise AssertionError(f"9b: the card's and the oracle's logs hold other "
+                                 f"records (card, oracle): {diff}")
+        if serving["exchange_frames"] <= 0 or serving["exchange_fallbacks"]:
+            raise AssertionError(f"9b: {serving['exchange_frames']} frames exchanged, "
+                                 f"{serving['exchange_fallbacks']} fell back")
+        for r in (serving, oracle):
+            r["kinds"] = {"/".join(map(str, k)): n for k, n in sorted(r["kinds"].items())}
+        report["mesh_serving"], report["mesh_serving_oracle"] = serving, oracle
+        log(f"[9b] {serving['partitions']} partitions, shardedPartitions "
+            f"{serving['sharded']}, a plan over {serving['plan']}, [mesh] exchange on: "
+            f"{serving['instances']} instances (the mesh flow from {MESH_CLIENTS} clients, "
+            f"{MESH_CORRELATED} config-4 correlations across partitions, "
+            f"{MESH_AFTER_EXCLUSION} after excluding device 1) each completed once; "
+            f"ready in {serving['ready_seconds']:.3f} s, served in "
+            f"{serving['served_seconds']:.3f} s, after the exclusion in "
+            f"{serving['after_exclusion_seconds']:.3f} s; {serving['exchange_frames']:.0f} "
+            f"frames over MeshExchange, {serving['exchange_fallbacks']:.0f} fell back; "
+            f"spans {serving['spans']} → moved {serving['moves']}; the host oracle "
+            f"({oracle['served_seconds']:.3f} s) wrote the same counts of every (record "
+            f"type, value type, intent); launches {by_path['mesh_serving']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if profile:
+            report["profile_mesh"] = profile_mesh(workdir)
+            for row in report["profile_mesh"]:
+                log(f"[p] 9a span {row['span']} {row['routing']}, 512 instances: "
+                    f"{row['records']} records, wall {row['wall_ms']:.1f} ms, device busy "
+                    f"{row['device_busy_ms']:.1f} ms on {row['cards']} card(s) (idle share "
+                    f"{row['device_idle_share']:.3f}), {row['steps']} steps, "
+                    f"{row['rebuilds']} rebuilds, {row['device_launches']} device ops")
+                for t in row["top"]:
+                    log(f"    {t['device_ms']:9.3f} ms {t['count']:6d}x {t['name']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measured number here (JSON)")
@@ -3373,6 +4021,8 @@ def main(argv) -> int:
     only.add_argument("--scatter-only", action="store_true",
                       help="only build and run phase 2's scatter and row-loop cases, "
                            "and time the one-op accumulate wrapper piece by piece")
+    only.add_argument("--mesh-only", action="store_true",
+                      help="only build the kernels and run phase 9 (the mesh)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3411,6 +4061,8 @@ def main(argv) -> int:
     checks = (check_gather, check_commit, check_lookup, check_scatters,
               check_insert, check_delete, check_row_loop, check_probe)
     for k, check in enumerate(checks):
+        if args.mesh_only:
+            break
         if args.hash_only and check not in (check_lookup, check_insert, check_delete,
                                             check_probe):
             continue
@@ -3440,7 +4092,7 @@ def main(argv) -> int:
                 if extra in row:
                     log(f"    {extra}: kernel {row[extra]:.4f} ms")
 
-    if not (args.hash_only or args.scatter_only):
+    if not (args.hash_only or args.scatter_only or args.mesh_only):
         report["two_threads"] = check_two_threads("cuda")
         tt = report["two_threads"]
         log(f"[2] two threads, tables of their own, {tt['commits']} table commits and "
@@ -3458,6 +4110,18 @@ def main(argv) -> int:
             with open(args.out, "w") as f:
                 json.dump(result, f, indent=1)
         print(smi, flush=True)
+        return 0
+    if args.mesh_only:
+        mesh_phase(here, report, {}, args.profile)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
         return 0
 
     t0 = time.perf_counter()
@@ -3566,7 +4230,7 @@ def main(argv) -> int:
     os.makedirs(workdir, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="serve-", dir=workdir)
     try:
-        if ops._SELFCHECK_PASSED:
+        if ops._SELFCHECKED:
             raise AssertionError("the boot self-check ran before the first engine")
         reset_launches()
         t0 = time.perf_counter()
@@ -3575,7 +4239,7 @@ def main(argv) -> int:
         by_path["selfcheck"] = launch_counts()
         boot_commits = commit_device_launches("selfcheck")
         zero = [k for k in SELFCHECK_KERNELS if by_path["selfcheck"][k] <= 0]
-        if not ops._SELFCHECK_PASSED or zero:
+        if torch.cuda.current_device() not in ops._SELFCHECKED or zero:
             raise AssertionError(f"the boot self-check did not run its kernels: {zero}")
         report["selfcheck"] = {"seconds": boot_s, "launches": by_path["selfcheck"]}
         log(f"[6] first engine on the card: boot self-check bit-equal in "
@@ -3728,6 +4392,9 @@ def main(argv) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # phase 9: the mesh, each path's launches counted from 0
+    mesh_phase(here, report, by_path, args.profile)
+
     if args.profile:
         report["profile_eval_programs"] = profile_eval_programs(WAVE)
         ev = report["profile_eval_programs"]
@@ -3765,8 +4432,9 @@ def main(argv) -> int:
             f"{scan['scan_peak_extra_bytes'] / 2**20:.1f} MiB); the dense [B, T] form "
             f"{scan['dense_ms']:.4f} ms (peak +{scan['dense_peak_extra_bytes'] / 2**20:.1f} MiB)")
     # launches: the sum over the main-path runs (phases 4 to 5d, 6: the boot
-    # self-check and the six served runs, 7: the probe, and 8a and 8b: the
-    # cluster runs in this process; 8c's node is another process), each
+    # self-check and the six served runs, 7: the probe, 8a and 8b: the
+    # cluster runs in this process (8c's node is another process), 9a's six
+    # runs and 9b's cuda run), each
     # run's own count beside it; masked_row_add and masked_row_max, which
     # no path calls (config 3's maxima are one fused_accumulate), stay at 0
     for row in kernels:

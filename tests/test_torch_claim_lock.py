@@ -13,6 +13,7 @@ order must be the ones granted, in the order granted. Without the lock the
 schedule below interleaves grants and launches within a few calls.
 """
 
+import contextlib
 import sys
 import threading
 import time
@@ -24,6 +25,7 @@ from zeebe_tpu_torch.tpu import hashmap, ops
 
 THREADS = 6
 CALLS = 60
+CPU = torch.device("cpu")
 
 
 @pytest.fixture
@@ -54,7 +56,8 @@ def recorded(monkeypatch):
 
     monkeypatch.setattr(ops, "_commit_fn", lambda: commit)
     monkeypatch.setattr(ops, "_insert_fn", lambda: insert)
-    monkeypatch.setattr(ops, "_stream", lambda: 0)
+    monkeypatch.setattr(ops, "_stream", lambda _device: 0)
+    monkeypatch.setattr(ops, "_device_guard", lambda _device: contextlib.nullcontext())
     monkeypatch.setattr(ops, "_claim_scratch", yielding_grant)
     monkeypatch.setattr(ops, "_claims", {})
     monkeypatch.setattr(ops, "_worklists", {})
@@ -79,11 +82,11 @@ def _calls(seed):
                   ops.TableOp(1, "set", slots, on, vals[:, 0])]
     for k in range(CALLS):
         if k % 3 == 0:
-            ops._commit_cuda([table, lane], commit_ops)
+            ops._commit_cuda([table, lane], commit_ops, CPU)
         elif k % 3 == 1:
-            ops._scatter_cuda("masked_row_update", table, "set", slots, on, vals, None)
+            ops._scatter_cuda("masked_row_update", table, "set", slots, on, vals, None, CPU)
         else:
-            ops._insert_cuda(hmap, keys, keys.to(torch.int32), on)
+            ops._insert_cuda(hmap, keys, keys.to(torch.int32), on, CPU)
 
 
 def test_epochs_reach_the_stream_in_grant_order(recorded):

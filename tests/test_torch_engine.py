@@ -337,7 +337,7 @@ def test_selfcheck_is_a_noop_without_a_cuda_device(monkeypatch):
     monkeypatch.setattr(ops, "_selfcheck_on", lambda device: 1 / 0)
     before = dict(ops.LAUNCHES)
     ops.selfcheck()
-    assert ops.LAUNCHES == before and ops._SELFCHECK_PASSED is False
+    assert ops.LAUNCHES == before and ops._SELFCHECKED == set()
 
 
 def test_selfcheck_passes_with_the_plain_versions():

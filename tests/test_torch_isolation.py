@@ -49,11 +49,8 @@ COPIED = [
 # top-level functions and classes a copy leaves out:
 # - jsonpath's msgpack traverser lazily imports zeebe_tpu.protocol.msgpack;
 #   it is off the compile path
-# - MeshExchange is the multi-device frame exchange of the cluster broker
-#   (the mesh path): its body imports jax.sharding and zeebe_tpu.tpu.shard
 DROPPED = {
     "protocol/jsonpath.py": ("traverse",),
-    "scheduler/placement.py": ("MeshExchange",),
 }
 # (source text, copy text) pairs a copy replaces, each found exactly once
 REPLACED = {
@@ -64,12 +61,16 @@ REPLACED = {
         "                torch.device(\"cuda\", i)\n"
         "                for i in range(torch.cuda.device_count())\n"
         "            ]\n",
+    ), (
+        # MeshExchange's devices form the port's Mesh (tpu/shard.py), whose
+        # frame exchange copies each (source, destination) block once
+        "        from jax.sharding import Mesh\n\n",
+        "",
+    ), (
+        "        import numpy as _np\n\n"
+        "        mesh = Mesh(_np.asarray(self.devices), (\"exchange\",))\n",
+        "        mesh = shard.Mesh(self.devices, \"exchange\")\n",
     )],
-    # the package's exports follow the dropped MeshExchange
-    "scheduler/__init__.py": [
-        ("import DevicePlan, MeshExchange\n", "import DevicePlan\n"),
-        ('    "MeshExchange",\n', ""),
-    ],
     # after the replay, the engine counts the job records of the tail the
     # last leader appended and never processed (CudaPartitionEngine's
     # note_unprocessed): its tick leaves those jobs out of the backlog
@@ -84,6 +85,36 @@ REPLACED = {
         "            note_unprocessed(partition.log.reader(partition.next_read_position))\n",
     )],
     "runtime/cluster_broker.py": [(
+        # a partition moved off an excluded device by a same-term reinstall
+        # (always so for a sharded engine) keeps its workers' subscriptions:
+        # a worker sees the same address and term and does not subscribe again
+        "                    term = server.raft.term\n"
+        "                    # same-node reinstall: leadership stays here, so the\n"
+        "                    # partition's live spans are NOT orphaned\n"
+        "                    server._uninstall_leader(orphan_spans=False)\n"
+        "                    server._install_leader(term)\n",
+        "                    term = server.raft.term\n"
+        "                    # job subscriptions are the live engine's session state,\n"
+        "                    # and a worker sees the same leader address and term, so\n"
+        "                    # it never subscribes again: the reinstalled engine takes\n"
+        "                    # them over (a sharded engine, pinned to its span, always\n"
+        "                    # moves this way)\n"
+        "                    try:\n"
+        "                        subs = server.engine.job_subscriptions()\n"
+        "                    except Exception:  # noqa: BLE001 - unreadable tables\n"
+        "                        subs = []\n"
+        "                    # same-node reinstall: leadership stays here, so the\n"
+        "                    # partition's live spans are NOT orphaned\n"
+        "                    server._uninstall_leader(orphan_spans=False)\n"
+        "                    server._install_leader(term)\n"
+        "                    for sub in subs if server.engine is not None else ():\n"
+        "                        backlog = server.engine.add_job_subscription(sub)\n"
+        "                        if backlog:\n"
+        "                            observe_append(\n"
+        "                                server.raft.append(backlog),\n"
+        "                                \"job-subscription backlog\", pid,\n"
+        "                            )\n",
+    ), (
         "            self.engine.process(record)\n"
         "            self.next_read_position = record.position + 1\n"
         "        self.is_leader = True\n",
@@ -109,6 +140,19 @@ REPLACED = {
         "            self.broker.actor_control.run(\n"
         "                lambda: self.is_leader and self._uninstall_leader()\n"
         "            )\n",
+    )],
+    # instance and job keys carry the partition in their high bits, as the
+    # reference's do: a message partition told subscriptions of two
+    # partitions' instances with equal keys apart by nothing
+    "engine/interpreter.py": [(
+        "        self.job_keys = keyspace.job_keys()\n",
+        "        self.job_keys = keyspace.job_keys()\n"
+        "        # instance and job keys carry the partition in their high bits\n"
+        "        # (reference Protocol.encodePartitionId): a message partition holds\n"
+        "        # subscriptions of several partitions' instances, and tells them\n"
+        "        # apart by their keys\n"
+        "        for keys in (self.wf_keys, self.job_keys):\n"
+        "            keys.set_key(keys.peek + (partition_id << 51) - keyspace.STEP_SIZE)\n",
     )],
     # the port's engine is the CUDA one: a node started with no [engine]
     # type serves on the card, and only an explicit "host" picks the oracle
@@ -183,12 +227,7 @@ REPLACED = {
     )],
 }
 # lazy imports of modules the port does not copy, each off the served path
-UNRESOLVED = {
-    # the all_to_all frame exchange over two or more cards (DROPPED above):
-    # engine_factory_from_config refuses [mesh] exchange on such a plan, so
-    # no broker reaches it
-    ("runtime/cluster_broker.py", "zeebe_tpu_torch.scheduler.placement.MeshExchange"),
-}
+UNRESOLVED: set = set()
 _IMPORT = re.compile(r"^(\s*)(from|import) zeebe_tpu(?=[. ])")
 
 
@@ -215,7 +254,7 @@ def _imported_modules(tree):
 
 def test_no_jax_and_no_zeebe_tpu_imports_at_any_depth():
     sources = _port_sources()
-    assert len(sources) >= 89  # the 88 modules of the port and chip_smoke.py
+    assert len(sources) >= 90  # the 89 modules of the port and chip_smoke.py
     offenders = []
     for path in sources:
         with open(path) as f:
@@ -237,6 +276,24 @@ def test_the_probe_benchmark_imports_no_jax_and_nothing_of_zeebe_tpu():
         mods = {m.split(".")[0] for m in _imported_modules(ast.parse(f.read(), path))}
     assert mods & {"jax", "jaxlib", "zeebe_tpu", "benchmarks"} == set()
     assert "zeebe_tpu_torch" in mods
+
+
+def test_the_mesh_modules_import_no_jax_and_nothing_of_zeebe_tpu():
+    """``tpu/shard.py`` (the mesh's state steps and exchanges) and the
+    copied ``scheduler/placement.py`` (``MeshExchange``) run on torch alone,
+    at any depth."""
+    for rel in ("tpu/shard.py", "scheduler/placement.py"):
+        path = os.path.join(PORT, rel)
+        assert path in _port_sources()
+        with open(path) as f:
+            mods = {m.split(".")[0] for m in _imported_modules(ast.parse(f.read(), path))}
+        assert mods & {"jax", "jaxlib", "zeebe_tpu"} == set(), rel
+        assert "zeebe_tpu_torch" in mods, rel
+    from zeebe_tpu_torch.scheduler import MeshExchange
+    from zeebe_tpu_torch.tpu import shard
+
+    assert MeshExchange.__module__ == "zeebe_tpu_torch.scheduler.placement"
+    assert shard.build_frame_exchange.__module__ == "zeebe_tpu_torch.tpu.shard"
 
 
 def _module_file(parts):

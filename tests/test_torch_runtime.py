@@ -100,8 +100,11 @@ def test_cuda_without_a_card_raises_when_the_factory_is_built():
 @pytest.mark.parametrize("fields, match", [
     ({"engine__type": "tpu"}, "JAX package"),
     ({"engine__type": "gpu"}, "unknown engine type"),
-    ({"engine__type": "cuda", "mesh__sharded_partitions": 2}, "shardedPartitions"),
-    ({"engine__type": "cuda", "mesh__routing": "resident"}, "routing"),
+    # the mesh is ported: what is refused is a span wider than the plan's
+    # cards and an unknown routing mode
+    ({"engine__type": "cuda", "mesh__sharded_partitions": 2, "mesh__devices": 1},
+     "shardedPartitions"),
+    ({"engine__type": "cuda", "mesh__routing": "telepathic"}, "routing"),
 ])
 def test_what_the_port_does_not_run_raises(fields, match):
     with pytest.raises(ValueError, match=match):

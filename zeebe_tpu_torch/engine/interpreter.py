@@ -398,6 +398,12 @@ class PartitionEngine:
         # key generators (reference KeyGenerator.create*KeyGenerator)
         self.wf_keys = keyspace.workflow_instance_keys()
         self.job_keys = keyspace.job_keys()
+        # instance and job keys carry the partition in their high bits
+        # (reference Protocol.encodePartitionId): a message partition holds
+        # subscriptions of several partitions' instances, and tells them
+        # apart by their keys
+        for keys in (self.wf_keys, self.job_keys):
+            keys.set_key(keys.peek + (partition_id << 51) - keyspace.STEP_SIZE)
         self.incident_keys = keyspace.incident_keys()
         self.deployment_keys = keyspace.deployment_keys()
 

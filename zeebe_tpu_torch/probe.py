@@ -99,17 +99,19 @@ def row_loop(tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     """``tbl[idx[i]] = rows[i] + w`` for i in batch order and w < n_writes,
     IN PLACE: one kernel call on CUDA tensors (the claim pass, and the
     write pass chained to it by programmatic dependent launch)."""
-    if not ops._on_cuda([tbl, idx, rows], "row_loop"):
+    device = ops._cuda_device([tbl, idx, rows], "row_loop")
+    if device is None:
         return row_loop_reference(tbl, idx, rows, n_writes)
     _check_row_loop(tbl, idx, rows, n_writes)
     idx = idx.to(torch.int32).contiguous()
     rows = rows.to(torch.int32).contiguous()
     cap, k = tbl.shape
-    with ops._scratch_lock(tbl.device):  # grant to launch (see ops._claims)
+    # grant to launch (see ops._claims)
+    with ops._scratch_lock(device), ops._device_guard(device):
         scratch, epoch = ops._claim_scratch(tbl.device, cap, 1)
         launched = _row_loop_fn()(tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(),
                                   idx.shape[0], cap, k, n_writes, scratch.data_ptr(), epoch,
-                                  3, ops._stream())
+                                  3, ops._stream(device))
     if launched < 0:
         raise RuntimeError(f"row_loop: CUDA error {-launched} at launch")
     if launched:
@@ -152,15 +154,17 @@ def probe(keys: torch.Tensor, tkeys: torch.Tensor) -> torch.Tensor:
     cap = tkeys.shape[0]
     if keys.dim() != 1 or tkeys.dim() != 1 or cap & (cap - 1):
         raise ValueError("probe: keys [B] and a power-of-two table [CAP] expected")
-    if not ops._on_cuda([keys, tkeys], "probe"):
+    device = ops._cuda_device([keys, tkeys], "probe")
+    if device is None:
         return probe_reference(keys, tkeys)
     keys = keys.to(torch.int32).contiguous()
     tkeys = tkeys.to(torch.int32).contiguous()
     out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     fn = _entry("zb_probe", (p, p, i64, i64, p, p))
-    _build.check(fn(keys.data_ptr(), tkeys.data_ptr(), keys.shape[0], cap,
-                    out.data_ptr(), ops._stream()), "probe")
+    with ops._device_guard(device):
+        _build.check(fn(keys.data_ptr(), tkeys.data_ptr(), keys.shape[0], cap,
+                        out.data_ptr(), ops._stream(device)), "probe")
     LAUNCHES["probe"] += 1
     return out
 

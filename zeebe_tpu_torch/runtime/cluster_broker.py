@@ -1478,10 +1478,26 @@ class ClusterBroker(Actor):
                         device_index, pid,
                     )
                     term = server.raft.term
+                    # job subscriptions are the live engine's session state,
+                    # and a worker sees the same leader address and term, so
+                    # it never subscribes again: the reinstalled engine takes
+                    # them over (a sharded engine, pinned to its span, always
+                    # moves this way)
+                    try:
+                        subs = server.engine.job_subscriptions()
+                    except Exception:  # noqa: BLE001 - unreadable tables
+                        subs = []
                     # same-node reinstall: leadership stays here, so the
                     # partition's live spans are NOT orphaned
                     server._uninstall_leader(orphan_spans=False)
                     server._install_leader(term)
+                    for sub in subs if server.engine is not None else ():
+                        backlog = server.engine.add_job_subscription(sub)
+                        if backlog:
+                            observe_append(
+                                server.raft.append(backlog),
+                                "job-subscription backlog", pid,
+                            )
             if moves:
                 record_event(
                     "mesh", "device excluded", node=self.node_id,

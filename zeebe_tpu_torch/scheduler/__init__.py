@@ -13,7 +13,7 @@ from zeebe_tpu_torch.scheduler.admission import (
     REASON_CONNECTION_INFLIGHT,
     REASON_QUEUE_DEPTH,
 )
-from zeebe_tpu_torch.scheduler.placement import DevicePlan
+from zeebe_tpu_torch.scheduler.placement import DevicePlan, MeshExchange
 from zeebe_tpu_torch.scheduler.wave import (
     PartitionFeed,
     SharedWave,
@@ -25,6 +25,7 @@ __all__ = [
     "AdmissionConfig",
     "AdmissionController",
     "DevicePlan",
+    "MeshExchange",
     "PartitionFeed",
     "REASON_CONNECTION_INFLIGHT",
     "REASON_QUEUE_DEPTH",

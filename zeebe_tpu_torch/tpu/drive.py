@@ -101,12 +101,14 @@ def drive_round(
     now,
     batch_size: int,
     synthetic_workers: bool = False,
+    partition_id: int = 0,
 ):
     """Dequeue one batch, step the kernel, enqueue the emissions.
     Returns (state, queue, stats)."""
     queue, batch = dequeue(queue, batch_size)
     state, out, stats = step_kernel(
-        graph, state, batch, now, synthetic_workers=synthetic_workers
+        graph, state, batch, now, synthetic_workers=synthetic_workers,
+        partition_id=partition_id,
     )
     queue = enqueue(queue, out)
     stats = dict(stats)
@@ -122,13 +124,21 @@ def run_to_quiescence(
     batch_size: int,
     synthetic_workers: bool = False,
     max_rounds: int = 10_000,
+    sync: bool = True,
+    partition_id: int = 0,
 ):
     """Drive rounds until the queue drains. Returns (state, queue, totals).
 
     The totals accumulate on the device; each round reads the queue count
-    and the overflow flag back in ONE transfer to decide whether to go on.
-    Raises on a table or queue overflow, and when ``max_rounds`` rounds
-    leave records queued."""
+    and the overflow flag back in ONE transfer to decide whether to go on
+    (an overflow ends the loop). Raises on a table or queue overflow, and
+    when ``max_rounds`` rounds leave records queued.
+
+    ``sync=False`` returns the totals as device tensors (``processed``,
+    ``emitted``, ``completed_roots``, ``rounds`` and ``overflow``) and
+    raises nothing: the caller, who may gather the totals of several drives
+    in one read, checks the overflow and the quiescence.
+    ``partition_id`` is the step kernel's."""
     dev = queue.count.device
     now = int(now)
     totals = {
@@ -145,12 +155,16 @@ def run_to_quiescence(
         if count <= 0 or flagged:
             break
         state, queue, stats = drive_round(
-            graph, state, queue, now, batch_size, synthetic_workers
+            graph, state, queue, now, batch_size, synthetic_workers, partition_id
         )
         for k in totals:
             totals[k] += stats[k].to(torch.int64)
         overflow = overflow | stats["overflow"]
         rounds += 1
+    if not sync:
+        totals["rounds"] = torch.tensor(rounds, dtype=torch.int32, device=dev)
+        totals["overflow"] = overflow
+        return state, queue, totals
     if bool(overflow):
         raise RuntimeError("device table or queue overflow during drive loop")
     out = {k: int(t) for k, t in totals.items()}

@@ -71,7 +71,7 @@ from zeebe_tpu_torch.protocol.records import (
 )
 from zeebe_tpu_torch.tpu import batch as rb
 from zeebe_tpu_torch.tpu import graph as graph_mod
-from zeebe_tpu_torch.tpu import kernel, ops, state as state_mod
+from zeebe_tpu_torch.tpu import kernel, ops, shard as shard_mod, state as state_mod
 from zeebe_tpu_torch.tpu.batch import PayloadError, RecordBatch
 from zeebe_tpu_torch.tpu.intern import InternTable
 
@@ -239,6 +239,12 @@ class _PendingSegment:
     rows: List[int] = dataclasses.field(default_factory=list)
     out: Optional[RecordBatch] = None   # device emission batch (unfetched)
     stats: Optional[dict] = None        # device stats (unfetched)
+    route_owner: Optional[int] = None   # routed wave's owner shard
+    seq: int = -1                       # dispatch order (residency ordering)
+    fb_pop: bool = False                # gathered fallback under routing:
+                                        # collect pops residency from emissions
+    blind: bool = False                 # fallback carried rows whose instance
+                                        # key the host could not prove
 
 
 @dataclasses.dataclass
@@ -270,18 +276,92 @@ class CudaPartitionEngine:
         num_vars: int = 16,
         sub_capacity: int = 16,
         device: DeviceLike = None,
+        device_index: int = -1,
+        state_shards: int = 1,
+        shard_devices=None,
+        device_indices=None,
+        routing: str = "gathered",
+        routed_lane_slots: int = 512,
     ):
         self.partition_id = partition_id
         self.num_partitions = num_partitions
-        # the CUDA card unless the caller asks for the CPU
-        self.device = resolve(device)
+        # the plan's index of this engine's device (scheduler/placement
+        # DevicePlan), used as the per-device metrics label
+        self.device_index = device_index
+        # sharded state: with state_shards > 1 this partition's row tables
+        # block-shard over a span of devices (tpu/shard.py). "gathered"
+        # steps the gathered tables every wave; "resident" routes a wave
+        # whose rows all belong to instances resident in one block to that
+        # block's shard alone, and every other wave through the gathered
+        # fallback. Both write the single-device engine's log
+        self._state_shards = max(int(state_shards), 1)
+        if routing not in ("gathered", "resident"):
+            raise ValueError(f"unknown mesh routing mode: {routing!r}")
+        self.routing = routing if self._state_shards > 1 else "gathered"
+        self._routed_lane_slots = max(int(routed_lane_slots), 1)
+        self._mesh: Optional[shard_mod.Mesh] = None
+        self._shards: Optional[shard_mod.ShardedState] = None
+        self._state_step = None
+        self._state_step_routed = None
+        self._state_step_fallback = None
+        self._shard_exchange_bytes = 0
+        self._fallback_exchange_bytes = 0
+        self.sharded_waves = 0
+        self.routed_waves = 0
+        self.fallback_waves = 0
+        self.routed_overflows = 0
+        # per-shard staged-row counts of the last dispatched wave (the
+        # owner's lane in a routed wave, the key-hash split otherwise)
+        self.last_shard_fill: tuple = ()
+        self._last_stage_split = None
+        self._last_stage_valid = 0
+        # residency map: root workflow instance key → the shard whose block
+        # holds the WHOLE instance (learned from routed segments' emissions;
+        # popped on fallback dispatch and collect, demotion, completion)
+        self._resident: Dict[int, int] = {}
+        # instance key → dispatch seq of the fallback or demotion that broke
+        # its single-owner proof: a collect of an earlier-dispatched routed
+        # segment must not note the key back in
+        self._residency_invalid: Dict[int, int] = {}
+        self._dispatch_seq = 0
+        # dispatched, uncollected fallback segments that stepped rows whose
+        # instance the host could not name: until their emissions name them,
+        # no residency entry is trusted
+        self._blind_fb_inflight = 0
+        self.device_indices = list(device_indices) if device_indices is not None else []
+        if self._state_shards > 1:
+            if device is not None:
+                raise ValueError(
+                    "state_shards > 1 shards over a mesh span; a single "
+                    "`device` placement cannot also be pinned"
+                )
+            devs = (
+                list(shard_devices) if shard_devices is not None
+                else [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            )
+            if len(devs) < self._state_shards:
+                raise ValueError(
+                    f"state_shards={self._state_shards} needs that many "
+                    f"devices; have {len(devs)}"
+                )
+            self._mesh = shard_mod.Mesh([resolve(d) for d in devs[: self._state_shards]])
+            if not self.device_indices:
+                self.device_indices = list(range(self._state_shards))
+            # host work (staging, the gathered view, the graph) runs on the
+            # span's first device
+            self.device = self._mesh.devices[0]
+        else:
+            # the CUDA card unless the caller asks for the CPU
+            self.device = resolve(device)
         self.repository = repository if repository is not None else WorkflowRepository()
         self.clock = clock or (lambda: 0)
-        if self.device.type == "cuda":
-            # the boot self-check, once per process: a kernel that computes
-            # wrong on this card refuses to serve (the JAX engine's place of
-            # autotune, after which its boot runs pallas_ops.selfcheck)
-            ops.selfcheck()
+        for dev in dict.fromkeys(self._mesh.devices if self._mesh else [self.device]):
+            if dev.type == "cuda":
+                # the boot self-check, once per process and card: a kernel
+                # that computes wrong on a card refuses to serve there (the
+                # JAX engine's place of autotune, after which its boot runs
+                # pallas_ops.selfcheck)
+                ops.selfcheck(dev)
         self.capacity = capacity
         self.num_vars = num_vars
         self.interns = InternTable()
@@ -298,10 +378,17 @@ class CudaPartitionEngine:
 
         self.graph: Optional[graph_mod.DeviceGraph] = None
         self.meta: Optional[graph_mod.GraphMeta] = None
+        self._state: Optional[state_mod.EngineState] = None
         self.state = state_mod.make_state(
             capacity=capacity, num_vars=num_vars, sub_capacity=sub_capacity,
             device=self.device,
         )
+        # the device allocates from the embedded oracle's key space, which
+        # carries the partition in the keys' high bits
+        self._state.next_wf_key.fill_(self._host.wf_keys.peek)
+        self._state.next_job_key.fill_(self._host.job_keys.peek)
+        if self._mesh is not None:
+            self._shard(self._state)
         # key watermark of the last rebuild_lookup_state run (see
         # _dispatch_device)
         self._keys_at_rebuild = 0
@@ -336,6 +423,92 @@ class CudaPartitionEngine:
         # bumped by _recompile: workflow SLOTS in older emission batches
         # are stale after a redeploy
         self._meta_epoch = 0
+
+    # -- placement ----------------------------------------------------------
+    @property
+    def state(self) -> state_mod.EngineState:
+        """The partition's tables. A sharded engine gathers them on its first
+        device when a host reader asks; that view is what the host reads and
+        writes until the next step writes it back into the blocks."""
+        if self._shards is None:
+            return self._state
+        if self._shards.view is None:
+            self._shards.view = shard_mod.gather_state(self._shards)
+        return self._shards.view
+
+    @state.setter
+    def state(self, st: state_mod.EngineState) -> None:
+        if self._shards is None:
+            self._state = st
+        else:
+            self._shards.view = st
+
+    def _shard(self, st: state_mod.EngineState) -> None:
+        """Block-shard a global state over the span and build the span's
+        step programs for its shapes (a restore may change them)."""
+        mesh = self._mesh
+        if self.routing == "resident":
+            bad = shard_mod.unshardable_state_leaves(st, self._state_shards)
+            if bad:
+                raise ValueError(
+                    "resident routing needs every shardable table "
+                    "divisible by the span; replicated-fallback "
+                    f"leaves: {bad} (use routing='gathered' or a "
+                    "divisible capacity)"
+                )
+        self._shards = shard_mod.shard_state(mesh, st)
+        self._state = None
+        if self.routing == "resident":
+            self._state_step_routed = shard_mod.build_state_step_routed(mesh, st)
+            self._state_step_fallback = shard_mod.build_state_step_fallback(mesh, st)
+            self._fallback_exchange_bytes = shard_mod.state_exchange_bytes(
+                st, self._state_shards, include_lookup=False
+            )
+        else:
+            self._state_step = shard_mod.build_state_step(mesh, st)
+        self._shard_exchange_bytes = shard_mod.state_exchange_bytes(st, self._state_shards)
+
+    def _replica_states(self) -> List[state_mod.EngineState]:
+        """The states whose replicated leaves (key counters, worker
+        subscriptions) a write must reach without a gather: the state, the
+        held view, or every shard."""
+        if self._shards is None:
+            return [self._state]
+        if self._shards.view is not None:
+            return [self._shards.view]
+        return list(self._shards.shards)
+
+    def _replicas(self, name: str) -> List[torch.Tensor]:
+        """The tensors of a replicated leaf a write must reach (the first
+        is the one to read)."""
+        return [getattr(s, name) for s in self._replica_states()]
+
+    def _index_rows(self) -> int:
+        """Rows of the global element-instance index (no gather)."""
+        if self._shards is None:
+            return self._state.ei_index.shape[0]
+        return self._shards.global_rows("ei_index")
+
+    def place_on(self, device, device_index: int = -1) -> None:
+        """Move this engine's live tables (the message store and the key
+        counters among them) and its graph onto another device: a
+        DevicePlan rebalance after a device exclusion or a leadership
+        change. Contents are unchanged, so snapshot dirty-tracking is left
+        as it is; call between waves (the brokers do, on the broker
+        actor)."""
+        if self._mesh is not None:
+            raise RuntimeError(
+                "sharded-state engine is pinned to its mesh span; rebuild "
+                "the engine (snapshot → restore) to move it"
+            )
+        dev = resolve(device)
+        if dev.type == "cuda":
+            ops.selfcheck(dev)
+        self.device = dev
+        self.device_index = device_index
+        self._state = state_mod.state_to(self._state, dev)
+        if self.graph is not None:
+            self.graph = shard_mod.graph_on(self.graph, dev)
 
     # -- routing ----------------------------------------------------------
     def partition_for_correlation_key(self, correlation_key: str) -> int:
@@ -580,6 +753,11 @@ class CudaPartitionEngine:
         UPDATE_PAYLOAD."""
         self._mark_device_dirty()
         self._host.snapshot_mark_dirty(None)
+        # a demoted instance leaves the device tables, so it is resident in
+        # no block; the invalidation also keeps collects of segments
+        # dispatched before now from noting it back in
+        self._resident.pop(int(root_key), None)
+        self._residency_invalid[int(root_key)] = self._dispatch_seq
         s = self.state
         ei_i32 = _np_copy(s.ei_i32)
         ei_i64 = _np_copy(s.ei_i64)
@@ -890,16 +1068,30 @@ class CudaPartitionEngine:
     def remove_job_subscription(self, subscriber_key: int) -> None:
         self._host.remove_job_subscription(subscriber_key)
         self._mark_device_dirty("sub")
-        s = self.state
-        s.sub_valid &= s.sub_key != subscriber_key
+        for s in self._replica_states():
+            s.sub_valid &= s.sub_key != subscriber_key
 
     def increase_job_credits(self, subscriber_key: int, credits: int) -> None:
         self._host.increase_job_credits(subscriber_key, credits)
         self._mark_device_dirty("sub")
-        s = self.state
-        s.sub_credits += torch.where(s.sub_key == subscriber_key, credits, 0).to(
-            s.sub_credits.dtype
-        )
+        for s in self._replica_states():
+            s.sub_credits += torch.where(s.sub_key == subscriber_key, credits, 0).to(
+                s.sub_credits.dtype
+            )
+
+    def job_subscriptions(self) -> List[JobSubscription]:
+        """The worker subscriptions the device table holds, with their
+        credits left: what an engine reinstalled at the same term (a
+        sharded partition moved off an excluded device) takes over."""
+        s = self._replica_states()[0]
+        rows = zip(*(_np(t).tolist() for t in (s.sub_valid, s.sub_key, s.sub_type,
+                                                s.sub_worker, s.sub_timeout, s.sub_credits)))
+        return [
+            JobSubscription(subscriber_key=key, job_type=self.interns.string(jtype) or "",
+                            worker=self.interns.string(worker) or "", timeout=timeout,
+                            credits=credits)
+            for valid, key, jtype, worker, timeout, credits in rows if valid
+        ]
 
     # -- deadline scans (broker tick) --------------------------------------
     def deadlines_due_probe(self) -> DueProbe:
@@ -910,7 +1102,16 @@ class CudaPartitionEngine:
         each tick; the cluster broker polls ``is_ready()`` and reads it on
         a later tick. Host-oracle deadlines are swept by
         ``host_deadline_commands``."""
-        return DueProbe(_due_probe_kernel(self.state, int(self.clock())))
+        now = int(self.clock())
+        if self._shards is None or self._shards.view is not None:
+            return DueProbe(_due_probe_kernel(self.state, now))
+        # sharded: each block's predicates against its replicated
+        # subscription table, or-ed on the first device (no gather)
+        mask = None
+        for shard in self._shards.shards:
+            m = _due_probe_kernel(shard, now).to(self.device)
+            mask = m if mask is None else mask | m
+        return DueProbe(mask)
 
     def backlog_activations(self) -> List[Record]:
         """Host-oracle side only; the device job backlog is served by
@@ -1280,7 +1481,13 @@ class CudaPartitionEngine:
         st.sub_credits.zero_()
         st.sub_valid.zero_()
         # derive the lookup structures from the restored rows
-        self.state = state_mod.rebuild_lookup_state(st)
+        st = state_mod.rebuild_lookup_state(st)
+        if self._mesh is not None:
+            # the restored capacity may differ from the constructor's: the
+            # blocks and the step programs follow the restored shapes
+            self._shard(st)
+        else:
+            self.state = st
         self._keys_at_rebuild = 0
         self.capacity = st.capacity
         self.num_vars = st.num_vars
@@ -1373,6 +1580,11 @@ class CudaPartitionEngine:
         # device rows batch up; a host-routed record dispatches the
         # pending device segment first, so state mutates in log order
         pending: List[int] = []
+        # resident routing: the pending segment holds ONE route class —
+        # ("create",) all-CREATE, ("ik", shard) proven resident, ("fb",)
+        # unknown — and a record of another class flushes it first (the
+        # routed step needs single-owner waves). None when routing is off
+        pending_route: List = [None]
         # the two engines allocate from ONE keyspace; their counters sync
         # at segment boundaries (device→host: one read when a device
         # segment ran since the last pull; host→device: device-side max)
@@ -1382,8 +1594,10 @@ class CudaPartitionEngine:
             if not host_allocated[0]:
                 return
             self._mark_device_dirty("keys")
-            self.state.next_wf_key.clamp_(min=self._host.wf_keys.peek)
-            self.state.next_job_key.clamp_(min=self._host.job_keys.peek)
+            for t in self._replicas("next_wf_key"):
+                t.clamp_(min=self._host.wf_keys.peek)
+            for t in self._replicas("next_job_key"):
+                t.clamp_(min=self._host.job_keys.peek)
             host_allocated[0] = False
 
         def seg_meta(i: int):
@@ -1402,6 +1616,7 @@ class CudaPartitionEngine:
                 [entries[i] for i in pending],
                 [positions[i] for i in pending],
                 [seg_meta(i) for i in pending],
+                route=pending_route[0],
             )
             seg.rows = list(pending)
             wave.segments.append(seg)
@@ -1439,6 +1654,10 @@ class CudaPartitionEngine:
             if lazy and eligible and self._lazy_device_row(
                 entry, vt, rt, intent, key
             ):
+                rc = self._wave_route_class(entry, True, vt, rt, intent)
+                if pending and rc != pending_route[0]:
+                    flush()
+                pending_route[0] = rc
                 pending.append(i)
                 continue
             if lazy:
@@ -1457,6 +1676,10 @@ class CudaPartitionEngine:
                 if bad is not None:
                     per_record[i] = self._reject_payload(record, bad)
                     continue
+                rc = self._wave_route_class(record, False, vt, rt, intent)
+                if pending and rc != pending_route[0]:
+                    flush()
+                pending_route[0] = rc
                 pending.append(i)
             else:
                 flush()  # earlier device rows execute BEFORE this record
@@ -1551,6 +1774,113 @@ class CudaPartitionEngine:
             return key not in self._host.jobs
         return key not in instances
 
+    # -- resident routing policy -------------------------------------------
+    @property
+    def _resident_mode(self) -> bool:
+        return self.routing == "resident" and self._mesh is not None
+
+    def _routing_active(self) -> bool:
+        """Resident routing applies per wave: a message-correlation graph
+        probes subscription tables across the whole key space, which the
+        single-owner contract cannot cover, so such a partition runs every
+        wave through the gathered fallback."""
+        return (
+            self._resident_mode
+            and self.graph is not None
+            and not self.graph.has_messages
+        )
+
+    def _instance_key_of(self, entry, lazy: bool, vt: int):
+        """The workflow instance key a device record belongs to (the root
+        key every row of the instance's scope tree shares: the residency
+        map's key), None when the entry does not show it."""
+        if lazy:
+            ref = entry[0].device_ref(entry[1])
+            if ref is None:
+                return None
+            src, j = ref
+            _o, scols, _epoch = src.device_source
+            return int(scols["instance_key"][j])
+        value = getattr(entry, "value", None)
+        if value is None:
+            return None
+        if vt == int(ValueType.JOB):
+            ik = getattr(getattr(value, "headers", None), "workflow_instance_key", None)
+        else:
+            ik = getattr(value, "workflow_instance_key", None)
+        return int(ik) if ik is not None else None
+
+    def _wave_route_class(self, entry, lazy: bool, vt, rt, intent):
+        """Route class of one device record: ``("create",)`` (a WI CREATE
+        command: its root key is the counter's next value, so the whole
+        instance is born in one predictable block), ``("ik", shard)`` (an
+        instance proven resident in a block), ``("fb",)`` (unknown: the
+        gathered fallback). None when routing is off."""
+        if not self._routing_active():
+            return None
+        if (
+            vt == int(ValueType.WORKFLOW_INSTANCE)
+            and rt == int(RecordType.COMMAND)
+            and intent == int(WI.CREATE)
+        ):
+            return ("create",)
+        ik = self._instance_key_of(entry, lazy, vt)
+        if ik is None or ik < 0:
+            return ("fb",)
+        if self._blind_fb_inflight:
+            # an uncollected fallback stepped rows of instances the host
+            # could not name, perhaps this one, and may have put its rows
+            # outside its home block: no residency entry is trusted until
+            # those emissions are read (CREATEs stay routable: fresh keys)
+            return ("fb",)
+        owner = self._resident.get(int(ik))
+        return ("ik", owner) if owner is not None else ("fb",)
+
+    def _routed_lane_cap(self) -> int:
+        """The most rows a routed wave may carry: the lane size, and the
+        shard's direct-mapped index window (rows born in a wave resolve
+        through the block's index until the next rebuild, which is
+        collision-free only across a window of local-capacity consecutive
+        keys; the safety factor 4 of ``_keys_at_rebuild``)."""
+        fanout = max(1, self.graph.emit_width if self.graph is not None else 1)
+        window = (self._index_rows() // self._state_shards) // (4 * fanout)
+        return max(1, min(self._routed_lane_slots, window))
+
+    def _pop_residency_fallback(self, o, seq: int) -> None:
+        """Retire the residency of every instance a collected FALLBACK
+        segment's emissions name: the gathered step allocates at global
+        free slots, so each may now own rows outside its home block."""
+        ik = np.asarray(o["instance_key"])
+        valid = np.asarray(o["valid"], bool)
+        for k in np.unique(ik[valid & (ik >= 0)]).tolist():
+            self._resident.pop(int(k), None)
+            self._residency_invalid[int(k)] = seq
+
+    def _note_residency(self, o, owner: int, seq: int) -> None:
+        """Learn residency from a collected ROUTED segment's emissions: every
+        instance the wave touched has all its rows in ``owner``'s block, and
+        instances whose root completed or terminated leave the map. A key
+        invalidated by a later-dispatched fallback or demotion (``seq``
+        order) is not noted back in."""
+        ik = np.asarray(o["instance_key"])
+        live = np.asarray(o["valid"], bool) & (ik >= 0)
+        inv = self._residency_invalid
+        for k in np.unique(ik[live]).tolist():
+            if inv.get(int(k), -1) >= seq:
+                continue
+            self._resident[int(k)] = owner
+        vt = np.asarray(o["vtype"])
+        it = np.asarray(o["intent"])
+        key = np.asarray(o["key"])
+        done = (
+            live
+            & (vt == int(ValueType.WORKFLOW_INSTANCE))
+            & (key == ik)
+            & ((it == int(WI.ELEMENT_COMPLETED)) | (it == int(WI.ELEMENT_TERMINATED)))
+        )
+        for k in np.unique(ik[done]).tolist():
+            self._resident.pop(int(k), None)
+
     def collect_wave(self, wave: PendingWave) -> List[ProcessingResult]:
         """Materialize a dispatched wave: one bulk device fetch per
         segment, columnar emission decode, per-record source stamping."""
@@ -1583,7 +1913,7 @@ class CudaPartitionEngine:
         from zeebe_tpu_torch.engine import keyspace
 
         dev_wf, dev_job = torch.stack(
-            [self.state.next_wf_key, self.state.next_job_key]
+            [self._replicas("next_wf_key")[0], self._replicas("next_job_key")[0]]
         ).tolist()
         if self._host.wf_keys.peek < dev_wf or self._host.job_keys.peek < dev_job:
             self._host.snapshot_mark_dirty(("h/control",))
@@ -1664,7 +1994,7 @@ class CudaPartitionEngine:
         "src": -1, "resp": False, "push": False, "rej": 0,
     }
 
-    def _stage(self, records: List[Record]) -> RecordBatch:
+    def _stage(self, records: List[Record], lane_owner=None) -> RecordBatch:
         # pow2 buckets (at least 64 rows), as the JAX engine stages off-TPU:
         # the staged size decides nothing in the log, but keeps the shapes
         # the JAX engine steps
@@ -1687,7 +2017,7 @@ class CudaPartitionEngine:
                 self._stage_row(cols, i, record)
         if staged_lazy:
             _count_staged_columnar(staged_lazy)
-        return self._pack_batch(cols, size)
+        return self._pack_batch(cols, size, lane_owner)
 
     def _stage_from_emission(self, cols, i, src, j) -> None:
         """Stage one row by COPYING the backing emission batch's columns
@@ -1724,11 +2054,23 @@ class CudaPartitionEngine:
         cols["v_num"][i] = np.where(mask, o["v_num"][j], 0)
         cols["v_str"][i] = np.where(mask, o["v_str"][j], 0)
 
-    def _pack_batch(self, cols: Dict[str, object], size: int) -> RecordBatch:
+    def _pack_batch(self, cols: Dict[str, object], size: int, lane_owner=None) -> RecordBatch:
         """Scalar columns → one [columns, rows] matrix per dtype family →
         one host→device copy each; each batch column is a contiguous row of
-        its family's matrix."""
+        its family's matrix. A routed wave (``lane_owner``) goes to its
+        owner shard's device, every other wave to the engine's device."""
         dev = self.device
+        if self._mesh is not None:
+            # the staged row split by owning shard (instance key in resident
+            # mode, the key hash otherwise) and the valid count, which
+            # _run_step records with the wave's exchange volume
+            basis = cols["instance_key"] if self._resident_mode else cols["key"]
+            self._last_stage_split = shard_mod.shard_row_counts_host(
+                basis, cols["valid"], self._state_shards
+            )
+            self._last_stage_valid = int(np.count_nonzero(np.asarray(cols["valid"], bool)))
+            if lane_owner is not None:
+                dev = self._mesh.devices[lane_owner]
         kw: Dict[str, torch.Tensor] = {}
         for names, dtype in (
             (self._I64_COLS, np.int64),
@@ -1760,19 +2102,66 @@ class CudaPartitionEngine:
             graph, _meta = graph_mod.compile_graph(
                 [], interns=InternTable(), device=self.device
             )
-        self.state, _out, _stats = kernel.step_kernel(
-            graph, self.state, self._stage([]), int(self.clock()),
-            partition_id=self.partition_id,
-        )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        now = int(self.clock())
+        self._run_step(self._stage([]), now, graph=graph)
+        if self._resident_mode:
+            # resident mode serves through two programs: the fallback just
+            # warmed, and the routed one
+            self._run_step(self._stage([], lane_owner=0), now, lane_owner=0, graph=graph)
+        for dev in dict.fromkeys(self._mesh.devices if self._mesh else [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    def _run_step(self, batch: RecordBatch, now: int) -> tuple:
-        """Launch ONE wave through the step kernel, rebinding ``self.state``
-        and returning ``(out, stats)``."""
-        self.state, out, stats = kernel.step_kernel(
-            self.graph, self.state, batch, now, partition_id=self.partition_id
-        )
+    def _run_step(self, batch: RecordBatch, now: int, lane_owner=None, graph=None) -> tuple:
+        """Launch ONE wave through the active step: the routed step
+        (``lane_owner``) or the fallback in resident mode, the gathered
+        step in sharded mode, ``kernel.step_kernel`` otherwise. Rebinds the
+        state and returns ``(out, stats)``; every one writes the same
+        log."""
+        graph = self.graph if graph is None else graph
+        pid = self.partition_id
+        if self._resident_mode:
+            if lane_owner is not None:
+                self._shards, out, stats = self._state_step_routed(
+                    graph, self._shards, batch, lane_owner, now, pid
+                )
+            else:
+                self._shards, out, stats = self._state_step_fallback(
+                    graph, self._shards, batch, now, pid
+                )
+        elif self._state_step is not None:
+            self._shards, out, stats = self._state_step(graph, self._shards, batch, now, pid)
+        else:
+            self.state, out, stats = kernel.step_kernel(
+                graph, self.state, batch, now, partition_id=pid
+            )
+        if self._mesh is not None:
+            from zeebe_tpu_torch.runtime import metrics as metrics_mod
+
+            n_valid = self._last_stage_valid
+            # the exchange model per kind of wave, and none for a wave of no
+            # records (a warm step)
+            if not n_valid:
+                xb = 0
+            elif self._resident_mode and lane_owner is not None:
+                xb = shard_mod.routed_exchange_bytes(out, self._state_shards)
+            elif self._resident_mode:
+                xb = self._fallback_exchange_bytes
+            else:
+                xb = self._shard_exchange_bytes
+            split = self._last_stage_split
+            single_lane = self._resident_mode and lane_owner is not None
+            if single_lane:
+                split = np.zeros(self._state_shards, np.int64)
+                split[int(lane_owner)] = n_valid
+            metrics_mod.observe_sharded_wave(split, xb, single_lane=single_lane)
+            self.sharded_waves += 1
+            self.last_shard_fill = tuple(int(x) for x in split)
+            if self._resident_mode and n_valid:
+                if lane_owner is not None:
+                    self.routed_waves += 1
+                else:
+                    self.fallback_waves += 1
         return out, stats
 
     def _stage_row(self, cols, i, record: Record) -> None:
@@ -1905,7 +2294,7 @@ class CudaPartitionEngine:
 
     # -- device round -------------------------------------------------------
     def _dispatch_device(
-        self, records: List, positions: List[int], metas: List[tuple],
+        self, records: List, positions: List[int], metas: List[tuple], route=None,
     ) -> _PendingSegment:
         """Host pre-work + staging + kernel launch for one device segment;
         returns the pending segment WITHOUT synchronizing on the device.
@@ -1972,18 +2361,58 @@ class CudaPartitionEngine:
         live = seg.live
         if not live:
             return seg
-        batch = self._stage([records[i] for i in live])
+        seg.seq = self._dispatch_seq
+        self._dispatch_seq += 1
+        lane_owner = None
+        if self._routing_active():
+            if route is not None and route[0] == "ik":
+                lane_owner = route[1]
+            elif route is not None and route[0] == "create":
+                # all-CREATE segment: the first live CREATE takes the NEXT
+                # counter value as its root key, and every allocation of the
+                # segment lands in that key's owner block. One scalar read
+                key0 = int(self._replicas("next_wf_key")[0])
+                lane_owner = int(shard_mod.shard_of_key_host(key0, self._state_shards))
+            if lane_owner is not None and len(live) > self._routed_lane_cap():
+                lane_owner = None
+                self.routed_overflows += 1
+            if lane_owner is None:
+                # the gathered fallback allocates at GLOBAL free slots: the
+                # instances it steps are no longer proven block-resident.
+                # Keys the host can name pop now; rows whose key it cannot
+                # name resolve at collect, from the emissions (seg.fb_pop),
+                # and routing holds off until then (seg.blind). CREATE rows
+                # are exempt: their keys are fresh
+                seg.fb_pop = True
+                for i in live:
+                    vt_i, rt_i, it_i = metas[i]
+                    ik = self._instance_key_of(records[i], type(records[i]) is tuple, vt_i)
+                    if ik is not None and ik >= 0:
+                        self._resident.pop(int(ik), None)
+                        self._residency_invalid[int(ik)] = seg.seq
+                    elif not (
+                        vt_i == int(ValueType.WORKFLOW_INSTANCE)
+                        and rt_i == int(RecordType.COMMAND)
+                        and it_i == int(WI.CREATE)
+                    ):
+                        seg.blind = True
+                if seg.blind:
+                    self._blind_fb_inflight += 1
+        seg.route_owner = lane_owner
+        batch = self._stage([records[i] for i in live], lane_owner=lane_owner)
         now = int(self.clock())
         # re-derive the fallback maps before the key window can wrap past
         # the direct-mapped index capacity (see rebuild_lookup_state): a
-        # conservative host-side bound, so the serving path pays no sync
-        fanout = max(1, self.graph.emit_width if self.graph is not None else 1)
-        self._keys_at_rebuild += 5 * fanout * len(live)
-        if self._keys_at_rebuild > self.state.ei_index.shape[0] // 4:
-            self.state = state_mod.rebuild_lookup_state(self.state)
-            self._keys_at_rebuild = 0
+        # conservative host-side bound, so the serving path pays no sync.
+        # Resident mode rebuilds them in both of its steps, every wave
+        if not self._resident_mode:
+            fanout = max(1, self.graph.emit_width if self.graph is not None else 1)
+            self._keys_at_rebuild += 5 * fanout * len(live)
+            if self._keys_at_rebuild > self._index_rows() // 4:
+                self.state = state_mod.rebuild_lookup_state(self.state)
+                self._keys_at_rebuild = 0
         self._mark_device_dirty()  # a kernel step may write any table
-        out, stats = self._run_step(batch, now)
+        out, stats = self._run_step(batch, now, lane_owner=lane_owner)
         seg.out = out
         seg.stats = stats
         return seg
@@ -2016,6 +2445,18 @@ class CudaPartitionEngine:
         seg.out = None
         seg.stats = None
         waited = time.perf_counter() - t0
+        if seg.route_owner is not None:
+            self._note_residency(o, seg.route_owner, seg.seq)
+        elif seg.fb_pop:
+            self._pop_residency_fallback(o, seg.seq)
+            if seg.blind:
+                self._blind_fb_inflight -= 1
+        if self._residency_invalid:
+            # collects run in dispatch order: an invalidation at or before
+            # this seq can no longer hold back a later note
+            self._residency_invalid = {
+                k: q for k, q in self._residency_invalid.items() if q > seg.seq
+            }
         self._emit_records(
             o, [seg.positions[i] for i in seg.live], seg.results, seg.live,
             seg.suppress,
@@ -2025,9 +2466,11 @@ class CudaPartitionEngine:
     def _next_wf_key_host(self) -> int:
         """Allocate a workflow key host-side, keeping the device counter in
         sync (rejections consume a key in the oracle too)."""
-        key = int(self.state.next_wf_key)
+        counters = self._replicas("next_wf_key")
+        key = int(counters[0])
         self._mark_device_dirty("keys")
-        self.state.next_wf_key += 5
+        for t in counters:
+            t += 5
         return key
 
     # -- emission → host records -------------------------------------------

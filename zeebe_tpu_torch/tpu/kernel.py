@@ -348,6 +348,45 @@ def _armed_timer_slots(state: EngineState, keys: torch.Tensor,
             for want in wants]
 
 
+def scope_to_local(ei_i32: torch.Tensor, shard_index: int, local_rows: int) -> torch.Tensor:
+    """Translate the EI_SCOPE parent-slot column of one shard's row block
+    from the GLOBAL row space into the block's LOCAL row space (the
+    residency-routed sharded state, ``tpu/shard.py``), IN PLACE; returns
+    the table.
+
+    At rest the sharded tables store parent slots globally, so host readers
+    (the demotion's scope-tree walk, snapshots) see one row space. The
+    routed step runs the kernel on one row block, whose slot arithmetic is
+    local: in-block parents shift down by the block base, sentinels (< 0)
+    pass through, and out-of-block parents become the POISON slot
+    ``local_rows`` (one past the last local row, so no real slot equals
+    it). A gather through the POISON slot clamps to the last local row and
+    reads real, wrong-parent data; that is harmless only because the
+    routing policy steps only instances wholly resident in the block, and
+    ``scope_to_global`` restores the original slot afterwards."""
+    base = shard_index * local_rows
+    g = ei_i32[:, EI_SCOPE]
+    inside = (g >= base) & (g < base + local_rows)
+    local = torch.where(g < 0, g, torch.where(inside, g - base, local_rows))
+    ei_i32[:, EI_SCOPE] = local.to(ei_i32.dtype)
+    return ei_i32
+
+
+def scope_to_global(ei_i32: torch.Tensor, prev_global_scope: torch.Tensor,
+                    shard_index: int, local_rows: int) -> torch.Tensor:
+    """Inverse of ``scope_to_local`` after the kernel ran on the block, IN
+    PLACE: local slots shift up by the block base, sentinels pass through,
+    and rows still holding the POISON slot (untouched by the wave) get
+    their original global parent (``prev_global_scope``) back."""
+    base = shard_index * local_rows
+    loc = ei_i32[:, EI_SCOPE]
+    back = torch.where(
+        loc < 0, loc, torch.where(loc == local_rows, prev_global_scope, loc + base)
+    )
+    ei_i32[:, EI_SCOPE] = back.to(ei_i32.dtype)
+    return ei_i32
+
+
 def step_kernel(
     graph: DeviceGraph, state: EngineState, batch: RecordBatch, now,
     synthetic_workers: bool = False, partition_id=0,

@@ -21,7 +21,9 @@ kernel runs with every feature gate:
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain PyTorch version beside each kernel (``*_reference``); CUDA tensors
 launch the hand-written kernel, or the call raises. There is no fallback
-from a CUDA tensor to the plain version. ``LAUNCHES`` counts the wrapper
+from a CUDA tensor to the plain version. A call's tensors lie on one card
+(a mix raises), and the kernel launches with that card current, on its
+current stream, whichever card the caller has current. ``LAUNCHES`` counts the wrapper
 calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
 (a table commit is a pass or two per stage of ``commit_plan``; every
 other call one). The launch plans (``gather_plan``, ``commit_plan``,
@@ -88,23 +90,43 @@ def _count(name: str, launched: int) -> None:
         DEVICE_LAUNCHES[name] += launched
 
 
-def _on_cuda(tensors: Sequence[torch.Tensor], what: str) -> bool:
-    """True when every tensor is on a CUDA device, False when every one is
-    on the CPU; a mix raises."""
-    cuda = [t.is_cuda for t in tensors]
-    if all(cuda):
-        return True
-    if not any(cuda) and all(t.device.type == "cpu" for t in tensors):
-        return False
-    kinds = sorted({t.device.type for t in tensors})
-    raise ValueError(f"{what}: tensors on mixed or unsupported devices {kinds}")
+def _device_index(t: torch.Tensor) -> int:
+    """A tensor's CUDA device index, -1 off the card (the one place the
+    tests substitute a card)."""
+    return t.get_device()
 
 
-def _stream() -> int:
-    """The raw handle of the current device's current stream, the one
-    PyTorch launches its own kernels on (CUDA is initialised: the caller
-    holds CUDA tensors)."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+def _cuda_device(tensors: Sequence[torch.Tensor], what: str) -> Optional[torch.device]:
+    """The one CUDA device every tensor lies on, or None when every one
+    lies on the CPU. Tensors on two cards, or on the CPU and a card, raise:
+    a kernel reads one card's memory, on that card's stream."""
+    indices = {_device_index(t) for t in tensors}
+    if len(indices) == 1:
+        (index,) = indices
+        if index >= 0:
+            return torch.device("cuda", index)
+        if all(t.is_cpu for t in tensors):
+            return None
+    raise ValueError(
+        f"{what}: tensors on mixed or unsupported devices "
+        f"{sorted(f'cuda:{i}' if i >= 0 else 'not a card' for i in indices)}"
+    )
+
+
+def _device_guard(device: torch.device):
+    """Make ``device`` the runtime's current device for a launch: a C entry
+    launches on the current device, and the insert's cluster-size attribute
+    is set per current device."""
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, the one PyTorch
+    launches its own kernels on there (CUDA is initialised: the caller
+    holds CUDA tensors). Launching on it orders a kernel with PyTorch's ops
+    on that card, and with its copies to and from other cards, which wait
+    on the current streams of both ends."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,9 +298,10 @@ def _gather_fn():
                   (ctypes.POINTER(_GatherArgs), ctypes.c_void_p))
 
 
-def _gather_cuda(tables, ops) -> List[torch.Tensor]:
-    args, outs, _keep = _gather_args(tables, ops)
-    launched = _gather_fn()(ctypes.byref(args), _stream())
+def _gather_cuda(tables, ops, device: torch.device) -> List[torch.Tensor]:
+    with _device_guard(device):
+        args, outs, _keep = _gather_args(tables, ops)
+        launched = _gather_fn()(ctypes.byref(args), _stream(device))
     if launched:
         _count("fused_gather_rows", launched)
     return outs
@@ -295,8 +318,9 @@ def fused_gather_rows(
     if not ops:
         return []
     used = [tables[op.table] for op in ops] + [op.slots for op in ops]
-    if _on_cuda(used, "fused_gather_rows"):
-        return _gather_cuda(tables, ops)
+    device = _cuda_device(used, "fused_gather_rows")
+    if device is not None:
+        return _gather_cuda(tables, ops, device)
     return fused_gather_rows_reference(tables, ops)
 
 
@@ -566,10 +590,10 @@ def _commit_descs(tables, ops):
     return descs, keep
 
 
-def _commit_cuda(tables, ops) -> List[torch.Tensor]:
-    with _scratch_lock(tables[ops[0].table].device):
+def _commit_cuda(tables, ops, device: torch.device) -> List[torch.Tensor]:
+    with _scratch_lock(device), _device_guard(device):
         descs, _keep = _commit_descs(tables, ops)
-        _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream()))
+        _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream(device)))
     return list(tables)
 
 
@@ -583,9 +607,11 @@ def fused_table_commit(
     ops = list(ops)
     if not ops:
         return list(tables)
-    used = list(tables) + [op.slots for op in ops] + [op.vals for op in ops]
-    if _on_cuda(used, "fused_table_commit"):
-        return _commit_cuda(tables, ops)
+    used = (list(tables) + [op.slots for op in ops] + [op.active for op in ops]
+            + [op.vals for op in ops] + [op.mask for op in ops if op.mask is not None])
+    device = _cuda_device(used, "fused_table_commit")
+    if device is not None:
+        return _commit_cuda(tables, ops, device)
     return fused_table_commit_reference(tables, ops)
 
 
@@ -691,9 +717,10 @@ def _lookup_fn():
                   (ctypes.POINTER(_LookupArgs), ctypes.c_void_p))
 
 
-def _lookup_cuda(tables, probes):
-    args, outs, _keep = _lookup_args(tables, probes)
-    launched = _lookup_fn()(ctypes.byref(args), _stream())
+def _lookup_cuda(tables, probes, device: torch.device):
+    with _device_guard(device):
+        args, outs, _keep = _lookup_args(tables, probes)
+        launched = _lookup_fn()(ctypes.byref(args), _stream(device))
     if launched:
         _count("lookup", launched)
     return outs
@@ -710,8 +737,9 @@ def fused_lookup(tables: Sequence[HashTable],
         return []
     used = [t for p in probes
             for t in (tables[p.table].keys, tables[p.table].vals, p.keys, p.valid)]
-    if _on_cuda(used, "lookup"):
-        return _lookup_cuda(tables, probes)
+    device = _cuda_device(used, "lookup")
+    if device is not None:
+        return _lookup_cuda(tables, probes, device)
     return fused_lookup_reference(tables, probes)
 
 
@@ -762,20 +790,21 @@ def _scatter_desc(name, table, kind, slots, active, vals, mask):
     return d, keep
 
 
-def _scatter_cuda(name, table, kind, slots, active, vals, mask) -> None:
-    with _scratch_lock(table.device):
+def _scatter_cuda(name, table, kind, slots, active, vals, mask, device) -> None:
+    with _scratch_lock(device), _device_guard(device):
         d, _keep = _scatter_desc(name, table, kind, slots, active, vals, mask)
-        _count(name, _commit_fn()(ctypes.byref(d), 1, _stream()))
+        _count(name, _commit_fn()(ctypes.byref(d), 1, _stream(device)))
 
 
 def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
     """One masked ``set`` into one int32 table, in place: a one-op table
     commit, its launches counted under ``name``."""
-    if (table.is_cuda and slots.is_cuda and active.is_cuda and vals.is_cuda
-            and (mask is None or mask.is_cuda)):
-        _scatter_cuda(name, table, kind, slots, active, vals, mask)
+    device = _cuda_device(
+        [table, slots, active, vals] + ([] if mask is None else [mask]), name
+    )
+    if device is not None:
+        _scatter_cuda(name, table, kind, slots, active, vals, mask, device)
         return table
-    _on_cuda([table, slots, active, vals] + ([] if mask is None else [mask]), name)
     return masked_scatter_reference(table, kind, slots, active, vals, mask)
 
 
@@ -903,14 +932,18 @@ def _accumulate(name, tables, ops) -> List[torch.Tensor]:
     """``fused_accumulate``, its launches counted under ``name``."""
     if not ops:
         return list(tables)
-    if tables[ops[0].table].is_cuda:
-        call, _keep = _accum_call(name, tables, ops, _stream(), True)
-        launched = _accum_fn()(call)
+    used = [tables[op.table] for op in ops] + [
+        t for op in ops for t in (op.slots, op.active, op.vals, op.mask) if t is not None
+    ]
+    device = _cuda_device(used, name)
+    if device is not None:
+        with _device_guard(device):
+            # the devices are checked above
+            call, _keep = _accum_call(name, tables, ops, _stream(device), False)
+            launched = _accum_fn()(call)
         if launched:
             _count(name, launched)
         return list(tables)
-    used = list(tables) + [t for op in ops for t in (op.slots, op.active, op.vals)]
-    _on_cuda(used + [op.mask for op in ops if op.mask is not None], name)
     _accum_call(name, tables, ops, 0, False)  # the card's checks
     return fused_accumulate_reference(tables, ops)
 
@@ -931,11 +964,14 @@ def _accumulate_one(name, table, kind, slots, active, vals, mask=None) -> torch.
     ``name``. On CUDA tensors the call is packed straight from the op's
     fields, without the ``TableOp`` and the op loop (0.7–1.4 µs less host
     work a call on the card: PERF.md §6, PR 8)."""
-    if (table.is_cuda and slots.is_cuda and active.is_cuda and vals.is_cuda
-            and (mask is None or mask.is_cuda)):
+    device = _cuda_device(
+        [table, slots, active, vals] + ([] if mask is None else [mask]), name
+    )
+    if device is not None:
         keep: list = []
-        launched = _accum_fn()(_ACCUM_CALLS[1].pack(_stream(), 1, *_accum_fields(
-            name, table, kind, slots, active, vals, mask, keep)))
+        with _device_guard(device):
+            launched = _accum_fn()(_ACCUM_CALLS[1].pack(_stream(device), 1, *_accum_fields(
+                name, table, kind, slots, active, vals, mask, keep)))
         if launched:
             _count(name, launched)
         return table
@@ -1076,10 +1112,10 @@ def _insert_fn():
                   (ctypes.POINTER(_InsertArgs), ctypes.c_void_p))
 
 
-def _insert_cuda(table: HashTable, keys, vals, valid) -> torch.Tensor:
-    with _scratch_lock(keys.device):
+def _insert_cuda(table: HashTable, keys, vals, valid, device: torch.device) -> torch.Tensor:
+    with _scratch_lock(device), _device_guard(device):
         args, ok, _keep = _insert_args(table, keys, vals, valid)
-        launched = _insert_fn()(ctypes.byref(args), _stream())
+        launched = _insert_fn()(ctypes.byref(args), _stream(device))
         if launched:
             _count("insert", launched)
     return ok
@@ -1091,8 +1127,9 @@ def insert(table: HashTable, keys: torch.Tensor, vals: torch.Tensor,
     bool), the bucket layout of ``hashmap.insert`` (its round-synchronous
     lowest-rank claims). ``ok`` is False where a key found no free bucket
     within MAX_PROBES."""
-    if _on_cuda([table.keys, table.vals, keys, vals, valid], "insert"):
-        return table, _insert_cuda(table, keys, vals, valid)
+    device = _cuda_device([table.keys, table.vals, keys, vals, valid], "insert")
+    if device is not None:
+        return table, _insert_cuda(table, keys, vals, valid, device)
     new, ok = insert_reference(table, keys, vals, valid)
     table.keys.copy_(new.keys)
     table.vals.copy_(new.vals)
@@ -1181,9 +1218,10 @@ def _delete_fn():
                   (ctypes.POINTER(_DeleteArgs), ctypes.c_void_p))
 
 
-def _delete_cuda(tables, deletes) -> None:
-    args, _keep = _delete_args(tables, deletes)
-    launched = _delete_fn()(ctypes.byref(args), _stream())
+def _delete_cuda(tables, deletes, device: torch.device) -> None:
+    with _device_guard(device):
+        args, _keep = _delete_args(tables, deletes)
+        launched = _delete_fn()(ctypes.byref(args), _stream(device))
     if launched:
         _count("delete", launched)
 
@@ -1199,8 +1237,9 @@ def fused_delete(tables: Sequence[HashTable], deletes: Sequence[DeleteOp]) -> No
         return
     used = [t for op in deletes
             for t in (tables[op.table].keys, tables[op.table].vals, op.keys, op.valid)]
-    if _on_cuda(used, "delete"):
-        _delete_cuda(tables, deletes)
+    device = _cuda_device(used, "delete")
+    if device is not None:
+        _delete_cuda(tables, deletes, device)
     else:
         fused_delete_reference(tables, deletes)
 
@@ -1217,7 +1256,8 @@ def delete(table: HashTable, keys: torch.Tensor, valid: torch.Tensor) -> HashTab
 # boot self-check
 # ---------------------------------------------------------------------------
 
-_SELFCHECK_PASSED = False
+# the CUDA devices (by index) whose self-check passed in this process
+_SELFCHECKED: set = set()
 
 
 def _plain_set(table: torch.Tensor, slots, active, vals) -> torch.Tensor:
@@ -1294,14 +1334,23 @@ def _selfcheck_on(device) -> None:
        masked_lane_accum(t1.clone(), slots, active, lvals))
 
 
-def selfcheck() -> None:
+def selfcheck(device=None) -> None:
     """The boot self-check (``pallas_ops.selfcheck`` in the JAX package):
-    run once per process before a CUDA-backed engine serves, so a kernel
-    that computes wrong on this card refuses to serve instead of corrupting
-    partition state. Nothing to check without a CUDA device: the CPU runs
-    the plain versions themselves."""
-    global _SELFCHECK_PASSED
-    if _SELFCHECK_PASSED or not torch.cuda.is_available():
+    run once per process and card before a CUDA-backed engine serves there,
+    so a kernel that computes wrong on that card refuses to serve instead
+    of corrupting partition state. ``device`` is the card (default: the
+    current one). Nothing to check without a CUDA device: the CPU runs the
+    plain versions themselves."""
+    if not torch.cuda.is_available():
         return
-    _selfcheck_on(torch.device("cuda", torch.cuda.current_device()))
-    _SELFCHECK_PASSED = True
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device.index in _SELFCHECKED:
+        return
+    _selfcheck_on(device)
+    _SELFCHECKED.add(device.index)

@@ -439,3 +439,17 @@ def state_from_numpy(arrays, device: DeviceLike = None) -> EngineState:
         else:
             fields[name] = t(arrays[name])
     return EngineState(**fields)
+
+
+def state_to(state: EngineState, device: DeviceLike) -> EngineState:
+    """The state's tables copied to ``device`` (the same tensors when they
+    are already there)."""
+    dev = torch.device(device)
+    fields = {}
+    for name in STATE_FIELDS:
+        value = getattr(state, name)
+        if isinstance(value, hashmap.HashTable):
+            fields[name] = hashmap.HashTable(keys=value.keys.to(dev), vals=value.vals.to(dev))
+        else:
+            fields[name] = value.to(dev)
+    return EngineState(**fields)
