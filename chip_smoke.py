@@ -54,6 +54,17 @@ records; 8b, three brokers with two partitions on the card, each
 follower holding the device snapshot, a leader closed and its successor
 restored from the snapshot serving on; 8c, ``python -m zeebe_tpu_torch``
 with ``ZEEBE_ENGINE_TYPE=cuda`` started, served and stopped with SIGTERM.
+Phase 9 runs the mesh (9a one partition's state over spans of places, 9b
+``bench.py:787``'s mesh serving). Phase 10 runs the production planes:
+10a the shared-wave scheduler (``tools/scheduler_smoke.py``'s mix and
+2,048 instances over 8 partitions in process, each partition's log equal
+with the scheduler on and off and to the host oracle's; ``bench.py:501``'s
+multi-tenant mix over ``ClusterBroker`` shared, baseline and overloaded,
+beside the host oracle), 10b delta snapshots and a crash restore
+(``tools/state_smoke.py`` at 6a's width: what each take reads back and
+writes, the restored state equal to the live one and the CPU's), 10c the
+trace and audit planes (spans, wave timelines, ``tools/trace_report.py``,
+the JSONL audit equal to the log).
 
     python3 chip_smoke.py                     # the full check, one CUDA card
     python3 chip_smoke.py --profile --out F   # + one wave of each config (with
@@ -67,6 +78,8 @@ with ``ZEEBE_ENGINE_TYPE=cuda`` started, served and stopped with SIGTERM.
                                               #   in an unpacked parent commit
                                               #   and here, in one call, for an
                                               #   A/B
+    python3 chip_smoke.py --mesh-only         # only the build and phase 9
+    python3 chip_smoke.py --planes-only       # only the build and phase 10
     python3 chip_smoke.py --scatter-only      # only phase 2's scatter and row-
                                               #   loop cases, and the one-op
                                               #   accumulate wrapper's host work
@@ -2637,6 +2650,42 @@ def alternating_payload(i):
     return {"orderId": i, "orderValue": (99, 10)[i % 2]}
 
 
+def _port_broker(device, workdir, partitions=1, clock=None, data_dir=None, exporters=None,
+                 capacity=SERVE_CAPACITY):
+    """The port's in-process Broker whose partitions run CudaPartitionEngine
+    on ``device`` ("cuda", "cpu"), or the port's host oracle ("oracle")."""
+    import tempfile
+
+    from zeebe_tpu_torch.engine.interpreter import WorkflowRepository
+    from zeebe_tpu_torch.runtime import Broker, ControlledClock
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+    clock = clock or ControlledClock(start_ms=1_000_000)
+    repo = WorkflowRepository()
+    return Broker(
+        num_partitions=partitions, clock=clock, exporters=exporters,
+        data_dir=data_dir or tempfile.mkdtemp(prefix="broker-", dir=workdir),
+        engine_factory=None if device == "oracle" else (
+            lambda pid: CudaPartitionEngine(
+                pid, partitions, repository=repo, clock=clock, capacity=capacity,
+                num_vars=16, sub_capacity=16, device=device)),
+    )
+
+
+def tick_until_quiet(broker):
+    """Tick (each tick drains) until a tick adds no record to partition 0's
+    log; returns the ticks."""
+    log_ = broker.partitions[0].log
+    ticks = 0
+    while True:
+        before = log_.next_position
+        broker.tick()
+        broker.run_until_idle()
+        ticks += 1
+        if log_.next_position == before:
+            return ticks
+
+
 def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
           capacity=SERVE_CAPACITY, payload=order_payload, advance_ms=0,
           after_create=None, marks=None):
@@ -2650,29 +2699,15 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
     position after the CREATEs' drain and after ``after_create``'s. Closes
     the broker and returns its engine, its log, the wall seconds from the
     first CREATE to the last record, and the number of ticks."""
-    import tempfile
-
     import torch
 
-    from zeebe_tpu_torch.engine.interpreter import WorkflowRepository
     from zeebe_tpu_torch.gateway import JobWorker, ZeebeClient
     from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
     from zeebe_tpu_torch.protocol.records import WorkflowInstanceRecord
-    from zeebe_tpu_torch.runtime import Broker, ControlledClock
-    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+    from zeebe_tpu_torch.runtime import ControlledClock
 
     clock = ControlledClock(start_ms=1_000_000)
-    repo = WorkflowRepository()
-    broker = Broker(
-        num_partitions=1, clock=clock,
-        data_dir=tempfile.mkdtemp(prefix="serve-", dir=workdir),
-        engine_factory=None if device == "oracle" else (
-            lambda pid: CudaPartitionEngine(
-                pid, 1, repository=repo, clock=clock, capacity=capacity,
-                num_vars=16, sub_capacity=16, device=device,
-            )
-        ),
-    )
+    broker = _port_broker(device, workdir, clock=clock, capacity=capacity)
     engine = broker.partitions[0].engine
     model = model_fn()
     client = ZeebeClient(broker)
@@ -2696,14 +2731,7 @@ def serve(model_fn, instances, device, workdir, credits=SERVE_CREDITS,
         broker.run_until_idle()
     marks.append(log_.next_position)
     clock.advance(advance_ms)
-    ticks = 0
-    while True:
-        before = log_.next_position
-        broker.tick()
-        broker.run_until_idle()
-        ticks += 1
-        if log_.next_position == before:
-            break
+    ticks = tick_until_quiet(broker)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3536,14 +3564,7 @@ def mesh_state_run(span, routing, lane_slots, workdir, capacity=MESH_CAPACITY,
                 broker.write_command(0, WorkflowInstanceRecord(
                     bpmn_process_id="order-process", payload=order_payload(i)), WI.CREATE)
             broker.run_until_idle()
-            ticks = 0
-            while True:
-                before = log_.next_position
-                broker.tick()
-                broker.run_until_idle()
-                ticks += 1
-                if log_.next_position == before:
-                    break
+            ticks = tick_until_quiet(broker)
             if cuda:
                 _sync_all()
             wall = time.perf_counter() - t0
@@ -4009,6 +4030,932 @@ def mesh_phase(here, report, by_path, profile=False):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the production planes served by CudaPartitionEngine — the shared
+# wave scheduler across partitions with the multi-tenant mix (10a), delta
+# snapshots and crash restore (10b), the trace and audit planes (10c)
+# ---------------------------------------------------------------------------
+
+# bench.py:501 run_multi_tenant's defaults: 8 partitions picked with Zipf
+# weights 1/(r+1)^1.2, seed 7; 24 clients x 16 instances, one worker of 256
+# credits, a 60 s cap the instances must finish under. The in-process leg
+# spreads 2,048 config-1 instances by the same weights in 8 bursts of 256
+PLANES_PARTITIONS = 8
+PLANES_ZIPF_S = 1.2
+PLANES_SEED = 7
+PLANES_INSTANCES = SERVE_INSTANCES
+PLANES_BURSTS = 8
+PLANES_WAVE = 256
+TENANT_CLIENTS = 24
+TENANT_INSTANCES = 16
+TENANT_DURATION_S = 60
+# tools/scheduler_smoke.py's own mix: 4 bursts over 4 partitions, the shared
+# drain's mean wave fill at least twice the per-partition baseline's
+SMOKE_PARTITIONS = 4
+SMOKE_MIX = (0,) * 12 + (1,) * 3 + (2,) * 2 + (3,)
+SMOKE_BURSTS = 4
+SMOKE_FILL_RATIO = 2.0
+# 10b (tools/state_smoke.py at 6a's config-1 width): the worker closed
+# before the last 256 instances; credits the tick's backlog pull hands out
+# (the small delta: that many instances end, and as many in the tail)
+STATE_PARKED = 256
+STATE_CREDITS = 16
+# 10c
+TRACE_INSTANCES = 512
+TRACE_LIFECYCLE = ("gateway_recv", "commit", "feed_take", "wave_dispatch", "apply",
+                   "response", "exporter_dispatch", "exporter_ack")
+
+
+def zipf_bursts():
+    """PLANES_INSTANCES partition ids drawn with run_multi_tenant's weights,
+    in PLANES_BURSTS bursts."""
+    import random
+
+    n, bursts, partitions = PLANES_INSTANCES, PLANES_BURSTS, PLANES_PARTITIONS
+    rng = random.Random(PLANES_SEED)
+    weights = [1.0 / (r + 1) ** PLANES_ZIPF_S for r in range(partitions)]
+    pids = [rng.choices(range(partitions), weights=weights)[0] for _ in range(n)]
+    per = n // bursts
+    return [pids[i * per:(i + 1) * per] for i in range(bursts)]
+
+
+def _sync(device):
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _wave_counters():
+    from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+
+    names = ("serving_waves_total", "serving_wave_records_total",
+             "scheduler_shared_waves_total")
+    at = {n: GLOBAL_REGISTRY.counter(n).value for n in names}
+    return lambda: {n: GLOBAL_REGISTRY.counter(n).value - at[n] for n in names}
+
+
+def scheduled_drain(device, workdir, bursts, partitions, use_scheduler):
+    """10a's in-process leg: config 1 on ``partitions`` partitions of the
+    port's Broker, waves of PLANES_WAVE, one worker of SERVE_CREDITS
+    credits; each burst (a list of partition ids) written at once, then one
+    drain. Returns each partition's log and frames, the mean wave fill, the
+    waves, the wall seconds, and each engine's device records."""
+    import itertools
+
+    from zeebe_tpu_torch.gateway import JobWorker, ZeebeClient
+    from zeebe_tpu_torch.gateway import workers
+    from zeebe_tpu_torch.protocol import codec
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.protocol.records import WorkflowInstanceRecord
+
+    workers._subscriber_keys = itertools.count(1)
+    broker = _port_broker(device, workdir, partitions=partitions)
+    broker.use_scheduler = use_scheduler
+    broker.wave_size = PLANES_WAVE
+    try:
+        ZeebeClient(broker).deploy_model(config1_model())
+        JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
+                  credits=SERVE_CREDITS)
+        counters = _wave_counters()
+        _sync(device)
+        t0 = time.perf_counter()
+        for b, burst in enumerate(bursts):
+            for i, pid in enumerate(burst):
+                broker.write_command(pid, WorkflowInstanceRecord(
+                    bpmn_process_id="order-process", payload={"b": b, "i": i},
+                ), WI.CREATE)
+            broker.run_until_idle()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        waves = counters()
+        logs = [broker.records(pid) for pid in range(partitions)]
+        engines = [p.engine for p in broker.partitions]
+        return {
+            "logs": logs, "frames": [[codec.encode_record(r) for r in log] for log in logs],
+            "fill": waves["serving_wave_records_total"] / max(waves["serving_waves_total"], 1),
+            "waves": waves["serving_waves_total"],
+            "shared_waves": waves["scheduler_shared_waves_total"],
+            "wall_seconds": wall,
+            "records": sum(len(log) for log in logs),
+            "device_records": [getattr(e, "device_records_processed", 0) for e in engines],
+            "host_only": [getattr(e, "host_only_reasons", {}) for e in engines],
+        }
+    finally:
+        broker.close()
+
+
+def scheduling_leg(device, workdir):
+    """10a, in process: the smoke's skewed mix, then the full-width Zipf
+    bursts, each with the scheduler on and off: every partition's log
+    bit-identical between the two, the Zipf run's signatures equal to the
+    port's host oracle's, partition 0 device-served. As in the JAX package,
+    only the partition whose engine processed the DEPLOYMENT (partition 0)
+    compiles the workflow; the others run it on their engine's host oracle
+    (ROADMAP Queue 3)."""
+    out = {}
+    smoke = [list(SMOKE_MIX)] * SMOKE_BURSTS
+    zipf = zipf_bursts()
+    for label, bursts, partitions in (("smoke", smoke, SMOKE_PARTITIONS),
+                                      ("zipf", zipf, PLANES_PARTITIONS)):
+        reset_launches()
+        shared = scheduled_drain(device, workdir, bursts, partitions, True)
+        base = scheduled_drain(device, workdir, bursts, partitions, False)
+        launches = launch_counts()
+        for pid, (a, b) in enumerate(zip(shared["frames"], base["frames"])):
+            if a != b:
+                raise AssertionError(f"10a {label}: partition {pid}'s log differs with "
+                                     f"the scheduler on and off")
+        if shared["device_records"][0] <= 0 or shared["host_only"][0]:
+            raise AssertionError(f"10a {label}: partition 0 not device-served "
+                                 f"({shared['host_only'][0]})")
+        if device == "cuda":
+            zero = [k for k in CONFIG1_KERNELS[:3] if launches[k] <= 0]
+            if zero:
+                raise AssertionError(f"10a {label}: kernels never launched: {zero}")
+        run = {
+            "partitions": partitions, "instances": sum(map(len, bursts)),
+            "per_partition": [sum(b.count(p) for b in bursts) for p in range(partitions)],
+            "records": shared["records"], "launches": launches,
+            "shared_fill": shared["fill"], "baseline_fill": base["fill"],
+            "ratio": shared["fill"] / base["fill"],
+            "shared_waves": shared["waves"], "baseline_waves": base["waves"],
+            "shared_seconds": shared["wall_seconds"],
+            "baseline_seconds": base["wall_seconds"],
+            "device_records": shared["device_records"],
+        }
+        if label == "smoke" and run["ratio"] < SMOKE_FILL_RATIO:
+            raise AssertionError(f"10a smoke: shared fill {shared['fill']:.1f} vs baseline "
+                                 f"{base['fill']:.1f}, ratio {run['ratio']:.2f} < "
+                                 f"{SMOKE_FILL_RATIO}")
+        if label == "zipf":
+            oracle = scheduled_drain("oracle", workdir, bursts, partitions, True)
+            for pid in range(partitions):
+                _same_log(f"10a zipf partition {pid}",
+                          record_signature(shared["logs"][pid]),
+                          record_signature(oracle["logs"][pid]), "card and oracle logs")
+            run["oracle_seconds"] = oracle["wall_seconds"]
+        out[label] = run
+    return out
+
+
+def multi_tenant(engine_type, workdir, scheduler=True, overload=False, device=None):
+    """10a's cluster leg: bench.py:501 ``run_multi_tenant`` on the port, its
+    defaults as they are (``BrokerCfg()`` but for the ports the OS picks and
+    ``[engine] type``): PLANES_PARTITIONS partitions, TENANT_CLIENTS clients
+    each creating TENANT_INSTANCES instances on partitions picked with the
+    Zipf weights (their own seeded draws), one worker of 256 credits, every
+    partition warmed first; ``scheduler`` off runs the per-partition
+    baseline drain, ``overload`` sets bench.py:534-537's admission
+    watermarks. Every created instance must complete exactly once inside
+    TENANT_DURATION_S seconds. ``device`` pins the engines (the card if
+    None). Besides the latencies it counts what the drain did inside the
+    timed window: segments (one engine dispatch each: a shared wave's
+    partitions, or one per baseline wave) and device rounds (one lookup
+    launch each)."""
+    import collections
+    import random
+    import tempfile
+    import threading
+
+    from zeebe_tpu_torch.gateway.cluster_client import ClusterClient
+    from zeebe_tpu_torch.runtime.cluster_broker import ClusterBroker
+    from zeebe_tpu_torch.runtime.engines import engine_factory_from_config
+    from zeebe_tpu_torch.runtime.metrics import GLOBAL_REGISTRY
+
+    partitions, clients = PLANES_PARTITIONS, TENANT_CLIENTS
+    per_client, duration = TENANT_INSTANCES, TENANT_DURATION_S
+    _freeze_heap()
+    cfg = _cluster_cfg("tenant-0", engine_type, partitions=partitions)
+    cfg.scheduler.enabled = scheduler
+    if overload:
+        cfg.admission.max_inflight_per_connection = 4
+        cfg.admission.queue_depth_high = 64
+        cfg.admission.retry_after_ms = 5
+    broker = ClusterBroker(cfg, tempfile.mkdtemp(prefix="tenant-", dir=workdir),
+                           engine_factory=engine_factory_from_config(cfg, device=device))
+    clients_open = []
+
+    def counters():
+        c = GLOBAL_REGISTRY.counter
+        return {
+            "waves": c("serving_waves_total").value,
+            "records": c("serving_wave_records_total").value,
+            "shared": c("scheduler_shared_waves_total").value,
+            "sources": c("scheduler_wave_sources_total").value,
+            "rounds": launch_counts()["lookup"],
+            "shed_conn": c("gateway_commands_shed", reason="CONNECTION_INFLIGHT").value,
+            "shed_queue": c("gateway_commands_shed", reason="QUEUE_DEPTH").value,
+        }
+
+    try:
+        t_start = time.perf_counter()
+        for pid in range(partitions):
+            broker.open_partition(pid).join(600)
+            broker.bootstrap_partition(pid, {})
+        _wait(lambda: all(broker.partitions[p].is_leader for p in range(partitions)),
+              600, "leadership of every partition")
+        admin = ClusterClient([broker.client_address], num_partitions=partitions,
+                              request_timeout_ms=300_000)
+        clients_open.append(admin)
+        admin.deploy_model(serve_bench_model())
+        done_cond = threading.Condition()
+        done_at = {}
+        pushes = collections.Counter()
+
+        def on_job(pid, rec):
+            key = (pid, rec.value.headers.workflow_instance_key)
+            with done_cond:
+                pushes[key] += 1
+                done_at.setdefault(key, time.perf_counter())
+                done_cond.notify_all()
+            return {}
+
+        worker = admin.open_job_worker("payment-service", on_job, credits=SERVE_CREDITS)
+        for pid in range(partitions):  # warm every partition's engine
+            admin.create_instance("serve-bench", partition_id=pid)
+        with done_cond:
+            if not done_cond.wait_for(lambda: len(done_at) >= partitions, timeout=240):
+                raise AssertionError(f"10a {engine_type}: the warm-up instances never "
+                                     f"completed")
+        ready = time.perf_counter() - t_start
+        log(f"    10a {engine_type}: {partitions} partitions led and warmed in {ready:.1f} s")
+        weights = [1.0 / (r + 1) ** PLANES_ZIPF_S for r in range(partitions)]
+        c0 = counters()
+        starts, errors = {}, []
+        starts_lock = threading.Lock()
+        stop_at = time.monotonic() + duration
+
+        def tenant(k):
+            rng = random.Random(PLANES_SEED * 1000 + k)
+            client = ClusterClient([broker.client_address], num_partitions=partitions,
+                                   request_timeout_ms=120_000)
+            clients_open.append(client)
+            for _ in range(per_client):
+                if time.monotonic() > stop_at:
+                    return
+                pid = rng.choices(range(partitions), weights=weights)[0]
+                t_send = time.perf_counter()
+                try:
+                    rsp = client.create_instance("serve-bench", payload={"t": k},
+                                                 partition_id=pid)
+                except Exception as e:  # noqa: BLE001 - reported below as a failure
+                    errors.append(repr(e)[:200])
+                    return
+                with starts_lock:
+                    starts[(pid, rsp.value.workflow_instance_key)] = t_send
+
+        def all_done():
+            with starts_lock:
+                pending = list(starts)
+            return all(key in done_at for key in pending)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tenant, args=(k,), daemon=True)
+                   for k in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(duration + 120)
+        with done_cond:
+            done_cond.wait_for(all_done, timeout=max(
+                1.0, duration - (time.perf_counter() - t0)))
+        elapsed = time.perf_counter() - t0
+        c1 = counters()
+        want = clients * per_client
+        log(f"    10a {engine_type}: {len(starts)} created, {len(done_at) - partitions} "
+            f"pushed in {elapsed:.1f} s")
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"10a {engine_type}: tenants failed: {errors[:3]}")
+        missing = [k for k in starts if k not in done_at]
+        if len(starts) != want or missing or elapsed > duration:
+            raise AssertionError(f"10a {engine_type}: {len(starts)} of {want} created, "
+                                 f"{len(missing)} not completed in {elapsed:.1f} s "
+                                 f"(cap {duration} s)")
+        twice = [k for k, n in pushes.items() if n != 1]
+        if twice:
+            raise AssertionError(f"10a {engine_type}: jobs pushed more than once: "
+                                 f"{twice[:5]}")
+        # every instance's end is committed, exactly once, partition by
+        # partition (the worker still open: its last completions may be on
+        # their way)
+        kinds, completed = {}, 0
+        for pid in range(partitions):
+            log_ = broker.partitions[pid].log
+            mine = {key for p, key in starts if p == pid}
+            try:
+                # each poll decodes the partition's log: slowly, to leave the
+                # brokers' threads the interpreter
+                _wait(lambda: mine <= set(_completions(log_)[0]), 120,
+                      f"partition {pid}'s instance ends in its log", interval=0.5)
+            except AssertionError:
+                done = _completions(log_)[0]
+                raise AssertionError(
+                    f"10a {engine_type}: partition {pid}'s log ends {len(mine - set(done))}"
+                    f" of its {len(mine)} instances nowhere (log at "
+                    f"{log_.next_position}, commit {log_.commit_position}, processed to "
+                    f"{broker.partitions[pid].next_read_position})") from None
+            done, kinds[pid] = _completions(log_)
+            if any(done[key] != 1 for key in mine) or len(done) != len(mine) + 1:
+                raise AssertionError(f"10a {engine_type}: partition {pid} completed "
+                                     f"{len(done)} instances, not once each")
+            completed += len(mine)
+        log(f"    10a {engine_type}: every end committed "
+            f"{time.perf_counter() - t0 - elapsed:.1f} s after the last push")
+        worker.close()
+        latencies = sorted(done_at[k] - t for k, t in starts.items())
+        d = {k: c1[k] - c0[k] for k in c1}
+        out = {
+            "engine": engine_type, "scheduler": scheduler, "overload": overload,
+            "partitions": partitions, "clients": clients, "instances": len(starts),
+            "completed": completed, "ready_seconds": ready, "elapsed_seconds": elapsed,
+            "instances_per_sec": len(starts) / elapsed,
+            "p50_latency_ms": 1000 * latencies[len(latencies) // 2],
+            "p99_latency_ms": 1000 * latencies[min(len(latencies) - 1,
+                                                   int(len(latencies) * 0.99))],
+            "mean_wave_fill": d["records"] / d["waves"] if d["waves"] else 0.0,
+            "waves": d["waves"], "shared_waves": d["shared"], "records": d["records"],
+            # a baseline wave is one partition's segment
+            "segments": d["sources"] if scheduler else d["waves"],
+            "device_rounds": d["rounds"],
+            "shed": d["shed_conn"] + d["shed_queue"], "shed_connection": d["shed_conn"],
+            "shed_queue_depth": d["shed_queue"], "kinds": kinds,
+            "per_partition": [sum(1 for p, _ in starts if p == q) for q in range(partitions)],
+        }
+        if engine_type == "cuda":
+            from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+            # partition 0 processed the DEPLOYMENT: as in the JAX package, only
+            # its engine compiled the workflow (ROADMAP Queue 3)
+            engines = [broker.partitions[p].engine for p in range(partitions)]
+            if not all(isinstance(e, CudaPartitionEngine) for e in engines) or (
+                    engines[0].device_records_processed <= 0 or engines[0].host_only_reasons):
+                raise AssertionError("10a cuda: partition 0 not device-served")
+            out["device_records"] = [e.device_records_processed for e in engines]
+            out["host_records"] = [e.host_records_processed for e in engines]
+        return out
+    finally:
+        t_close = time.perf_counter()
+        for c in clients_open:
+            c.close()
+        t_broker = time.perf_counter()
+        broker.close()
+        log(f"    10a {engine_type}: {len(clients_open)} clients closed in "
+            f"{t_broker - t_close:.1f} s, the broker in {time.perf_counter() - t_broker:.1f} s")
+
+
+def tenants_leg(workdir, device=None):
+    """10a's cluster leg: run_multi_tenant shared, baseline and overloaded on
+    the card, then on the host oracle: every run completes each instance
+    once with the host run's records partition by partition."""
+    runs = {}
+    for label, engine_type, scheduler, overload in (
+        ("shared", "cuda", True, False), ("baseline", "cuda", False, False),
+        ("overload", "cuda", True, True), ("host", "host", True, False),
+    ):
+        reset_launches()
+        runs[label] = multi_tenant(engine_type, workdir, scheduler, overload, device=device)
+        runs[label]["launches"] = launch_counts()
+    host = runs["host"]
+    for label in ("shared", "baseline", "overload"):
+        run = runs[label]
+        if run["per_partition"] != host["per_partition"] or run["kinds"] != host["kinds"]:
+            diff = {(p, k): (run["kinds"][p].get(k), host["kinds"][p].get(k))
+                    for p in host["kinds"] for k in set(run["kinds"][p]) | set(host["kinds"][p])
+                    if run["kinds"][p].get(k) != host["kinds"][p].get(k)}
+            raise AssertionError(f"10a {label}: records differ from the host run's "
+                                 f"(card, host): {dict(list(diff.items())[:6])}")
+    if runs["shared"]["shared_waves"] <= 0 or runs["overload"]["shared_waves"] <= 0:
+        raise AssertionError("10a: no shared wave with the scheduler on")
+    if runs["overload"]["shed"] <= 0:
+        raise AssertionError("10a overload: nothing was shed")
+    for run in runs.values():
+        run["kinds"] = {f"{p}/" + "/".join(map(str, k)): n
+                        for p, ks in run["kinds"].items() for k, n in sorted(ks.items())}
+    return runs
+
+
+def _launched_since(before):
+    return {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+
+
+def _take(broker, engine):
+    """One snapshot take of partition 0, timed: the controller's stats, the
+    device arrays read back and their bytes, and the kernels launched."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    broker.snapshot()
+    seconds = time.perf_counter() - t0
+    launches = _launched_since(before)
+    stats = dict(broker.partitions[0].snapshots.last_take_stats)
+    read = list(engine.last_snapshot_readback)
+    return {"seconds": seconds, "new_bytes": stats["new_bytes"],
+            "total_bytes": stats["total_bytes"], "parts": stats["parts"],
+            "reused_parts": stats["reused_parts"], "readback": read,
+            "readback_bytes": _readback_bytes(engine, read), "launches": launches}
+
+
+def _readback_bytes(engine, names):
+    state = engine.state
+    total = 0
+    for name in names:
+        base, _, leaf = name.partition(".")
+        value = getattr(state, base)
+        total += (getattr(value, leaf) if leaf else value).nbytes
+    return total
+
+
+def _leaf_devices(state):
+    """The devices every leaf of an engine state lies on."""
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    devices = set()
+    for name in state_mod.STATE_FIELDS:
+        value = getattr(state, name)
+        for t in (value.keys, value.vals) if name in state_mod.MAP_FIELDS else (value,):
+            devices.add(str(t.device))
+    return sorted(devices)
+
+
+def _normalized_parts(engine, drop_subscriptions=False):
+    """The engine's snapshot parts with its lookup structures derived from
+    the rows as a restore derives them (``rebuild_lookup_state``), and with
+    ``drop_subscriptions`` the worker subscriptions left out (session state
+    a restore drops)."""
+    from zeebe_tpu_torch.log import stateser
+    from zeebe_tpu_torch.tpu import state as state_mod
+
+    engine.state = state_mod.rebuild_lookup_state(engine.state)
+    parts = dict(stateser.encode_state_parts(engine.snapshot_state()))
+    if drop_subscriptions:
+        parts = {k: v for k, v in parts.items() if not k.startswith("a/sub_")}
+    return parts
+
+
+def _same_parts(label, a, b):
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: other snapshot parts: {sorted(set(a) ^ set(b))}")
+    differ = [k for k in a if a[k] != b[k]]
+    if differ:
+        from zeebe_tpu_torch.protocol import msgpack
+
+        root = ("_root" in differ and (msgpack.unpack(a["_root"]), msgpack.unpack(b["_root"])))
+        raise AssertionError(f"{label}: snapshot parts differ: {differ} {str(root)[:2000]}")
+
+
+def _ended_instances(log_):
+    return sum(_completions(log_)[0].values())
+
+
+def state_leg(device, workdir):
+    """10b on ``device``: tools/state_smoke.py at 6a's served config-1 width
+    (capacity SERVE_CAPACITY, waves of 256, one worker of SERVE_CREDITS
+    credits closed before the last STATE_PARKED instances, whose jobs stay
+    parked). A cold take, an idle take, a worker of 0 credits given
+    STATE_CREDITS by a tick's backlog pull and a take, those jobs served
+    and a take, a message published and a take; another pull served (the
+    tail), the live state, and the broker closed. A new broker on the same data directory restores
+    from the delta chain and replays the tail; a new worker serves the
+    parked jobs to the end. Returns every number and the live state's
+    parts (the comparison across devices)."""
+    import itertools
+
+    from zeebe_tpu_torch.gateway import JobWorker, ZeebeClient
+    from zeebe_tpu_torch.gateway import workers
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.protocol.records import WorkflowInstanceRecord
+    from zeebe_tpu_torch.runtime import ControlledClock
+    import tempfile
+
+    import torch
+
+    from zeebe_tpu_torch.testing.chaos import replay_oracle
+    from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
+
+    instances, parked = SERVE_INSTANCES, STATE_PARKED
+    workers._subscriber_keys = itertools.count(1)
+    clock = ControlledClock(start_ms=1_000_000)
+
+    data_dir = tempfile.mkdtemp(prefix="state-", dir=workdir)
+    broker = _port_broker(device, workdir, clock=clock, data_dir=data_dir)
+    broker.wave_size = PLANES_WAVE
+    log_ = broker.partitions[0].log
+    engine = broker.partitions[0].engine
+
+    def burst(n, base):
+        for i in range(n):
+            broker.write_command(0, WorkflowInstanceRecord(
+                bpmn_process_id="order-process", payload=order_payload(base + i),
+            ), WI.CREATE)
+        broker.run_until_idle()
+
+    out = {"device": device, "instances": instances, "parked": parked}
+    client = ZeebeClient(broker)
+    client.deploy_model(config1_model())
+    first = JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
+                      credits=SERVE_CREDITS)
+    _sync(device)
+    t0 = time.perf_counter()
+    burst(instances - parked, 0)
+    tick_until_quiet(broker)
+    first.close()
+    burst(parked, instances - parked)
+    _sync(device)
+    out["serve_seconds"] = time.perf_counter() - t0
+    if _ended_instances(log_) != instances - parked:
+        raise AssertionError(f"10b {device}: {_ended_instances(log_)} instances ended "
+                             f"before the parked ones, not {instances - parked}")
+    late = JobWorker(broker, "payment-service", lambda ctx: {"paid": True}, credits=0)
+    out["cold"] = _take(broker, engine)
+    out["idle"] = _take(broker, engine)
+    # a credit for STATE_CREDITS jobs and the tick's backlog pull: only the
+    # subscription table moves
+    engine.increase_job_credits(late.subscriber_key, STATE_CREDITS)
+    before = log_.next_position
+    broker.tick()
+    out["pulled"] = log_.next_position - before
+    out["tick"] = _take(broker, engine)
+    # the pulled jobs served: STATE_CREDITS instances end. Every device
+    # family is dirty after a step, and each table array is one
+    # content-addressed part
+    broker.run_until_idle()
+    out["delta"] = _take(broker, engine)
+    # tools/state_smoke.py's delta: one message published (config 1 has no
+    # message element: the host oracle holds the store)
+    client.publish_message("state-evt", "c-1", {"x": 1}, time_to_live_ms=600_000)
+    broker.run_until_idle()
+    out["publish"] = _take(broker, engine)
+    # the tail the restore replays: the served jobs gave their credits back,
+    # and the next tick pulls as many parked jobs, served to the end (a tail
+    # that ends instances and allocates no row: a restore derives the free
+    # rings from the rows, so rows allocated after it land in other slots)
+    broker.tick()
+    broker.run_until_idle()
+    late.close()
+    out["ended_live"] = _ended_instances(log_)
+    live = _normalized_parts(engine, drop_subscriptions=True)
+    out["live_parts"] = dict(_normalized_parts(engine))
+    out["live_position"] = engine.last_processed_position
+    broker.close()
+
+    from zeebe_tpu_torch.log import stateser
+
+    families = {stateser.device_array_family(n) for n in out["cold"]["readback"]}
+    checks = [
+        ("the cold take read every device family back",
+         families == set(stateser.DEVICE_ARRAY_FAMILIES)),
+        ("the idle take read nothing back", out["idle"]["readback"] == []),
+        ("the idle take wrote no byte", out["idle"]["new_bytes"] == 0),
+        ("the tick pulled STATE_CREDITS jobs", out["pulled"] == STATE_CREDITS),
+        ("the tick's take read back only sub_*",
+         bool(out["tick"]["readback"])
+         and all(n.startswith("sub_") for n in out["tick"]["readback"])),
+        ("the publish's take read back only the key counters (the message key is the "
+         "host's)", {stateser.device_array_family(n) for n in out["publish"]["readback"]}
+         <= {"keys"}),
+        ("the publish's take wrote far fewer bytes than the state holds",
+         0 < out["publish"]["new_bytes"] < out["publish"]["total_bytes"] // 5),
+        ("the few instances' take reused parts and wrote less than the state holds",
+         out["delta"]["reused_parts"] > 0
+         and 0 < out["delta"]["new_bytes"] < out["delta"]["total_bytes"]),
+    ]
+    if device == "cuda":
+        checks += [(f"the {t} take launched no kernel", not out[t]["launches"])
+                   for t in ("cold", "idle", "tick", "publish", "delta")]
+    failed = [what for what, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"10b {device}: {failed}: " + json.dumps(
+            {t: {k: v for k, v in out[t].items() if k != "readback"} | {
+                "readback": out[t]["readback"][:8]}
+             for t in ("cold", "idle", "tick", "publish", "delta")}))
+
+    # crash-restore: a new broker and engine on the same data directory; the
+    # restore's launches counted alone
+    restore = {}
+    original = CudaPartitionEngine.restore_state
+
+    def counted(self, snap):
+        before = launch_counts()
+        t = time.perf_counter()
+        original(self, snap)
+        _sync(device)
+        restore["seconds"] = time.perf_counter() - t
+        restore["launches"] = _launched_since(before)
+        restore["devices"] = _leaf_devices(self.state)
+
+    CudaPartitionEngine.restore_state = counted
+    try:
+        t0 = time.perf_counter()
+        broker = _port_broker(device, workdir, clock=clock, data_dir=data_dir)
+        out["reopen_seconds"] = time.perf_counter() - t0
+    finally:
+        CudaPartitionEngine.restore_state = original
+    try:
+        log_ = broker.partitions[0].log
+        engine = broker.partitions[0].engine
+        if "seconds" not in restore:
+            raise AssertionError(f"10b {device}: the new engine restored no snapshot")
+        out["restore"] = restore
+        out["replayed"] = engine.last_processed_position - broker.partitions[0].snapshots \
+            .storage.list()[0].last_processed_position
+        want = torch.device(engine.device.type, engine.device.index if (
+            engine.device.index is not None or engine.device.type != "cuda")
+            else torch.cuda.current_device())
+        if restore["devices"] != [str(want)]:
+            raise AssertionError(f"10b {device}: restored tables on {restore['devices']}, "
+                                 f"not the engine's {want}")
+        if device == "cuda" and restore["launches"] != {"insert": INSERTS_PER_REBUILD}:
+            raise AssertionError(f"10b: the restore launched {restore['launches']}, not "
+                                 f"{INSERTS_PER_REBUILD} inserts")
+        # the records past the last one a follow-up names were never
+        # processed for certain: they are processed now, and write nothing
+        before = log_.next_position
+        broker.run_until_idle()
+        if log_.next_position != before:
+            raise AssertionError(f"10b {device}: the restored broker wrote "
+                                 f"{log_.next_position - before} records of its own")
+        _same_parts(f"10b {device}: the restored and the live state",
+                    _normalized_parts(engine, drop_subscriptions=True), live)
+        committed = log_.reader(0).read_committed()
+        oracle = replay_oracle(committed)
+        live_keys = sorted(int(k) for k in engine.state.ei_key[engine.state.ei_state >= 0]
+                           .cpu().tolist()) + sorted(engine._host.element_instances.instances)
+        if sorted(oracle.element_instances.instances) != sorted(live_keys):
+            raise AssertionError(f"10b {device}: the replay oracle's element instances "
+                                 f"differ from the restored engine's")
+        if oracle.last_processed_position != engine.last_processed_position:
+            raise AssertionError(f"10b {device}: the replay oracle at "
+                                 f"{oracle.last_processed_position}, the engine at "
+                                 f"{engine.last_processed_position}")
+        out["oracle_instances"] = len(oracle.element_instances.instances)
+        # the restored engine serves the parked jobs to the end
+        JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
+                  credits=SERVE_CREDITS)
+        t0 = time.perf_counter()
+        tick_until_quiet(broker)
+        out["after_restore_seconds"] = time.perf_counter() - t0
+        total = instances
+        twice, activates, rejected = _activations(log_)
+        if _ended_instances(log_) != total or twice or rejected:
+            raise AssertionError(f"10b {device}: {_ended_instances(log_)} of {total} "
+                                 f"instances ended; jobs activated twice {twice[:5]}, "
+                                 f"{rejected} JOB commands rejected")
+        out["activates"] = activates
+    finally:
+        broker.close()
+    return out
+
+
+def state_phase(workdir):
+    """10b on the card, then on the CPU: the live states equal part for part."""
+    card = state_leg("cuda", workdir)
+    cpu = state_leg("cpu", workdir)
+    _same_parts("10b: the card's and the CPU's live state", card.pop("live_parts"),
+                cpu.pop("live_parts"))
+    card["cpu_serve_seconds"] = cpu["serve_seconds"]
+    return card
+
+
+def traced_serve(device, workdir, traced):
+    """10c: TRACE_INSTANCES config-1 instances served on ``device`` with the
+    JSONL audit exporter, under a rate-1.0 RecordTracer when ``traced``.
+    Returns the tracer, the audit documents, the committed records' audit
+    documents read back from the log's segments, and the wall time."""
+    import itertools
+    import tempfile
+
+    from zeebe_tpu_torch import tracing
+    from zeebe_tpu_torch.exporter import read_audit_docs
+    from zeebe_tpu_torch.exporter.base import record_to_doc
+    from zeebe_tpu_torch.gateway import JobWorker, ZeebeClient
+    from zeebe_tpu_torch.gateway import workers
+    from zeebe_tpu_torch.log import LogStream, SegmentedLogStorage
+    from zeebe_tpu_torch.protocol.enums import ValueType
+    from zeebe_tpu_torch.protocol.intents import WorkflowInstanceIntent as WI
+    from zeebe_tpu_torch.protocol.records import WorkflowInstanceRecord
+    from zeebe_tpu_torch.runtime.config import ExporterCfg
+
+    workers._subscriber_keys = itertools.count(1)
+    root = tempfile.mkdtemp(prefix="trace-", dir=workdir)
+    data_dir, audit_dir = os.path.join(root, "data"), os.path.join(root, "audit")
+    # every command sampled, and a live-span budget that holds the burst
+    tracer = tracing.install(tracing.RecordTracer(
+        sample_rate=1.0, seed=11, per_partition_budget=2 * TRACE_INSTANCES)) if traced else None
+    try:
+        broker = _port_broker(device, workdir, data_dir=data_dir, exporters=[
+            ExporterCfg(id="audit", type="jsonl", args={"path": audit_dir})])
+        broker.wave_size = PLANES_WAVE
+        try:
+            ZeebeClient(broker).deploy_model(config1_model())
+            JobWorker(broker, "payment-service", lambda ctx: {"paid": True},
+                      credits=SERVE_CREDITS)
+            _sync(device)
+            t0 = time.perf_counter()
+            for i in range(TRACE_INSTANCES):
+                broker.write_command(0, WorkflowInstanceRecord(
+                    bpmn_process_id="order-process", payload=order_payload(i),
+                ), WI.CREATE)
+            broker.run_until_idle()
+            tick_until_quiet(broker)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            records = len(broker.records(0))
+            engine = broker.partitions[0].engine
+            if engine.device_records_processed <= 0:
+                raise AssertionError("10c: no record went through the step kernel")
+        finally:
+            broker.close()
+    finally:
+        if traced:
+            tracing.install(None)
+    storage = SegmentedLogStorage(os.path.join(data_dir, "partition-0"))
+    try:
+        stream = LogStream(storage)
+        committed = [
+            json.loads(json.dumps(record_to_doc(r), separators=(",", ":"), sort_keys=True))
+            for r in stream.reader(0)
+            if r.position <= stream.commit_position
+            and int(r.metadata.value_type) != int(ValueType.EXPORTER)
+        ]
+    finally:
+        storage.close()
+    return {"tracer": tracer, "docs": read_audit_docs(audit_dir), "committed": committed,
+            "wall_seconds": wall, "records": records, "root": root}
+
+
+def trace_leg(device, workdir):
+    """10c: spans with the whole in-process lifecycle in stamp order,
+    consistent wave timelines, the dump through tools/trace_report.py (a
+    program of its own) into Chrome-trace JSON, the audit directory equal
+    to the committed log field by field; the traced run's rate beside an
+    untraced one."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    instances = TRACE_INSTANCES
+    run = traced_serve(device, workdir, True)
+    plain = traced_serve(device, workdir, False)
+    tracer = run.pop("tracer")
+    spans = [s for s in tracer.spans() if "response" in s.stage_names()]
+    bad = []
+    for span in spans:
+        names = span.stage_names()
+        ts = [t for _n, t, _f in span.stages]
+        if any(s not in names for s in TRACE_LIFECYCLE) or ts != sorted(ts):
+            bad.append((span.trace_id, names))
+    if len(spans) < instances or bad or tracer.stats()["dropped"]:
+        raise AssertionError(f"10c: {len(spans)} complete spans of {instances}; "
+                             f"incomplete or out of order: {bad[:3]}")
+    waves = tracer.waves.snapshot()
+    segments = [seg for w in waves for seg in w["segments"]]
+    inconsistent = [w["wave_id"] for w in waves
+                    if w["records"] != sum(s["records"] for s in w["segments"])
+                    or any(s["t_collect_us"] < s["t_dispatch_us"] for s in w["segments"])]
+    device_s = sum(s["device_s"] for s in segments)
+    if not waves or inconsistent or sum(w["records"] for w in waves) != run["records"]:
+        raise AssertionError(f"10c: wave timelines inconsistent: {inconsistent[:5]}, "
+                             f"{sum(w['records'] for w in waves)} records of "
+                             f"{run['records']}")
+    if device == "cuda" and device_s <= 0:
+        raise AssertionError("10c: no device seconds on the wave timelines")
+    dump = os.path.join(run["root"], "dump.json")
+    chrome_path = os.path.join(run["root"], "chrome.json")
+    tracer.dump(dump)
+    subprocess.run([sys.executable, os.path.join(here, "tools", "trace_report.py"), dump,
+                    "-o", chrome_path], check=True, timeout=300, capture_output=True)
+    with open(chrome_path) as f:
+        chrome = json.load(f)
+    pids = {e["pid"] for e in chrome["traceEvents"]}
+    if not {"records", "devices"} <= pids:
+        raise AssertionError(f"10c: the Chrome trace holds tracks of {pids}")
+    docs, committed = run["docs"], run["committed"]
+    key = ("position", "recordType", "valueType", "intent")
+    if [tuple(d[k] for k in key) for d in docs] != [tuple(d[k] for k in key)
+                                                   for d in committed]:
+        raise AssertionError(f"10c: the audit's records ({len(docs)}) are not the "
+                             f"log's ({len(committed)})")
+    # field by field; the one exception is the reference's: the host oracle
+    # fills the DEPLOYMENT command's deployedWorkflows in the Record object
+    # it was appended as, and the exporter reads that object
+    differ = [(a, b) for a, b in zip(docs, committed) if a != b]
+    if [(a["valueType"], a["recordType"]) for a, _ in differ] != [("DEPLOYMENT", "COMMAND")] \
+            or {**differ[0][0]["value"], "deployedWorkflows": []} != differ[0][1]["value"]:
+        raise AssertionError(f"10c: audit documents differ from the log: "
+                             f"{[(a['position'], a['valueType']) for a, _ in differ][:5]}")
+    return {
+        "instances": instances, "records": run["records"], "spans": len(spans),
+        "waves": len(waves), "segments": len(segments), "device_seconds": device_s,
+        "host_seconds": sum(s["host_s"] for s in segments),
+        "chrome_events": len(chrome["traceEvents"]), "audit_records": len(docs),
+        "traced_seconds": run["wall_seconds"], "untraced_seconds": plain["wall_seconds"],
+        "traced_records_per_sec": run["records"] / run["wall_seconds"],
+        "untraced_records_per_sec": plain["records"] / plain["wall_seconds"],
+    }
+
+
+def planes_phase(here, report, by_path):
+    """Phase 10 (10a, 10b, 10c), each path's launches counted from 0."""
+    import shutil
+    import tempfile
+
+    workdir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="planes-", dir=workdir)
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        sched = scheduling_leg("cuda", workdir)
+        report["planes_scheduling"] = sched
+        for label in ("smoke", "zipf"):
+            run = sched[label]
+            by_path[f"planes_{label}"] = run["launches"]
+            log(f"[10a] {label}: {run['instances']} config-1 instances over "
+                f"{run['partitions']} partitions {run['per_partition']}, waves of "
+                f"{PLANES_WAVE}: every partition's log bit-identical with the scheduler on "
+                f"and off, partition 0 device-served ({run['device_records']} device "
+                f"records); mean wave fill shared {run['shared_fill']:.2f} "
+                f"({run['shared_waves']:.0f} waves, {run['shared_seconds']:.3f} s) vs "
+                f"baseline {run['baseline_fill']:.2f} ({run['baseline_waves']:.0f} waves, "
+                f"{run['baseline_seconds']:.3f} s): ratio {run['ratio']:.3f}"
+                + (f"; signatures equal to the port's host oracle's "
+                   f"({run['oracle_seconds']:.3f} s)" if "oracle_seconds" in run else "")
+                + f"; launches {run['launches']}")
+        log(f"[10a] in process: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tenants = tenants_leg(workdir)
+        report["planes_multi_tenant"] = tenants
+        by_path["planes_tenants"] = {
+            k: sum(tenants[r]["launches"][k] for r in ("shared", "baseline", "overload"))
+            for k in tenants["shared"]["launches"]}
+        zero = [k for k in CONFIG1_KERNELS[:3] if by_path["planes_tenants"][k] <= 0]
+        if zero:
+            raise AssertionError(f"10a multi-tenant: kernels never launched: {zero}")
+        for label, run in tenants.items():
+            log(f"[10a] multi-tenant {label} ({run['engine']}, scheduler "
+                f"{'on' if run['scheduler'] else 'off'}"
+                + (", overload watermarks" if run["overload"] else "") + f"): "
+                f"{run['instances']} instances from {run['clients']} clients over "
+                f"{run['partitions']} partitions {run['per_partition']}, each completed "
+                f"once in {run['elapsed_seconds']:.3f} s (ready in "
+                f"{run['ready_seconds']:.3f} s) = {run['instances_per_sec']:.1f} "
+                f"instances/s; p50 {run['p50_latency_ms']:.1f} ms, p99 "
+                f"{run['p99_latency_ms']:.1f} ms; mean wave fill "
+                f"{run['mean_wave_fill']:.2f}, {run['waves']:.0f} waves, "
+                f"{run['shared_waves']:.0f} shared, {run['segments']:.0f} segments "
+                f"({run['records'] / max(run['segments'], 1):.2f} records a segment), "
+                f"{run['device_rounds']} device rounds"
+                + (f" (device records {run['device_records']}, host records "
+                   f"{run['host_records']})" if "device_records" in run else "")
+                + f"; shed {run['shed']:.0f} (connection {run['shed_connection']:.0f}, "
+                f"queue depth {run['shed_queue_depth']:.0f})")
+        log(f"[10a] multi-tenant: every card run wrote the host run's records partition by "
+            f"partition ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        reset_launches()
+        state = state_phase(workdir)
+        by_path["planes_state"] = launch_counts()
+        zero = [k for k in CONFIG1_KERNELS if by_path["planes_state"][k] <= 0]
+        if zero:
+            raise AssertionError(f"10b: kernels never launched: {zero}")
+        report["planes_state"] = state
+        for t in ("cold", "idle", "tick", "publish", "delta"):
+            take = state[t]
+            log(f"[10b] {t} take: {take['seconds']:.4f} s, {take['new_bytes']} new bytes of "
+                f"{take['total_bytes']}, {take['reused_parts']}/{take['parts']} parts "
+                f"reused, read back {len(take['readback'])} arrays "
+                f"({take['readback_bytes']} B), launches {take['launches'] or 0}")
+        log(f"[10b] {state['instances']} instances ({state['parked']} parked) served in "
+            f"{state['serve_seconds']:.3f} s (cpu {state['cpu_serve_seconds']:.3f} s); the "
+            f"tick pulled {state['pulled']} jobs; crash-restore: reopened in "
+            f"{state['reopen_seconds']:.3f} s, the restore {state['restore']['seconds']:.4f} "
+            f"s with launches {state['restore']['launches']} on "
+            f"{state['restore']['devices']}, {state['replayed']} records replayed; the "
+            f"restored state equal to the live one and to the CPU's, part for part; the "
+            f"replay oracle's {state['oracle_instances']} element instances and position "
+            f"equal; the parked jobs served to the end in "
+            f"{state['after_restore_seconds']:.3f} s, {state['activates']} activations, "
+            f"none twice ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        reset_launches()
+        trace = trace_leg("cuda", workdir)
+        by_path["planes_trace"] = launch_counts()
+        zero = [k for k in CONFIG1_KERNELS[:3] if by_path["planes_trace"][k] <= 0]
+        if zero:
+            raise AssertionError(f"10c: kernels never launched: {zero}")
+        report["planes_trace"] = trace
+        log(f"[10c] {trace['instances']} instances traced at rate 1.0 with the JSONL "
+            f"exporter: {trace['spans']} spans with the {len(TRACE_LIFECYCLE)}-stage "
+            f"lifecycle in stamp order; {trace['waves']} wave timelines consistent "
+            f"({trace['segments']} segments, host {trace['host_seconds']:.3f} s, device "
+            f"{trace['device_seconds']:.3f} s); {trace['chrome_events']} Chrome-trace "
+            f"events through tools/trace_report.py; the audit's {trace['audit_records']} "
+            f"records equal to the log field by field; traced "
+            f"{trace['traced_records_per_sec']:.1f} records/s vs untraced "
+            f"{trace['untraced_records_per_sec']:.1f} ({time.perf_counter() - t0:.1f} s)")
+        report["planes_seconds"] = time.perf_counter() - t_phase
+        log(f"[10] phase 10 in {report['planes_seconds']:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measured number here (JSON)")
@@ -4023,6 +4970,9 @@ def main(argv) -> int:
                            "and time the one-op accumulate wrapper piece by piece")
     only.add_argument("--mesh-only", action="store_true",
                       help="only build the kernels and run phase 9 (the mesh)")
+    only.add_argument("--planes-only", action="store_true",
+                      help="only build the kernels and run phase 10 (the scheduler, "
+                           "snapshot, trace and audit planes)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4040,6 +4990,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
 
+    t_script = time.perf_counter()
     report = {}
     smi = smi_line()
     log(f"[0] card: {smi}")
@@ -4061,7 +5012,7 @@ def main(argv) -> int:
     checks = (check_gather, check_commit, check_lookup, check_scatters,
               check_insert, check_delete, check_row_loop, check_probe)
     for k, check in enumerate(checks):
-        if args.mesh_only:
+        if args.mesh_only or args.planes_only:
             break
         if args.hash_only and check not in (check_lookup, check_insert, check_delete,
                                             check_probe):
@@ -4092,7 +5043,7 @@ def main(argv) -> int:
                 if extra in row:
                     log(f"    {extra}: kernel {row[extra]:.4f} ms")
 
-    if not (args.hash_only or args.scatter_only or args.mesh_only):
+    if not (args.hash_only or args.scatter_only or args.mesh_only or args.planes_only):
         report["two_threads"] = check_two_threads("cuda")
         tt = report["two_threads"]
         log(f"[2] two threads, tables of their own, {tt['commits']} table commits and "
@@ -4111,8 +5062,11 @@ def main(argv) -> int:
                 json.dump(result, f, indent=1)
         print(smi, flush=True)
         return 0
-    if args.mesh_only:
-        mesh_phase(here, report, {}, args.profile)
+    if args.mesh_only or args.planes_only:
+        if args.mesh_only:
+            mesh_phase(here, report, {}, args.profile)
+        else:
+            planes_phase(here, report, {})
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -4395,6 +5349,9 @@ def main(argv) -> int:
     # phase 9: the mesh, each path's launches counted from 0
     mesh_phase(here, report, by_path, args.profile)
 
+    # phase 10: the production planes, each path's launches counted from 0
+    planes_phase(here, report, by_path)
+
     if args.profile:
         report["profile_eval_programs"] = profile_eval_programs(WAVE)
         ev = report["profile_eval_programs"]
@@ -4434,7 +5391,8 @@ def main(argv) -> int:
     # launches: the sum over the main-path runs (phases 4 to 5d, 6: the boot
     # self-check and the six served runs, 7: the probe, 8a and 8b: the
     # cluster runs in this process (8c's node is another process), 9a's six
-    # runs and 9b's cuda run), each
+    # runs and 9b's cuda run, 10a's in-process pairs and three card runs, 10b's
+    # card run and 10c's two runs), each
     # run's own count beside it; masked_row_add and masked_row_max, which
     # no path calls (config 3's maxima are one fused_accumulate), stay at 0
     for row in kernels:
@@ -4442,6 +5400,8 @@ def main(argv) -> int:
         row["launches"] = sum(row["launches_by_path"].values())
     report["kernels"] = kernels
     report["card"] = smi
+    report["seconds"] = time.perf_counter() - t_script
+    log(f"[end] every phase passed in {report['seconds']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

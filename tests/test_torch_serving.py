@@ -58,14 +58,28 @@ PORT = types.SimpleNamespace(
 )
 
 
-def port_broker(clock, data_dir=None, capacity=1 << 12):
+def port_engines(clock, partitions=1, **kwargs):
+    """The port's engine factory for one broker: ``CudaPartitionEngine`` on
+    the CPU, every partition sharing one workflow repository."""
     repo = WorkflowRepository()
+    return lambda pid: CudaPartitionEngine(
+        pid, partitions, repository=repo, clock=clock, device="cpu", **kwargs
+    )
+
+
+def jax_engines(clock, partitions=1):
+    """The JAX package's device-engine factory for one broker."""
+    from zeebe_tpu.engine.interpreter import WorkflowRepository as JaxRepository
+    from zeebe_tpu.tpu import TpuPartitionEngine
+
+    repo = JaxRepository()
+    return lambda pid: TpuPartitionEngine(pid, partitions, repository=repo, clock=clock)
+
+
+def port_broker(clock, data_dir=None, capacity=1 << 12, partitions=1):
     return port_runtime.Broker(
-        num_partitions=1, clock=clock, data_dir=data_dir,
-        engine_factory=lambda pid: CudaPartitionEngine(
-            pid, 1, repository=repo, clock=clock, capacity=capacity,
-            device="cpu",
-        ),
+        num_partitions=partitions, clock=clock, data_dir=data_dir,
+        engine_factory=port_engines(clock, partitions, capacity=capacity),
     )
 
 
