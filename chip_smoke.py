@@ -53,7 +53,13 @@ seconds, then the same with the host oracle, whose log must hold the same
 records; 8b, three brokers with two partitions on the card, each
 follower holding the device snapshot, a leader closed and its successor
 restored from the snapshot serving on; 8c, ``python -m zeebe_tpu_torch``
-with ``ZEEBE_ENGINE_TYPE=cuda`` started, served and stopped with SIGTERM.
+with ``ZEEBE_ENGINE_TYPE=cuda`` started, served and stopped with SIGTERM;
+8d, a stranded job on one node (a worker with one credit holds the first
+job, the second is created with no credit free, the first one's deadline
+passes, the credit comes back): the tick's ``PROBE_JOB_BACKLOG`` scan
+activates one of them, once. The served runs that go quiet (6a, 8a, 8b,
+8d, 9b, 10a) end with no job record in flight in any engine
+(``CudaPartitionEngine.job_records_in_flight``).
 Phase 9 runs the mesh (9a one partition's state over spans of places, 9b
 ``bench.py:787``'s mesh serving). Phase 10 runs the production planes:
 10a the shared-wave scheduler (``tools/scheduler_smoke.py``'s mix and
@@ -2792,6 +2798,10 @@ def serve_checked(label, model_fn, instances, per_instance, workdir,
     zero = [k for k in SERVING_KERNELS[label] if launches[k] <= 0]
     if zero:
         raise AssertionError(f"{label}: kernels never launched serving: {zero}")
+    in_flight = engine.job_records_in_flight()
+    if in_flight:
+        raise AssertionError(f"{label}: job records in flight at rest: "
+                             f"{sorted(in_flight.items())[:5]}")
     return {
         "instances": instances, "credits": SERVE_CREDITS, "capacity": SERVE_CAPACITY,
         "records": len(records), "signature_records": len(sig),
@@ -2800,6 +2810,7 @@ def serve_checked(label, model_fn, instances, per_instance, workdir,
         "wall_seconds": wall, "records_per_sec": len(records) / wall,
         "launches": launches, "commit_launches": commits,
         "peak_bytes": torch.cuda.max_memory_allocated(), "signature": sig,
+        "in_flight_at_rest": len(in_flight),
     }
 
 
@@ -2872,6 +2883,8 @@ CLUSTER_PHASE_LIMIT_S = 300
 FAILOVER_INSTANCES = 256
 # 8c: instances served through python -m zeebe_tpu_torch
 ENTRY_INSTANCES = 64
+# 8d: the sloth worker's job timeout (on the broker's controlled clock)
+STRANDED_TIMEOUT_MS = 400
 # the wrappers a served config-1 wave launches (no rebuild is needed at
 # these key counts, so the insert is the engines' install and warm())
 CLUSTER_KERNELS = ("fused_gather_rows", "fused_table_commit", "lookup")
@@ -2994,6 +3007,42 @@ def _activations(log_):
     return [k for k, n in activates.items() if n > 1], sum(activates.values()), rejected
 
 
+def _quiet_in_flight(broker, pids, label, timeout=120):
+    """Wait until partitions ``pids`` of ``broker`` are quiet (every record
+    of their logs committed and processed, the logs unchanged over half a
+    second), then read each CudaPartitionEngine's job records in flight on
+    the broker's actor: a quiet partition has none. Returns their count."""
+
+    def quiet():
+        for pid in pids:
+            server = broker.partitions[pid]
+            log_ = server.log
+            if (log_.commit_position != log_.next_position - 1
+                    or server.next_read_position <= log_.commit_position):
+                return False
+        return True
+
+    def settled():
+        if not quiet():
+            return False
+        before = [broker.partitions[pid].log.next_position for pid in pids]
+        time.sleep(0.5)
+        return quiet() and before == [broker.partitions[pid].log.next_position
+                                      for pid in pids]
+
+    _wait(settled, timeout, f"{label}: the partitions at rest", interval=0.1)
+    left = {}
+    for pid in pids:
+        read = getattr(broker.partitions[pid].engine, "job_records_in_flight", None)
+        if read is not None:
+            counts = broker.actor_control.call(read).join(30)
+            if counts:
+                left[pid] = sorted(counts.items())[:5]
+    if left:
+        raise AssertionError(f"{label}: job records in flight in quiet partitions: {left}")
+    return sum(len(v) for v in left.values())
+
+
 def cluster_serve(engine_type, workdir):
     """8a: one ClusterBroker node with the BrokerCfg() defaults (waveSize
     512) and ports the OS picks, its engine from
@@ -3081,6 +3130,7 @@ def cluster_serve(engine_type, workdir):
         records = broker.partitions[0].log.next_position - records_t0
         now = {n: counter(n).value - at_t0[n] for n in names}
         worker.close()
+        in_flight = _quiet_in_flight(broker, [0], f"8a {engine_type}")
         # every instance's end is committed, exactly once
         log_ = broker.partitions[0].log
         _wait(lambda: set(starts) <= set(_completions(log_)[0]), 60,
@@ -3106,6 +3156,7 @@ def cluster_serve(engine_type, workdir):
             "host_seconds": now["serving_host_seconds_total"],
             "device_seconds": now["serving_device_seconds_total"],
             "kinds": kinds, "engine_class": type(engine).__name__,
+            "in_flight_at_rest": in_flight,
         }
         if engine_type == "cuda":
             from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
@@ -3267,6 +3318,7 @@ def cluster_failover(workdir):
         _wait(lambda: leader_of(1) is not None, 120, "partition 1's leader")
         settle(1, created[1], (), "partition 1's instances after the failover")
         worker.close()
+        in_flight = sum(_quiet_in_flight(leader_of(pid), [pid], "8b") for pid in (0, 1))
         activations = {}
         for pid in (0, 1):
             twice, activations[pid], rejected = _activations(leader_of(pid).partitions[pid].log)
@@ -3293,7 +3345,7 @@ def cluster_failover(workdir):
                                  for pid in (0, 1)},
                 "gc_pauses": gc_pauses(),
                 "restored_engines": len(restored), "common_positions": common_positions,
-                "job_activations_checked": activations}
+                "job_activations_checked": activations, "in_flight_at_rest": in_flight}
     finally:
         CudaPartitionEngine.restore_state = restore
         gc_pauses()
@@ -3301,6 +3353,121 @@ def cluster_failover(workdir):
             client.close()
         for b in brokers.values():
             b.close()
+
+
+def stranded_job(workdir):
+    """8d: one ClusterBroker with ``[engine] type = "cuda"`` and a
+    controlled clock for its engine (raft keeps its own), a worker with one
+    credit that keeps every job it is pushed: the first job is pushed, the
+    second is created with no credit free and waits in the backlog, the
+    clock passes the first job's deadline (TIME_OUT from the tick), and the
+    worker returns its credit. The tick's due probe raises
+    PROBE_JOB_BACKLOG, ``device_backlog_activations`` writes one ACTIVATE
+    (the lowest key: the timed-out first job), the job is pushed again, no
+    job command is rejected, and the quiet partition counts no job record
+    in flight."""
+    import collections
+    import tempfile
+
+    from zeebe_tpu_torch.gateway.cluster_client import ClusterClient, RemoteJobWorker
+    from zeebe_tpu_torch.protocol.enums import RecordType, ValueType
+    from zeebe_tpu_torch.protocol.intents import JobIntent
+    from zeebe_tpu_torch.runtime import ControlledClock
+    from zeebe_tpu_torch.runtime.cluster_broker import ClusterBroker
+    from zeebe_tpu_torch.runtime.engines import engine_factory_from_config
+    from zeebe_tpu_torch.tpu.engine import PROBE_JOB_BACKLOG, CudaPartitionEngine
+
+    class Sloth(RemoteJobWorker):
+        def _on_record(self, partition, record, epoch=-1):
+            self.handled.append(record)
+
+    _freeze_heap()
+    clock = ControlledClock(start_ms=1_000_000)
+    cfg = _cluster_cfg("stranded-0", "cuda")
+    broker = ClusterBroker(cfg, tempfile.mkdtemp(prefix="stranded-", dir=workdir),
+                           engine_factory=engine_factory_from_config(cfg), clock=clock)
+    client = None
+    try:
+        broker.open_partition(0).join(600)
+        broker.bootstrap_partition(0, {})
+        _wait(lambda: broker.partitions[0].is_leader, 600, "8d: leadership")
+        server = broker.partitions[0]
+        engine = server.engine
+        if not isinstance(engine, CudaPartitionEngine) or engine.device.type != "cuda":
+            raise AssertionError(f"8d: the partition is served by {engine}")
+        scans, probes = [], []
+        scan, probe = engine.device_backlog_activations, engine.deadlines_due_probe
+
+        def recording_scan():
+            out = scan()
+            scans.append(out)
+            return out
+
+        def recording_probe():
+            handle = probe()
+            probes.append(handle)
+            return handle
+
+        engine.device_backlog_activations = recording_scan
+        engine.deadlines_due_probe = recording_probe
+        client = ClusterClient([broker.client_address], num_partitions=1,
+                               request_timeout_ms=120_000)
+        client.deploy_model(serve_bench_model())
+        worker = Sloth(client, "payment-service", handler=None, worker_name="sloth",
+                       credits=1, timeout_ms=STRANDED_TIMEOUT_MS, partitions=[0])
+
+        def job_records(intent, record_type=RecordType.EVENT):
+            return [r for r in server.log.reader(0).read_committed()
+                    if r.metadata.value_type == ValueType.JOB
+                    and r.metadata.record_type == record_type
+                    and int(r.metadata.intent) == int(intent)]
+
+        def processed(records):
+            return bool(records) and engine.last_processed_position >= records[-1].position
+
+        client.create_instance("serve-bench", payload={"i": 1})
+        _wait(lambda: len(worker.handled) == 1, 120, "8d: the first job's push")
+        client.create_instance("serve-bench", payload={"i": 2})
+        _wait(lambda: len(job_records(JobIntent.CREATED)) == 2
+              and processed(job_records(JobIntent.CREATED)), 120,
+              "8d: the second job in the backlog")
+        clock.advance(STRANDED_TIMEOUT_MS + 100)
+        _wait(lambda: processed(job_records(JobIntent.TIMED_OUT)), 120,
+              "8d: the first job timed out")
+        if any(scans):
+            raise AssertionError("8d: a backlog activation before the credit came back")
+        t0 = time.perf_counter()
+        worker._return_credit(0)
+        _wait(lambda: len(worker.handled) == 2, 120, "8d: the stranded job's push")
+        push_s = time.perf_counter() - t0
+        worker.close()
+        in_flight = _quiet_in_flight(broker, [0], "8d")
+        backlog = [r for out in scans for r in out]
+        first = worker.handled[0].key
+        activates = collections.Counter(
+            r.key for r in job_records(JobIntent.ACTIVATE, RecordType.COMMAND))
+        rejected = len([r for r in server.log.reader(0).read_committed()
+                        if r.metadata.value_type == ValueType.JOB
+                        and r.metadata.record_type == RecordType.COMMAND_REJECTION])
+        if ([int(r.metadata.intent) for r in backlog] != [int(JobIntent.ACTIVATE)]
+                or backlog[0].key != first or worker.handled[1].key != first
+                or dict(activates) != {first: 2} or rejected):
+            raise AssertionError(
+                f"8d: backlog activations {[(int(r.metadata.intent), r.key) for r in backlog]}, "
+                f"pushes {[r.key for r in worker.handled]}, ACTIVATE commands "
+                f"{dict(activates)}, {rejected} job commands rejected")
+        if server.engine is not engine:
+            raise AssertionError("8d: the partition's engine was reinstalled")
+        backlog_bits = sum(1 for h in probes if h.is_ready() and int(h) & PROBE_JOB_BACKLOG)
+        return {"timeout_ms": STRANDED_TIMEOUT_MS, "push_seconds": push_s,
+                "scans": len(scans), "backlog_activations": len(backlog),
+                "probes": len(probes), "probes_with_backlog_bit": backlog_bits,
+                "activations": {str(k): n for k, n in activates.items()},
+                "in_flight_at_rest": in_flight}
+    finally:
+        if client is not None:
+            client.close()
+        broker.close()
 
 
 def entry_point(workdir):
@@ -3879,6 +4046,7 @@ def mesh_serving(engine_type, workdir, partitions=MESH_PARTITIONS, clients=MESH_
               MESH_PHASE_LIMIT_S, "every message subscription closed", interval=0.25)
         _wait(_settled(logs), MESH_PHASE_LIMIT_S, "the logs at rest", interval=0.25)
         worker.close()
+        in_flight = _quiet_in_flight(broker, range(partitions), f"9b {engine_type}")
         done = _roots_completed(logs)
         twice = [k for k in created if done[k] != 1]
         if twice or len(done) != len(created):
@@ -3895,7 +4063,7 @@ def mesh_serving(engine_type, workdir, partitions=MESH_PARTITIONS, clients=MESH_
                                      if broker.partitions[0].engine.partition_for_correlation_key(
                                          f"m-{i}") != (i + 1) % partitions),
             "exchange_fallbacks": event_count("mesh_exchange_fallbacks") - fallbacks0,
-            "kinds": _kinds(logs),
+            "kinds": _kinds(logs), "in_flight_at_rest": in_flight,
         }
     finally:
         if client is not None:
@@ -4014,7 +4182,8 @@ def mesh_phase(here, report, by_path, profile=False):
             f"frames over MeshExchange, {serving['exchange_fallbacks']:.0f} fell back; "
             f"spans {serving['spans']} → moved {serving['moves']}; the host oracle "
             f"({oracle['served_seconds']:.3f} s) wrote the same counts of every (record "
-            f"type, value type, intent); launches {by_path['mesh_serving']} "
+            f"type, value type, intent); job records in flight at rest "
+            f"{serving['in_flight_at_rest']}; launches {by_path['mesh_serving']} "
             f"({time.perf_counter() - t0:.1f} s)")
         if profile:
             report["profile_mesh"] = profile_mesh(workdir)
@@ -4131,6 +4300,11 @@ def scheduled_drain(device, workdir, bursts, partitions, use_scheduler):
         waves = counters()
         logs = [broker.records(pid) for pid in range(partitions)]
         engines = [p.engine for p in broker.partitions]
+        left = {pid: sorted(e.job_records_in_flight().items())[:5]
+                for pid, e in enumerate(engines)
+                if getattr(e, "job_records_in_flight", dict)()}
+        if left:
+            raise AssertionError(f"10a: job records in flight at rest: {left}")
         return {
             "logs": logs, "frames": [[codec.encode_record(r) for r in log] for log in logs],
             "fill": waves["serving_wave_records_total"] / max(waves["serving_waves_total"], 1),
@@ -4363,6 +4537,7 @@ def multi_tenant(engine_type, workdir, scheduler=True, overload=False, device=No
         log(f"    10a {engine_type}: every end committed "
             f"{time.perf_counter() - t0 - elapsed:.1f} s after the last push")
         worker.close()
+        in_flight = _quiet_in_flight(broker, range(partitions), f"10a {engine_type}")
         latencies = sorted(done_at[k] - t for k, t in starts.items())
         d = {k: c1[k] - c0[k] for k in c1}
         out = {
@@ -4381,6 +4556,7 @@ def multi_tenant(engine_type, workdir, scheduler=True, overload=False, device=No
             "shed": d["shed_conn"] + d["shed_queue"], "shed_connection": d["shed_conn"],
             "shed_queue_depth": d["shed_queue"], "kinds": kinds,
             "per_partition": [sum(1 for p, _ in starts if p == q) for q in range(partitions)],
+            "in_flight_at_rest": in_flight,
         }
         if engine_type == "cuda":
             from zeebe_tpu_torch.tpu.engine import CudaPartitionEngine
@@ -4877,7 +5053,7 @@ def planes_phase(here, report, by_path):
                 f"{run['baseline_seconds']:.3f} s): ratio {run['ratio']:.3f}"
                 + (f"; signatures equal to the port's host oracle's "
                    f"({run['oracle_seconds']:.3f} s)" if "oracle_seconds" in run else "")
-                + f"; launches {run['launches']}")
+                + f"; no job record in flight at rest; launches {run['launches']}")
         log(f"[10a] in process: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         tenants = tenants_leg(workdir)
@@ -4905,7 +5081,8 @@ def planes_phase(here, report, by_path):
                 + (f" (device records {run['device_records']}, host records "
                    f"{run['host_records']})" if "device_records" in run else "")
                 + f"; shed {run['shed']:.0f} (connection {run['shed_connection']:.0f}, "
-                f"queue depth {run['shed_queue_depth']:.0f})")
+                f"queue depth {run['shed_queue_depth']:.0f}); job records in flight at "
+                f"rest {run['in_flight_at_rest']}")
         log(f"[10a] multi-tenant: every card run wrote the host run's records partition by "
             f"partition ({time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
@@ -5230,7 +5407,8 @@ def main(argv) -> int:
                 f"launches {run['launches']}; table-commit device launches "
                 f"{run['commit_launches']['device']} for "
                 f"{run['commit_launches']['calls']} commits; device launches "
-                f"{run['commit_launches']['all']}")
+                f"{run['commit_launches']['all']}; job records in flight at rest "
+                f"{run['in_flight_at_rest']}")
         par = serve_parity(workdir)
         report["serving_parity"] = par
         log(f"[6b] config 1, {par['instances']} instances, {SERVE_CREDITS} credits "
@@ -5309,6 +5487,7 @@ def main(argv) -> int:
             f"instances/s; latency p50 {run['p50_latency_ms']:.1f} ms, p99 "
             f"{run['p99_latency_ms']:.1f} ms; {run['waves']:.0f} waves; host "
             f"{run['host_seconds']:.3f} s, device {run['device_seconds']:.3f} s; "
+            f"job records in flight at rest {run['in_flight_at_rest']}; "
             f"launches {by_path['cluster_serving']}")
         log(f"[8a] the same on the host oracle: {oracle['records']} records in "
             f"{oracle['elapsed_seconds']:.3f} s = {oracle['records_per_sec']:.1f} "
@@ -5333,8 +5512,8 @@ def main(argv) -> int:
             f"s; every instance completed once, replicas equal over positions (first, common) "
             f"{fo['common_positions']}, leaders' raft terms {fo['leader_terms']}, "
             f"collector pauses over 100 ms {fo['gc_pauses'][0]} (longest "
-            f"{fo['gc_pauses'][1]:.3f} s) "
-            f"({fo['seconds']:.1f} s); launches "
+            f"{fo['gc_pauses'][1]:.3f} s), job records in flight at rest "
+            f"{fo['in_flight_at_rest']} ({fo['seconds']:.1f} s); launches "
             f"{by_path['cluster_failover']}")
         ep = entry_point(workdir)
         report["entry_point"] = ep
@@ -5343,6 +5522,23 @@ def main(argv) -> int:
             f"{ep['serve_seconds']:.3f} s after {ep['ready_seconds']:.3f} s to ready; "
             f"/metrics: {ep['waves']:.0f} waves, device {ep['device_seconds']:.3f} s; "
             f"{ep['gateway']}; exit {ep['exit_code']} on SIGTERM")
+        reset_launches()
+        t0 = time.perf_counter()
+        st = stranded_job(workdir)
+        by_path["cluster_stranded"] = launch_counts()
+        zero = [k for k in CLUSTER_KERNELS if by_path["cluster_stranded"][k] <= 0]
+        if zero:
+            raise AssertionError(f"8d: kernels never launched: {zero}")
+        st["seconds"] = time.perf_counter() - t0
+        report["cluster_stranded"] = st
+        log(f"[8d] a worker with one credit, a second job stranded, the first job's "
+            f"{st['timeout_ms']} ms deadline passed, the credit returned: "
+            f"{st['backlog_activations']} backlog activation through PROBE_JOB_BACKLOG "
+            f"({st['probes_with_backlog_bit']} of {st['probes']} probes with the bit, "
+            f"{st['scans']} scans), pushed {st['push_seconds']:.3f} s after the credit; "
+            f"ACTIVATE commands {st['activations']}, none rejected; job records in "
+            f"flight at rest {st['in_flight_at_rest']} ({st['seconds']:.1f} s); launches "
+            f"{by_path['cluster_stranded']}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -5389,7 +5585,7 @@ def main(argv) -> int:
             f"{scan['scan_peak_extra_bytes'] / 2**20:.1f} MiB); the dense [B, T] form "
             f"{scan['dense_ms']:.4f} ms (peak +{scan['dense_peak_extra_bytes'] / 2**20:.1f} MiB)")
     # launches: the sum over the main-path runs (phases 4 to 5d, 6: the boot
-    # self-check and the six served runs, 7: the probe, 8a and 8b: the
+    # self-check and the six served runs, 7: the probe, 8a, 8b and 8d: the
     # cluster runs in this process (8c's node is another process), 9a's six
     # runs and 9b's cuda run, 10a's in-process pairs and three card runs, 10b's
     # card run and 10c's two runs), each

@@ -31,6 +31,7 @@ import zeebe_tpu.runtime.config as jax_config
 
 import zeebe_tpu_torch.gateway.cluster_client as port_client
 import zeebe_tpu_torch.models.bpmn.builder as port_builder
+import zeebe_tpu_torch.runtime as port_runtime
 import zeebe_tpu_torch.runtime.cluster_broker as port_cluster
 import zeebe_tpu_torch.runtime.config as port_config
 from zeebe_tpu_torch.log import stateser
@@ -71,10 +72,10 @@ def _cfg(ns, node_id, partitions=1):
     return cfg
 
 
-def _single_node(ns, tmp_path):
+def _single_node(ns, tmp_path, clock=None):
     cfg = _cfg(ns, "n0")
     broker = ns.cluster.ClusterBroker(
-        cfg, str(tmp_path / "n0"), engine_factory=ns.factory(cfg)
+        cfg, str(tmp_path / "n0"), clock=clock, engine_factory=ns.factory(cfg)
     )
     broker.open_partition(0).join(30)
     broker.bootstrap_partition(0, {})
@@ -226,8 +227,12 @@ def test_three_node_failover_restores_the_device_snapshot(tmp_path, monkeypatch)
             leader = cluster.leader_of(pid)
             return _process_completions(leader.partitions[pid].log) if leader else {}
 
+        # each poll decodes the leader's log: a few a second, or the polls
+        # hold the interpreter the three brokers' raft heartbeats need, and
+        # a leader re-elected under it pushes a job twice or loses a
+        # completion (the 200 ms election timeout of tests/test_cluster.py)
         for pid in (0, 1):
-            assert wait_until(lambda: len(completed(pid)) == per_partition, 60), pid
+            assert wait_until(lambda: len(completed(pid)) == per_partition, 60, 0.25), pid
         for pid in (0, 1):
             leader = cluster.leader_of(pid)
             assert isinstance(leader.partitions[pid].engine, CudaPartitionEngine)
@@ -255,7 +260,7 @@ def test_three_node_failover_restores_the_device_snapshot(tmp_path, monkeypatch)
         assert any(e is engine for e in restored)
 
         _create(client, 0, per_partition, per_partition)
-        assert wait_until(lambda: len(completed(0)) == 2 * per_partition, 90)
+        assert wait_until(lambda: len(completed(0)) == 2 * per_partition, 90, 0.25)
         assert wait_until(lambda: cluster.leader_of(1) is not None, 60)
         assert len(completed(1)) == per_partition
         worker.close()
@@ -308,7 +313,12 @@ def test_the_tick_polls_the_due_probe_and_writes_its_commands(tmp_path, monkeypa
 
         monkeypatch.setattr(CudaPartitionEngine, name, recording)
 
-    broker = _single_node(PORT, tmp_path)
+    # the engines' clock moves only when the test says: the first job's
+    # 400 ms deadline passes once the second job is stranded, not while
+    # its creation is still in flight (on the wall clock, under load, the
+    # second job's CREATED could come after the returned credit and take it)
+    clock = port_runtime.ControlledClock(start_ms=1_000_000)
+    broker = _single_node(PORT, tmp_path, clock=clock)
     client = port_client.ClusterClient([broker.client_address], num_partitions=1)
     try:
         client.deploy_model(order_process(PORT))
@@ -319,11 +329,23 @@ def test_the_tick_polls_the_due_probe_and_writes_its_commands(tmp_path, monkeypa
         assert wait_until(lambda: len(worker.handled) == 1, 30)
         # no credit left: the second job is created and stranded
         client.create_instance("order-process", {"orderId": 2})
+        engine, log = broker.partitions[0].engine, broker.partitions[0].log
+
+        def second_job_stranded():
+            created = [
+                r.position for r in _committed(log)
+                if int(r.metadata.value_type) == int(ValueType.JOB)
+                and int(r.metadata.record_type) == int(RecordType.EVENT)
+                and int(r.metadata.intent) == int(JobIntent.CREATED)
+            ]
+            return len(created) == 2 and engine.last_processed_position >= created[1]
+
+        assert wait_until(second_job_stranded, 30)
+        clock.advance(500)
         # the first job's deadline falls due: TIME_OUT from the tick
         assert wait_until(lambda: any(
             int(r.metadata.intent) == int(JobIntent.TIME_OUT)
             for r in calls["device_deadline_commands"]), 30)
-        engine, log = broker.partitions[0].engine, broker.partitions[0].log
 
         def timed_out_event_processed():
             # the engine has stepped the TIMED_OUT event with no credit free:

@@ -140,6 +140,39 @@ REPLACED = {
         "            self.broker.actor_control.run(\n"
         "                lambda: self.is_leader and self._uninstall_leader()\n"
         "            )\n",
+    ), (
+        # the tick armed anew when it ends, not at a fixed rate: ticks slower
+        # than their period (a device engine's probe on a loaded host) piled
+        # up in the broker actor's mailbox ahead of the drain
+        "        self.actor.run_at_fixed_rate(100, self._tick_engines)\n",
+        "        self._tick_due = self.scheduler.now_ms() + 100\n"
+        "        self.actor.run_delayed(100, self._tick_and_rearm)\n",
+    ), (
+        "    def _tick_engines(self) -> None:\n",
+        "    def _tick_and_rearm(self) -> None:\n"
+        '        """The engines\' tick every 100 ms, armed anew when it ends: a fixed\n'
+        "        rate enqueues a tick every period whatever a tick takes, so ticks\n"
+        "        slower than that (a device engine's probe on a loaded host) pile up\n"
+        "        in this actor's mailbox ahead of the drain and the client requests,\n"
+        "        and processing falls seconds behind the commits. One tick at most is\n"
+        "        ever queued. The next is due a period after this one was, or at once\n"
+        "        when that has passed, so the rate stays the period's while ticks\n"
+        "        keep up (a credit drought's device backlog is served on the tick\n"
+        "        after the one that launched the due probe); a tick that itself\n"
+        '        outlasted the period leaves the actor a period for the rest."""\n'
+        "        start = self.scheduler.now_ms()\n"
+        "        try:\n"
+        "            self._tick_engines()\n"
+        "        finally:\n"
+        "            if not self._closing:\n"
+        "                now = self.scheduler.now_ms()\n"
+        "                if now - start >= 100:\n"
+        "                    self._tick_due = now + 100\n"
+        "                else:\n"
+        "                    self._tick_due = max(self._tick_due + 100, now)\n"
+        "                self.actor.run_delayed(self._tick_due - now, self._tick_and_rearm)\n"
+        "\n"
+        "    def _tick_engines(self) -> None:\n",
     )],
     # instance and job keys carry the partition in their high bits, as the
     # reference's do: a message partition told subscriptions of two
@@ -215,6 +248,90 @@ REPLACED = {
         "                    self._subscribed_addr[partition] = addr\n"
         "                    self._subscribed_term[partition] = term\n"
         "                    return\n",
+    ), (
+        # a job pushed twice for one activation (the leader that stepped
+        # down pushed it before its ACTIVATED event committed, the next one
+        # pushes it again) is handled once, unless its completion was lost
+        "    def __init__(self, client, job_type, handler, worker_name, credits, timeout_ms, partitions):\n"
+        "        self.handler = handler\n"
+        "        self.handled: List[Record] = []\n",
+        "    def __init__(self, client, job_type, handler, worker_name, credits, timeout_ms, partitions):\n"
+        "        self.handler = handler\n"
+        "        self.handled: List[Record] = []\n"
+        "        # activations taken, (partition, job key, deadline) → whether the\n"
+        "        # completion reached a leader (None while it is on its way, or the\n"
+        "        # activation's second push, kept until it is known)\n"
+        "        self._taken: Dict[tuple, Any] = {}\n"
+        "        self._taken_lock = threading.Lock()\n",
+    ), (
+        "    def _on_record(self, partition: int, record: Record, epoch: int = -1) -> None:\n"
+        "        self.handled.append(record)\n"
+        "        try:\n"
+        "            result = self.handler(partition, record)\n",
+        "    def _on_record(self, partition: int, record: Record, epoch: int = -1) -> None:\n"
+        "        # one activation can be pushed twice: a leader that steps down\n"
+        "        # pushes the job before its ACTIVATED event commits, and the next\n"
+        "        # leader, processing the same ACTIVATE command, pushes it again\n"
+        "        # with the same deadline. It is handled once: a second push that\n"
+        "        # comes while the first completion is on its way is kept, and\n"
+        "        # handled only if that completion never reaches a leader\n"
+        "        taken = (partition, record.key, record.value.deadline)\n"
+        "        with self._taken_lock:\n"
+        "            state = self._taken.get(taken, False)\n"
+        "            if state is not False:\n"
+        "                if state is None:\n"
+        "                    self._taken[taken] = record\n"
+        "                return\n"
+        "            self._taken[taken] = None\n"
+        "            while len(self._taken) > 4096:\n"
+        "                self._taken.pop(next(iter(self._taken)))\n"
+        "        self.handled.append(record)\n"
+        "        try:\n"
+        "            result = self.handler(partition, record)\n",
+    ), (
+        "    def _finish(self, partition: int, record: Record, result, failed: bool) -> None:\n"
+        "        try:\n"
+        "            if failed:\n"
+        "                try:\n"
+        "                    self.client.fail_job(\n"
+        "                        partition, record.key, record.value.retries - 1\n"
+        "                    )\n"
+        "                except (ClientException, TransportError, TimeoutError):\n"
+        "                    pass  # job already final or broker unreachable\n"
+        "                return\n",
+        "    def _finish(self, partition: int, record: Record, result, failed: bool) -> None:\n"
+        "        reached = True\n"
+        "        try:\n"
+        "            if failed:\n"
+        "                try:\n"
+        "                    self.client.fail_job(\n"
+        "                        partition, record.key, record.value.retries - 1\n"
+        "                    )\n"
+        "                except ClientException:\n"
+        "                    pass  # job already final\n"
+        "                except (TransportError, TimeoutError):\n"
+        "                    reached = False  # broker unreachable\n"
+        "                return\n",
+    ), (
+        "            except (TransportError, TimeoutError):\n"
+        "                # broker unreachable: the job times out server-side and\n"
+        "                # re-activates; this worker keeps its credit flowing\n"
+        "                pass\n"
+        "        finally:\n"
+        "            self._return_credit(partition)\n",
+        "            except (TransportError, TimeoutError):\n"
+        "                # broker unreachable: the job times out server-side and\n"
+        "                # re-activates; this worker keeps its credit flowing\n"
+        "                reached = False\n"
+        "        finally:\n"
+        "            taken = (partition, record.key, record.value.deadline)\n"
+        "            with self._taken_lock:\n"
+        "                again = self._taken.get(taken)\n"
+        "                if taken in self._taken:\n"
+        "                    self._taken[taken] = reached\n"
+        "            self._return_credit(partition)\n"
+        "            if not reached and isinstance(again, Record):\n"
+        "                self._on_record(partition, again)\n",
     )],
     # native/Makefile writes the JAX package's library; a TARGET on make's
     # command line overrides it, so the port's copy builds beside itself

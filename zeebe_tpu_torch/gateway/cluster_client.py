@@ -696,6 +696,11 @@ class RemoteJobWorker(_JobSubscriptionBase):
     def __init__(self, client, job_type, handler, worker_name, credits, timeout_ms, partitions):
         self.handler = handler
         self.handled: List[Record] = []
+        # activations taken, (partition, job key, deadline) → whether the
+        # completion reached a leader (None while it is on its way, or the
+        # activation's second push, kept until it is known)
+        self._taken: Dict[tuple, Any] = {}
+        self._taken_lock = threading.Lock()
         import concurrent.futures
 
         self._completions = concurrent.futures.ThreadPoolExecutor(
@@ -707,6 +712,22 @@ class RemoteJobWorker(_JobSubscriptionBase):
         )
 
     def _on_record(self, partition: int, record: Record, epoch: int = -1) -> None:
+        # one activation can be pushed twice: a leader that steps down
+        # pushes the job before its ACTIVATED event commits, and the next
+        # leader, processing the same ACTIVATE command, pushes it again
+        # with the same deadline. It is handled once: a second push that
+        # comes while the first completion is on its way is kept, and
+        # handled only if that completion never reaches a leader
+        taken = (partition, record.key, record.value.deadline)
+        with self._taken_lock:
+            state = self._taken.get(taken, False)
+            if state is not False:
+                if state is None:
+                    self._taken[taken] = record
+                return
+            self._taken[taken] = None
+            while len(self._taken) > 4096:
+                self._taken.pop(next(iter(self._taken)))
         self.handled.append(record)
         try:
             result = self.handler(partition, record)
@@ -721,14 +742,17 @@ class RemoteJobWorker(_JobSubscriptionBase):
             self._finish(partition, record, result, failed)
 
     def _finish(self, partition: int, record: Record, result, failed: bool) -> None:
+        reached = True
         try:
             if failed:
                 try:
                     self.client.fail_job(
                         partition, record.key, record.value.retries - 1
                     )
-                except (ClientException, TransportError, TimeoutError):
-                    pass  # job already final or broker unreachable
+                except ClientException:
+                    pass  # job already final
+                except (TransportError, TimeoutError):
+                    reached = False  # broker unreachable
                 return
             try:
                 self.client.complete_job(
@@ -745,9 +769,16 @@ class RemoteJobWorker(_JobSubscriptionBase):
             except (TransportError, TimeoutError):
                 # broker unreachable: the job times out server-side and
                 # re-activates; this worker keeps its credit flowing
-                pass
+                reached = False
         finally:
+            taken = (partition, record.key, record.value.deadline)
+            with self._taken_lock:
+                again = self._taken.get(taken)
+                if taken in self._taken:
+                    self._taken[taken] = reached
             self._return_credit(partition)
+            if not reached and isinstance(again, Record):
+                self._on_record(partition, again)
 
     def close(self) -> None:
         super().close()

@@ -1258,7 +1258,8 @@ class ClusterBroker(Actor):
         self.actor.run_at_fixed_rate(
             self._snapshot_period_ms, self._snapshot_all_on_actor
         )
-        self.actor.run_at_fixed_rate(100, self._tick_engines)
+        self._tick_due = self.scheduler.now_ms() + 100
+        self.actor.run_delayed(100, self._tick_and_rearm)
         # disseminate this node's client endpoint so the topic orchestrator
         # can reach any member over the management plane (reference: local
         # node info broadcast via gossip custom events)
@@ -3064,6 +3065,29 @@ class ClusterBroker(Actor):
             if thread is not None and thread.is_alive():
                 threads.append(thread)
         return threads
+
+    def _tick_and_rearm(self) -> None:
+        """The engines' tick every 100 ms, armed anew when it ends: a fixed
+        rate enqueues a tick every period whatever a tick takes, so ticks
+        slower than that (a device engine's probe on a loaded host) pile up
+        in this actor's mailbox ahead of the drain and the client requests,
+        and processing falls seconds behind the commits. One tick at most is
+        ever queued. The next is due a period after this one was, or at once
+        when that has passed, so the rate stays the period's while ticks
+        keep up (a credit drought's device backlog is served on the tick
+        after the one that launched the due probe); a tick that itself
+        outlasted the period leaves the actor a period for the rest."""
+        start = self.scheduler.now_ms()
+        try:
+            self._tick_engines()
+        finally:
+            if not self._closing:
+                now = self.scheduler.now_ms()
+                if now - start >= 100:
+                    self._tick_due = now + 100
+                else:
+                    self._tick_due = max(self._tick_due + 100, now)
+                self.actor.run_delayed(self._tick_due - now, self._tick_and_rearm)
 
     def _tick_engines(self) -> None:
         """Timer/TTL sweeps on leader partitions (reference periodic actor

@@ -1009,7 +1009,7 @@ class CudaPartitionEngine:
         activation is in flight is not backlog yet (see
         ``_job_records_in_flight``)."""
         self.remove_job_subscription(sub.subscriber_key)
-        host_backlog = self._host.add_job_subscription(dataclasses.replace(sub))
+        host_backlog = self._host_subscription_backlog(sub)
         s = self.state
         valid = _np(s.sub_valid)
         free = int(np.argmin(valid)) if not valid.all() else -1
@@ -1061,9 +1061,52 @@ class CudaPartitionEngine:
         s.sub_credits[free] = credits
         s.sub_timeout[free] = sub.timeout
         s.sub_valid[free] = True
-        for r in backlog:
+        for r in host_backlog + backlog:
             self._note_job_records(r.key, 1)
         return host_backlog + backlog
+
+    def _host_subscription_backlog(self, sub: JobSubscription) -> List[Record]:
+        """The host oracle's ``add_job_subscription``, leaving out the jobs
+        of its table whose activation is in flight, as the device scan
+        does: a worker that subscribes again (after a term change, or on a
+        retried request) must not activate them a second time. The oracle
+        registers the subscription; its backlog is drawn here, in the
+        oracle's order and with its records."""
+        host_sub = dataclasses.replace(sub, credits=0)
+        self._host.add_job_subscription(host_sub)
+        host_sub.credits = sub.credits
+        activatable = (
+            int(JI.CREATED), int(JI.TIMED_OUT), int(JI.FAILED),
+            int(JI.RETRIES_UPDATED),
+        )
+        out: List[Record] = []
+        for key, job in sorted(self._host.jobs.items()):
+            if host_sub.credits <= 0:
+                break
+            if (
+                job.state not in activatable
+                or job.record.type != sub.job_type
+                or job.record.retries <= 0
+                or key in self._job_records_in_flight
+            ):
+                continue
+            activated = job.record.copy()
+            activated.deadline = self.clock() + sub.timeout
+            activated.worker = sub.worker
+            out.append(
+                Record(
+                    key=key,
+                    value=activated,
+                    metadata=RecordMetadata(
+                        record_type=RecordType.COMMAND,
+                        value_type=ValueType.JOB,
+                        intent=int(JI.ACTIVATE),
+                        request_stream_id=sub.subscriber_key,
+                    ),
+                )
+            )
+            host_sub.credits -= 1
+        return out
 
     def remove_job_subscription(self, subscriber_key: int) -> None:
         self._host.remove_job_subscription(subscriber_key)
@@ -1115,8 +1158,33 @@ class CudaPartitionEngine:
 
     def backlog_activations(self) -> List[Record]:
         """Host-oracle side only; the device job backlog is served by
-        ``device_backlog_activations`` behind the probe's backlog bit."""
-        return self._host.backlog_activations()
+        ``device_backlog_activations`` behind the probe's backlog bit.
+        Jobs of the oracle's awaiting index whose activation is in flight
+        (a subscription's backlog activated them) stay out of it until
+        their records are processed."""
+        host, in_flight = self._host, self._job_records_in_flight
+        if not in_flight:
+            out = host.backlog_activations()
+        else:
+            # the oracle scans its index without those jobs; they go back in
+            # their places (the index is FIFO, and snapshots keep its order)
+            waiting = host._awaiting_jobs
+            host._awaiting_jobs = {
+                job_type: {k: None for k in keys if k not in in_flight}
+                for job_type, keys in waiting.items()
+            }
+            try:
+                out = host.backlog_activations()
+            finally:
+                left = host._awaiting_jobs
+                host._awaiting_jobs = {
+                    job_type: kept for job_type, keys in waiting.items()
+                    if (kept := {k: None for k in keys
+                                 if k in in_flight or k in left.get(job_type, ())})
+                }
+        for r in out:
+            self._note_job_records(r.key, 1)
+        return out
 
     def device_backlog_activations(self) -> List[Record]:
         """ACTIVATE commands for device-table jobs that became activatable
@@ -1185,6 +1253,12 @@ class CudaPartitionEngine:
             for r in out:
                 self._note_job_records(r.key, 1)
         return out
+
+    def job_records_in_flight(self) -> Dict[int, int]:
+        """Job key -> records written that decide its activation and are
+        not processed yet (see ``_job_records_in_flight``). Empty once the
+        partition is quiet: every record written has been processed."""
+        return dict(self._job_records_in_flight)
 
     def _note_job_records(self, key: int, delta: int) -> None:
         """Count a written (+1) or processed (-1) record that decides the
@@ -1724,6 +1798,13 @@ class CudaPartitionEngine:
                     self._host.processing_failures.append(
                         (record.position, repr(e)[:300])
                     )
+                else:
+                    for out in per_record[i].written:
+                        md = out.metadata
+                        if int(md.value_type) == int(ValueType.JOB) and (
+                            int(md.record_type), int(md.intent)
+                        ) in _ACTIVATION_DECIDING:
+                            self._note_job_records(out.key, 1)
                 if len(self.repository.by_key) != deployed_before:
                     self._recompile()
                 if (
