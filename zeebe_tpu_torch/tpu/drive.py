@@ -31,6 +31,7 @@ from zeebe_tpu_torch.tpu.batch import RecordBatch
 from zeebe_tpu_torch.tpu.graph import DeviceGraph
 from zeebe_tpu_torch.tpu.kernel import step_kernel
 from zeebe_tpu_torch.tpu.state import EngineState
+from zeebe_tpu_torch.tracing import device as device_spans
 
 
 @dataclasses.dataclass
@@ -116,6 +117,13 @@ def drive_round(
     return state, queue, stats
 
 
+def _pending(queue: RecordQueue, overflow: torch.Tensor):
+    """The queue's count and the overflow flag in ONE transfer: a round's
+    host sync."""
+    return torch.stack([queue.count.to(torch.int64), overflow.to(torch.int64)]).tolist()
+
+
+@device_spans.traced("drive.run")
 def run_to_quiescence(
     graph: DeviceGraph,
     state: EngineState,
@@ -148,12 +156,10 @@ def run_to_quiescence(
     }
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     rounds = 0
-    while rounds < max_rounds:
-        count, flagged = torch.stack(
-            [queue.count.to(torch.int64), overflow.to(torch.int64)]
-        ).tolist()
-        if count <= 0 or flagged:
-            break
+    # a round is its launches and then the read that decides on the next
+    count, flagged = _pending(queue, overflow) if max_rounds > 0 else (0, 0)
+    while count > 0 and not flagged:
+        span = device_spans.begin("drive.round", "drive.launch")
         state, queue, stats = drive_round(
             graph, state, queue, now, batch_size, synthetic_workers, partition_id
         )
@@ -161,6 +167,12 @@ def run_to_quiescence(
             totals[k] += stats[k].to(torch.int64)
         overflow = overflow | stats["overflow"]
         rounds += 1
+        if rounds >= max_rounds:
+            device_spans.end(span)
+            break
+        device_spans.phase("drive.sync")
+        count, flagged = _pending(queue, overflow)
+        device_spans.end(span)
     if not sync:
         totals["rounds"] = torch.tensor(rounds, dtype=torch.int32, device=dev)
         totals["overflow"] = overflow

@@ -82,6 +82,7 @@ from zeebe_tpu_torch.tpu.state import (
     JBL_KEY, JBL_IKEY, JBL_AIK, JBL_DEADLINE,
     MS_PART, MSL_WIKEY, MSL_AIK, MG_MSGID,
 )
+from zeebe_tpu_torch.tracing import device as device_spans
 
 RT_EVENT = int(RecordType.EVENT)
 RT_CMD = int(RecordType.COMMAND)
@@ -387,6 +388,7 @@ def scope_to_global(ei_i32: torch.Tensor, prev_global_scope: torch.Tensor,
     return ei_i32
 
 
+@device_spans.traced("step", "step.lookups")
 def step_kernel(
     graph: DeviceGraph, state: EngineState, batch: RecordBatch, now,
     synthetic_workers: bool = False, partition_id=0,
@@ -590,6 +592,7 @@ def step_kernel(
     inst_scope_key = torch.where(inst_scope_slot >= 0, l2["is_key"], -1)
 
     # ---------------- B. routing + guards ----------------
+    device_spans.phase("step.routing")
     m_create = wi_cmd & (it == int(WI.CREATE)) & (batch.wf >= 0)
     m_created_ev = wi_ev & (it == int(WI.CREATED))
 
@@ -801,6 +804,7 @@ def step_kernel(
         sub_err = m_subscribe & ~corr_extractable
 
     # ---------------- C. per-step compute ----------------
+    device_spans.phase("step.compute")
     # exclusive split: the first conditioned flow whose program is TRUE,
     # else the default flow; an ERROR before the first TRUE is an incident
     default_f = emeta[:, graph_mod.EM_DEFAULT_FLOW]
@@ -955,6 +959,7 @@ def step_kernel(
         arr_slot = zeros_b(_I32)  # no joins: every record reads join slot 0
 
     # ---------------- D. key assignment ----------------
+    device_spans.phase("step.keys")
     out_count = emeta[:, graph_mod.EM_OUT_COUNT]
     single_key = (
         m_create | m_take | xs_ok | m_actgw | m_startst | m_trigend
@@ -1019,6 +1024,7 @@ def step_kernel(
     sub_credits = sub_credits + ret_add[:s_cap]
 
     # ---------------- E. emissions ----------------
+    device_spans.phase("step.emit")
     def blank() -> Dict[str, torch.Tensor]:
         return {
             "valid": zeros_b(),
@@ -1718,6 +1724,7 @@ def step_kernel(
             em["src"][:, f] = rows
 
     # -------- state writes: fused commits, in place --------
+    device_spans.phase("step.commit")
     ei_i64_pl = state.ei_i64.view(_I32)  # [N, 6] planes of the [N, 3] keys
     ei_k32 = state.ei_i32.shape[1]
     T_EI32, T_EI64, T_EIPAY, T_EIFREE, T_EIIDX = range(5)
@@ -2080,6 +2087,7 @@ def step_kernel(
     ops.fused_delete(map_tables, map_deletes)
 
     # ---------------- output compaction ----------------
+    device_spans.phase("step.compact")
     be = b * e_w
     flat_valid = em["valid"].reshape(-1)
     take_idx = _first_true_indices(flat_valid, be)
@@ -2115,10 +2123,13 @@ def step_kernel(
         ),
         "overflow": overflow,
     }
+    # what follows, the frame's teardown, is the step span's own time
+    device_spans.phase(None)
     return new_state, out, stats
 
 
 
+@device_spans.traced("tick")
 def tick_kernel(state: EngineState, now) -> Tuple[RecordBatch, torch.Tensor]:
     """Due-timer and job-deadline scan → a batch of TRIGGER / TIME_OUT
     commands and their count (reference JobTimeOutStreamProcessor and the

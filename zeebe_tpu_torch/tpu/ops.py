@@ -26,10 +26,12 @@ from a CUDA tensor to the plain version. A call's tensors lie on one card
 current stream, whichever card the caller has current. ``LAUNCHES`` counts the wrapper
 calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
 (a table commit is a pass or two per stage of ``commit_plan``; every
-other call one). The launch plans (``gather_plan``, ``commit_plan``,
-``lookup_plan``, which the delete shares, ``insert_plan``) are built
-here, in Python, so the CPU tests reach them; the accumulate's block plan
-is one line of its C entry.
+other call one), and, while the device-path recorder is installed
+(``tracing.device``), ``HOST_NS`` the host nanoseconds of those calls,
+from the wrapper's entry to the C entry's return. The launch plans
+(``gather_plan``, ``commit_plan``, ``lookup_plan``, which the delete
+shares, ``insert_plan``) are built here, in Python, so the CPU tests
+reach them; the accumulate's block plan is one line of its C entry.
 
 Aliasing: unlike their JAX counterparts, every table write here updates
 the caller's tensors IN PLACE on both devices and returns them.
@@ -49,6 +51,7 @@ import dataclasses
 import functools
 import struct
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +59,7 @@ import torch
 from zeebe_tpu_torch import _build
 from zeebe_tpu_torch.tpu import hashmap
 from zeebe_tpu_torch.tpu.hashmap import HashTable
+from zeebe_tpu_torch.tracing import device as device_spans
 
 # kernel launches per wrapper (one per wrapper call that reaches the GPU);
 # chip_smoke.py zeroes these before driving the main path and reads them
@@ -69,25 +73,37 @@ LAUNCHES: Dict[str, int] = {
 # device kernel launches the same calls enqueued: one a call, but for the
 # table commits (a pass or two per stage of the op list: commit_plan)
 DEVICE_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+# host nanoseconds of the same calls made while the device-path recorder is
+# installed (the calls it counts are LAUNCHES' over that time)
+HOST_NS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 # the counts are read-modify-writes, and a cluster node launches from
 # several threads (one drain actor per broker)
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, DEVICE_LAUNCHES):
+    for counts in (LAUNCHES, DEVICE_LAUNCHES, HOST_NS):
         for k in counts:
             counts[k] = 0
 
 
-def _count(name: str, launched: int) -> None:
+def _entered() -> int:
+    """The host clock at a wrapper's entry while the device-path recorder is
+    installed, else 0 (no clock read)."""
+    return time.perf_counter_ns() if device_spans.TRACER is not None else 0
+
+
+def _count(name: str, launched: int, entered: int = 0) -> None:
     """Count a call that reached the GPU and the ``launched`` kernels its C
-    entry enqueued; a negative ``launched`` is minus a CUDA error."""
+    entry enqueued, and with ``entered`` (``_entered()``) its host time; a
+    negative ``launched`` is minus a CUDA error."""
     if launched < 0:
         raise RuntimeError(f"{name}: CUDA error {-launched} at launch")
+    spent = time.perf_counter_ns() - entered if entered else 0
     with _count_lock:
         LAUNCHES[name] += 1
         DEVICE_LAUNCHES[name] += launched
+        HOST_NS[name] += spent
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -298,12 +314,12 @@ def _gather_fn():
                   (ctypes.POINTER(_GatherArgs), ctypes.c_void_p))
 
 
-def _gather_cuda(tables, ops, device: torch.device) -> List[torch.Tensor]:
+def _gather_cuda(tables, ops, device: torch.device, entered: int = 0) -> List[torch.Tensor]:
     with _device_guard(device):
         args, outs, _keep = _gather_args(tables, ops)
         launched = _gather_fn()(ctypes.byref(args), _stream(device))
     if launched:
-        _count("fused_gather_rows", launched)
+        _count("fused_gather_rows", launched, entered)
     return outs
 
 
@@ -314,13 +330,14 @@ def fused_gather_rows(
     for all ops on CUDA tensors. Tables may be of any dtype, 1D or 2D, and
     1D tables may be strided views (a column of a wider table); results are
     bit-exact copies of the rows."""
+    entered = _entered()
     ops = list(ops)
     if not ops:
         return []
     used = [tables[op.table] for op in ops] + [op.slots for op in ops]
     device = _cuda_device(used, "fused_gather_rows")
     if device is not None:
-        return _gather_cuda(tables, ops, device)
+        return _gather_cuda(tables, ops, device, entered)
     return fused_gather_rows_reference(tables, ops)
 
 
@@ -590,10 +607,10 @@ def _commit_descs(tables, ops):
     return descs, keep
 
 
-def _commit_cuda(tables, ops, device: torch.device) -> List[torch.Tensor]:
+def _commit_cuda(tables, ops, device: torch.device, entered: int = 0) -> List[torch.Tensor]:
     with _scratch_lock(device), _device_guard(device):
         descs, _keep = _commit_descs(tables, ops)
-        _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream(device)))
+        _count("fused_table_commit", _commit_fn()(descs, len(ops), _stream(device)), entered)
     return list(tables)
 
 
@@ -604,6 +621,7 @@ def fused_table_commit(
     int64 state enters as ``.view(torch.int32)`` planes) in list order, IN
     PLACE; returns the tables in input order. On CUDA tensors one C call
     enqueues the whole list: a pass or two per stage of ``commit_plan``."""
+    entered = _entered()
     ops = list(ops)
     if not ops:
         return list(tables)
@@ -611,7 +629,7 @@ def fused_table_commit(
             + [op.vals for op in ops] + [op.mask for op in ops if op.mask is not None])
     device = _cuda_device(used, "fused_table_commit")
     if device is not None:
-        return _commit_cuda(tables, ops, device)
+        return _commit_cuda(tables, ops, device, entered)
     return fused_table_commit_reference(tables, ops)
 
 
@@ -717,12 +735,12 @@ def _lookup_fn():
                   (ctypes.POINTER(_LookupArgs), ctypes.c_void_p))
 
 
-def _lookup_cuda(tables, probes, device: torch.device):
+def _lookup_cuda(tables, probes, device: torch.device, entered: int = 0):
     with _device_guard(device):
         args, outs, _keep = _lookup_args(tables, probes)
         launched = _lookup_fn()(ctypes.byref(args), _stream(device))
     if launched:
-        _count("lookup", launched)
+        _count("lookup", launched, entered)
     return outs
 
 
@@ -732,6 +750,7 @@ def fused_lookup(tables: Sequence[HashTable],
     — (found [B] bool, vals [B] int32, -1 where not found) per probe, one
     kernel launch for all of them on CUDA tensors (at most 8 probes: the
     independent probes of one step)."""
+    entered = _entered()
     probes = list(probes)
     if not probes:
         return []
@@ -739,7 +758,7 @@ def fused_lookup(tables: Sequence[HashTable],
             for t in (tables[p.table].keys, tables[p.table].vals, p.keys, p.valid)]
     device = _cuda_device(used, "lookup")
     if device is not None:
-        return _lookup_cuda(tables, probes, device)
+        return _lookup_cuda(tables, probes, device, entered)
     return fused_lookup_reference(tables, probes)
 
 
@@ -790,20 +809,21 @@ def _scatter_desc(name, table, kind, slots, active, vals, mask):
     return d, keep
 
 
-def _scatter_cuda(name, table, kind, slots, active, vals, mask, device) -> None:
+def _scatter_cuda(name, table, kind, slots, active, vals, mask, device, entered=0) -> None:
     with _scratch_lock(device), _device_guard(device):
         d, _keep = _scatter_desc(name, table, kind, slots, active, vals, mask)
-        _count(name, _commit_fn()(ctypes.byref(d), 1, _stream(device)))
+        _count(name, _commit_fn()(ctypes.byref(d), 1, _stream(device)), entered)
 
 
 def _scatter(name, table, kind, slots, active, vals, mask=None) -> torch.Tensor:
     """One masked ``set`` into one int32 table, in place: a one-op table
     commit, its launches counted under ``name``."""
+    entered = _entered()
     device = _cuda_device(
         [table, slots, active, vals] + ([] if mask is None else [mask]), name
     )
     if device is not None:
-        _scatter_cuda(name, table, kind, slots, active, vals, mask, device)
+        _scatter_cuda(name, table, kind, slots, active, vals, mask, device, entered)
         return table
     return masked_scatter_reference(table, kind, slots, active, vals, mask)
 
@@ -930,6 +950,7 @@ def fused_accumulate_reference(
 
 def _accumulate(name, tables, ops) -> List[torch.Tensor]:
     """``fused_accumulate``, its launches counted under ``name``."""
+    entered = _entered()
     if not ops:
         return list(tables)
     used = [tables[op.table] for op in ops] + [
@@ -942,7 +963,7 @@ def _accumulate(name, tables, ops) -> List[torch.Tensor]:
             call, _keep = _accum_call(name, tables, ops, _stream(device), False)
             launched = _accum_fn()(call)
         if launched:
-            _count(name, launched)
+            _count(name, launched, entered)
         return list(tables)
     _accum_call(name, tables, ops, 0, False)  # the card's checks
     return fused_accumulate_reference(tables, ops)
@@ -964,6 +985,7 @@ def _accumulate_one(name, table, kind, slots, active, vals, mask=None) -> torch.
     ``name``. On CUDA tensors the call is packed straight from the op's
     fields, without the ``TableOp`` and the op loop (0.7–1.4 µs less host
     work a call on the card: PERF.md §6, PR 8)."""
+    entered = _entered()
     device = _cuda_device(
         [table, slots, active, vals] + ([] if mask is None else [mask]), name
     )
@@ -973,7 +995,7 @@ def _accumulate_one(name, table, kind, slots, active, vals, mask=None) -> torch.
             launched = _accum_fn()(_ACCUM_CALLS[1].pack(_stream(device), 1, *_accum_fields(
                 name, table, kind, slots, active, vals, mask, keep)))
         if launched:
-            _count(name, launched)
+            _count(name, launched, entered)
         return table
     return _accumulate(name, [table], [TableOp(0, kind, slots, active, vals, mask)])[0]
 
@@ -1112,12 +1134,13 @@ def _insert_fn():
                   (ctypes.POINTER(_InsertArgs), ctypes.c_void_p))
 
 
-def _insert_cuda(table: HashTable, keys, vals, valid, device: torch.device) -> torch.Tensor:
+def _insert_cuda(table: HashTable, keys, vals, valid, device: torch.device,
+                 entered: int = 0) -> torch.Tensor:
     with _scratch_lock(device), _device_guard(device):
         args, ok, _keep = _insert_args(table, keys, vals, valid)
         launched = _insert_fn()(ctypes.byref(args), _stream(device))
         if launched:
-            _count("insert", launched)
+            _count("insert", launched, entered)
     return ok
 
 
@@ -1127,9 +1150,10 @@ def insert(table: HashTable, keys: torch.Tensor, vals: torch.Tensor,
     bool), the bucket layout of ``hashmap.insert`` (its round-synchronous
     lowest-rank claims). ``ok`` is False where a key found no free bucket
     within MAX_PROBES."""
+    entered = _entered()
     device = _cuda_device([table.keys, table.vals, keys, vals, valid], "insert")
     if device is not None:
-        return table, _insert_cuda(table, keys, vals, valid, device)
+        return table, _insert_cuda(table, keys, vals, valid, device, entered)
     new, ok = insert_reference(table, keys, vals, valid)
     table.keys.copy_(new.keys)
     table.vals.copy_(new.vals)
@@ -1218,12 +1242,12 @@ def _delete_fn():
                   (ctypes.POINTER(_DeleteArgs), ctypes.c_void_p))
 
 
-def _delete_cuda(tables, deletes, device: torch.device) -> None:
+def _delete_cuda(tables, deletes, device: torch.device, entered: int = 0) -> None:
     with _device_guard(device):
         args, _keep = _delete_args(tables, deletes)
         launched = _delete_fn()(ctypes.byref(args), _stream(device))
     if launched:
-        _count("delete", launched)
+        _count("delete", launched, entered)
 
 
 def fused_delete(tables: Sequence[HashTable], deletes: Sequence[DeleteOp]) -> None:
@@ -1232,6 +1256,7 @@ def fused_delete(tables: Sequence[HashTable], deletes: Sequence[DeleteOp]) -> No
     untouched. One kernel launch for all of them on CUDA tensors (at most 8
     deletes: a step's maps), counted under ``delete``. The ops on one table
     must hold distinct keys (``fused_delete_reference``)."""
+    entered = _entered()
     deletes = list(deletes)
     if not deletes:
         return
@@ -1239,7 +1264,7 @@ def fused_delete(tables: Sequence[HashTable], deletes: Sequence[DeleteOp]) -> No
             for t in (tables[op.table].keys, tables[op.table].vals, op.keys, op.valid)]
     device = _cuda_device(used, "delete")
     if device is not None:
-        _delete_cuda(tables, deletes, device)
+        _delete_cuda(tables, deletes, device, entered)
     else:
         fused_delete_reference(tables, deletes)
 

@@ -33,6 +33,7 @@ import torch
 from zeebe_tpu_torch.device import DeviceLike, resolve
 from zeebe_tpu_torch.engine import keyspace
 from zeebe_tpu_torch.tpu import hashmap, ops
+from zeebe_tpu_torch.tracing import device as device_spans
 
 # packed column layouts (same as the JAX package)
 EI_ELEM, EI_STATE, EI_WF, EI_SCOPE, EI_TOKENS = 0, 1, 2, 3, 4
@@ -337,6 +338,7 @@ def _rebuilt_map(like: hashmap.HashTable, keys: torch.Tensor, vals: torch.Tensor
     return ops.insert(table, keys, vals, live)[0]
 
 
+@device_spans.traced("rebuild")
 def rebuild_lookup_state(state: EngineState) -> EngineState:
     """Recompute the key→slot indexes and fallback hashmaps from live table
     rows, and the free-slot rings. Run at wave boundaries — not per round
