@@ -70,7 +70,15 @@ beside the host oracle), 10b delta snapshots and a crash restore
 (``tools/state_smoke.py`` at 6a's width: what each take reads back and
 writes, the restored state equal to the live one and the CPU's), 10c the
 trace and audit planes (spans, wave timelines, ``tools/trace_report.py``,
-the JSONL audit equal to the log).
+the JSONL audit equal to the log). Phase 11, run after phase 5d, holds the
+drive's step replayed as a CUDA graph (``tpu/capture.py``) to the eager
+step: a captured commit and insert replayed twice with other data and
+eager inserts between, against the plain versions (and, recorded on the
+card's own claim scratch, shown to differ); configs 1-5 at wave 2^14 over
+a rebuild period; ``shard.build_sharded_drive``, a graph a place; and the
+benchmark's two cells at 2^20 over a rebuild period of units. Each drive's
+every round's emissions and every table are bit-equal, and its capture
+counts are exact (one capture, every other round replayed, one rebind).
 
     python3 chip_smoke.py                     # the full check, one CUDA card
     python3 chip_smoke.py --profile --out F   # + one wave of each config (with
@@ -86,6 +94,7 @@ the JSONL audit equal to the log).
                                               #   A/B
     python3 chip_smoke.py --mesh-only         # only the build and phase 9
     python3 chip_smoke.py --planes-only       # only the build and phase 10
+    python3 chip_smoke.py --capture-only      # only the build and phase 11
     python3 chip_smoke.py --scatter-only      # only phase 2's scatter and row-
                                               #   loop cases, and the one-op
                                               #   accumulate wrapper's host work
@@ -5133,6 +5142,331 @@ def planes_phase(here, report, by_path):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the drive's step replayed as a CUDA graph (tpu/capture.py)
+# ---------------------------------------------------------------------------
+
+# a lookup-rebuild period of waves (rebuilt after waves 0 and 3) and of the
+# benchmark's units (after units 0 and 3)
+CAPTURE_WAVES = 4
+CAPTURE_SEED = 2**33 + 17
+# -(2^64 / golden ratio), as a signed int64: the digest's lane weight
+_DIGEST_MUL = -7046029254386353131
+
+
+def _digest(tensors):
+    """One int64 device scalar of the tensors' values, lane by lane (the
+    bits of a float): equal tensors give equal digests."""
+    import torch
+
+    h = None
+    for t in tensors:
+        v = t.reshape(-1)
+        if v.dtype == torch.float32:
+            v = v.view(torch.int32)
+        v = v.to(torch.int64)
+        w = torch.arange(1, v.numel() + 1, dtype=torch.int64, device=v.device) * _DIGEST_MUL
+        d = (v * (w | 1)).sum() + v.numel()
+        h = d if h is None else h * 1000003 + d
+    return h
+
+
+class _RoundDigests:
+    """Wraps the drive's step: the digest of each round's emissions and
+    stats, in the drive's order."""
+
+    def __init__(self, step):
+        self.step, self.rounds = step, []
+
+    def __call__(self, *args, **kwargs):
+        from zeebe_tpu_torch.tpu import batch as rb
+
+        state, out, stats = self.step(*args, **kwargs)
+        self.rounds.append(_digest([getattr(out, f) for f in rb.FIELDS]
+                                   + [stats[k] for k in sorted(stats)]))
+        return state, out, stats
+
+
+def _state_digests(states):
+    """Each state tensor's digest (a list of states: partition by partition)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import capture
+
+    return [int(x) for x in torch.stack(
+        [_digest([t]) for st in states for t in capture._leaves(st)]).cpu().tolist()]
+
+
+def _in_mode(mode, fn):
+    """``fn()`` with the drive stepping ``kernel.step_kernel`` (``eager``) or
+    ``capture.step`` (``captured``), from no held graph; returns (its
+    result, the rounds' digests, ``capture.counts()``, seconds)."""
+    import gc
+
+    import torch
+
+    from zeebe_tpu_torch.tpu import capture, drive, kernel
+
+    capture.release()
+    tap = _RoundDigests(capture.step if mode == "captured" else kernel.step_kernel)
+    saved = drive.step_kernel
+    drive.step_kernel = tap
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        drive.step_kernel = saved
+    seconds = time.perf_counter() - t0
+    rounds = [int(x) for x in torch.stack(tap.rounds).cpu().tolist()] if tap.rounds else []
+    counts = capture.counts()
+    capture.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rounds, counts, seconds
+
+
+def _modes_agree(label, run, rebuilds, captures=1):
+    """``run()`` eagerly and captured: (totals, state digests) and every
+    round's digest bit-equal; the captured run captured ``captures`` graphs
+    and replayed every other round, rebinding after each of ``rebuilds``."""
+    got = {mode: _in_mode(mode, run) for mode in ("eager", "captured")}
+    (e_out, e_rounds, _c, e_s), (c_out, c_rounds, counts, c_s) = got["eager"], got["captured"]
+    if e_out[0] != c_out[0]:
+        raise AssertionError(f"11 {label}: totals eager {e_out[0]}, captured {c_out[0]}")
+    if e_rounds != c_rounds:
+        bad = [i for i, (a, b) in enumerate(zip(e_rounds, c_rounds)) if a != b]
+        raise AssertionError(f"11 {label}: {len(e_rounds)} / {len(c_rounds)} rounds; "
+                             f"rounds {bad[:8]} emit other records captured")
+    if e_out[1] != c_out[1]:
+        bad = [i for i, (a, b) in enumerate(zip(e_out[1], c_out[1])) if a != b]
+        raise AssertionError(f"11 {label}: the captured drive left other tables "
+                             f"(state tensors {bad[:8]}, STATE_FIELDS order)")
+    want = {"captures": captures, "replays": len(c_rounds) - captures, "rebinds": rebuilds,
+            "eager": {"cpu": 0, "wrapped_op": 0, "recorder": 0, "signature": captures}}
+    if counts != want:
+        raise AssertionError(f"11 {label}: CAPTURE {counts}, want {want}")
+    return {"rounds": len(c_rounds), "eager_seconds": e_s, "captured_seconds": c_s,
+            "capture": counts}
+
+
+def capture_configs(wave=WAVE, waves=CAPTURE_WAVES, device="cuda"):
+    """Configs 1-5 at ``wave``, a rebuild period of waves each: the captured
+    drive against the eager one."""
+    rows = {}
+    for label, drive_fn in (
+        ("config1", functools.partial(drive_config, model_fn=config1_model)),
+        ("config3", functools.partial(drive_config, model_fn=config3_model)),
+        ("config2", functools.partial(drive_config, model_fn=config2_model, mixed=True)),
+        ("config4", c4_drive),
+        ("config5", config5_drive),
+    ):
+        def run(drive_fn=drive_fn):
+            state, totals, _s = drive_fn(waves, wave, device)
+            return totals, _state_digests([state])
+
+        rows[label] = _modes_agree(label, run, rebuilds=1)
+    return rows
+
+
+def capture_cells(units=CAPTURE_WAVES, seed=CAPTURE_SEED, device="cuda", mixes=None):
+    """The benchmark's two cells (2^20 a unit) over a rebuild period of
+    units, through ``gpubench.run.Runner``: the captured drive against the
+    eager one (totals, the five tables' digests after every phase, the key
+    counters and credits, every round's emissions). ``mixes`` (cell → mix
+    parameters) replaces the cells' traffic: a smaller size off the card."""
+    from gpubench import run as bench
+
+    rows = {}
+    for name in ("order-process-1p.burst-1m", "message-timer-1p.burst-1m"):
+        cell, config, _e, _p = bench.load_cell(name)
+
+        def run(cell=cell, config=config):
+            runner = bench.Runner(cell, config, seed, device, (mixes or {}).get(cell["name"]))
+            try:
+                recs = [runner.unit(u) for u in range(units)]
+                runner.sync()
+                tables = [[int(x) for st in r.states for name in bench.STATE_TABLES
+                           for x in st[name]] for r in recs]
+                return ([r.totals for r in recs],
+                        [tables, [r.scalars.cpu().tolist() for r in recs]])
+            finally:
+                runner.tap.close()
+
+        rows[name] = _modes_agree(name, run, rebuilds=1)
+    return rows
+
+
+def capture_mesh(wave=WAVE, places=2, devs=None):
+    """``shard.build_sharded_drive`` over ``places`` places (config 1, the
+    partitions independent; ``devs``, by default ``mesh_devices``): a graph
+    for each place, captured against eager."""
+    from zeebe_tpu_torch.tpu import drive, shard
+
+    devs = devs or mesh_devices(places)
+
+    def run():
+        graph, meta = config_graph(devs[0], config1_model)
+        states = shard.make_partitioned_state(places, CAP_FACTOR * wave, graph.num_vars,
+                                              devices=devs, job_capacity=CAP_FACTOR * wave,
+                                              sub_capacity=8)
+        for st in states:
+            st.sub_key[0] = 1
+            st.sub_type[0] = meta.interns.intern("payment-service")
+            st.sub_worker[0] = meta.interns.intern("bench-worker")
+            st.sub_credits[0] = 2**31 - 1
+            st.sub_timeout[0] = 300_000
+            st.sub_valid[0] = True
+        queues = shard.make_partitioned_queue(places, 4 * wave * max(2, graph.emit_width),
+                                              graph.num_vars, devices=devs)
+        drive_fn = shard.build_sharded_drive(shard.Mesh(devs), wave, synthetic_workers=True)
+        totals = []
+        for _w in range(2):
+            for p in range(places):
+                creates = config_creates(meta, wave, graph.num_vars, devs[p])
+                queues[p] = drive.enqueue(queues[p], creates)
+            states, queues, t = drive_fn(graph, states, queues, 0)
+            totals.append([{k: int(v) for k, v in tp.items()} for tp in t])
+        return totals, _state_digests(states)
+
+    row = _modes_agree(f"mesh over {[str(d) for d in devs]}", run, rebuilds=0,
+                       captures=places)
+    row["devices"] = [str(d) for d in devs]
+    return row
+
+
+def capture_hazard(dev="cuda", rows=1 << 12, width=8, b=WAVE, buckets=1 << 16):
+    """A captured table commit (an unmasked and a lane-masked set into one
+    table, their slots piled onto 64 rows) and insert, replayed twice with
+    other data, eager inserts and a commit advancing the card's claim
+    epochs between: bit-equal to the plain versions. The same graph
+    recorded on the card's own claim scratch must differ (the claim-epoch
+    hazard the graph's own scratch removes)."""
+    import torch
+
+    from zeebe_tpu_torch.tpu import capture, hashmap, ops
+
+    gen = torch.Generator().manual_seed(29)
+    base = torch.randint(-1000, 1000, (rows, width), generator=gen, dtype=torch.int32).to(dev)
+    held = torch.randperm(1 << 24, generator=gen)[: 3 * b].to(torch.int64) * 5 + 3
+    base_map = _filled_map(dev, gen, held[:b].to(dev), buckets)
+    s = {"slots": torch.zeros(b, dtype=torch.int32, device=dev),
+         "active": torch.zeros(b, dtype=torch.bool, device=dev),
+         "vals": torch.zeros((b, width), dtype=torch.int32, device=dev),
+         "slots2": torch.zeros(b, dtype=torch.int32, device=dev),
+         "active2": torch.zeros(b, dtype=torch.bool, device=dev),
+         "vals2": torch.zeros((b, width), dtype=torch.int32, device=dev),
+         "mask2": torch.zeros((b, width), dtype=torch.bool, device=dev),
+         "keys": torch.zeros(b, dtype=torch.int64, device=dev),
+         "kvals": torch.zeros(b, dtype=torch.int32, device=dev),
+         "valid": torch.zeros(b, dtype=torch.bool, device=dev)}
+
+    def fill(trial):
+        g = torch.Generator().manual_seed(100 + trial)
+        s["slots"].copy_(torch.randint(0, 64, (b,), generator=g, dtype=torch.int32))
+        s["active"].copy_(torch.rand((b,), generator=g) < 0.7)
+        s["vals"].copy_(torch.randint(-9, 9, (b, width), generator=g, dtype=torch.int32))
+        s["slots2"].copy_(torch.randint(0, 64, (b,), generator=g, dtype=torch.int32))
+        s["active2"].copy_(torch.rand((b,), generator=g) < 0.7)
+        s["vals2"].copy_(torch.randint(-9, 9, (b, width), generator=g, dtype=torch.int32))
+        s["mask2"].copy_(torch.rand((b, width), generator=g) < 0.5)
+        s["keys"].copy_(held[b + trial * (b // 2): b + trial * (b // 2) + b])
+        s["kvals"].copy_(torch.arange(b, dtype=torch.int32) + trial)
+        s["valid"].copy_(torch.rand((b,), generator=g) < 0.8)
+
+    def table_ops():
+        return [ops.TableOp(0, "set", s["slots"], s["active"], s["vals"]),
+                ops.TableOp(0, "set", s["slots2"], s["active2"], s["vals2"], s["mask2"])]
+
+    def plain():
+        tbl = ops.fused_table_commit_reference([base.clone()], table_ops())[0]
+        table, ok = hashmap.insert(base_map, s["keys"], s["kvals"], s["valid"])
+        return tbl, table, ok
+
+    tbl = base.clone()
+    table = hashmap.HashTable(base_map.keys.clone(), base_map.vals.clone())
+
+    def body():
+        ops.fused_table_commit([tbl], table_ops())
+        return ops.insert(table, s["keys"], s["kvals"], s["valid"])[1]
+
+    other = hashmap.make(buckets, device=dev)
+    other_tbl = base.clone()
+
+    def eager_between(trial):
+        keys = held[2 * b:] + 10 * (trial + 1)
+        for i in range(3):  # 3 x MAX_PROBES epochs, over the same scratch words
+            part = keys[i * (b // 4): (i + 1) * (b // 4)].to(dev)
+            ops.insert(other, part, torch.arange(part.shape[0], dtype=torch.int32, device=dev),
+                       torch.ones(part.shape[0], dtype=torch.bool, device=dev))
+        ops.fused_table_commit([other_tbl], table_ops())
+
+    fill(0)
+    body()  # kernels built, the card's scratch allocated
+    tbl.copy_(base)
+    table.keys.copy_(base_map.keys)
+    table.vals.copy_(base_map.vals)
+    torch.cuda.synchronize()
+    replay, ok, _launched = capture.record(body, torch.device(dev))
+    shared = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(shared):  # the card's own claim scratch
+        ok_shared = body()
+
+    def replayed(run, ok_out):
+        diffs = []
+        for trial in (1, 2):
+            eager_between(trial)
+            fill(trial)
+            tbl.copy_(base)
+            table.keys.copy_(base_map.keys)
+            table.vals.copy_(base_map.vals)
+            run()
+            want_tbl, want_map, want_ok = plain()
+            torch.cuda.synchronize()
+            diffs.append(int((tbl != want_tbl).sum()) + int((table.keys != want_map.keys).sum())
+                         + int((table.vals != want_map.vals).sum())
+                         + int((ok_out != want_ok).sum()))
+        return diffs
+
+    own = replayed(replay, ok)
+    card = replayed(shared.replay, ok_shared)
+    if any(own):
+        raise AssertionError(f"11 hazard: the captured commit and insert differ from the "
+                             f"plain versions in {own} cells (replays 1, 2)")
+    if not any(card):
+        raise AssertionError("11 hazard: recorded on the card's own claim scratch, the "
+                             "replays still matched: the case does not reach the hazard")
+    return {"own_scratch_diffs": own, "card_scratch_diffs": card}
+
+
+def capture_phase(report):
+    """Phase 11: the hazard, configs 1-5 at wave 2^14, the mesh's drive, and
+    both benchmark cells at 2^20, captured against eager."""
+    t0 = time.perf_counter()
+    hz = capture_hazard()
+    report["capture_hazard"] = hz
+    log(f"[11] hazard: a captured commit and insert replayed twice with other data and "
+        f"eager inserts between: bit-equal to the plain versions; recorded on the card's "
+        f"own claim scratch they differ in {hz['card_scratch_diffs']} cells "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for label, row in capture_configs().items():
+        report["capture_" + label] = row
+        log(f"[11] {label}, {CAPTURE_WAVES} waves of {WAVE}: captured == eager, every "
+            f"round's emissions and every table; {row['rounds']} rounds; CAPTURE "
+            f"{row['capture']}; eager {row['eager_seconds']:.2f} s, captured "
+            f"{row['captured_seconds']:.2f} s")
+    row = capture_mesh()
+    report["capture_mesh"] = row
+    log(f"[11] build_sharded_drive over {row['devices']}: a graph a place, captured == "
+        f"eager; CAPTURE {row['capture']}")
+    for name, row in capture_cells().items():
+        report["capture_" + name] = row
+        log(f"[11] {name}, {CAPTURE_WAVES} units: captured == eager (totals, tables after "
+            f"every phase, counters, every round's emissions); {row['rounds']} rounds; "
+            f"CAPTURE {row['capture']}; eager {row['eager_seconds']:.2f} s, captured "
+            f"{row['captured_seconds']:.2f} s")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measured number here (JSON)")
@@ -5150,6 +5484,9 @@ def main(argv) -> int:
     only.add_argument("--planes-only", action="store_true",
                       help="only build the kernels and run phase 10 (the scheduler, "
                            "snapshot, trace and audit planes)")
+    only.add_argument("--capture-only", action="store_true",
+                      help="only build the kernels and run phase 11 (the drive's "
+                           "step replayed as a CUDA graph, against the eager step)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5189,7 +5526,7 @@ def main(argv) -> int:
     checks = (check_gather, check_commit, check_lookup, check_scatters,
               check_insert, check_delete, check_row_loop, check_probe)
     for k, check in enumerate(checks):
-        if args.mesh_only or args.planes_only:
+        if args.mesh_only or args.planes_only or args.capture_only:
             break
         if args.hash_only and check not in (check_lookup, check_insert, check_delete,
                                             check_probe):
@@ -5220,7 +5557,8 @@ def main(argv) -> int:
                 if extra in row:
                     log(f"    {extra}: kernel {row[extra]:.4f} ms")
 
-    if not (args.hash_only or args.scatter_only or args.mesh_only or args.planes_only):
+    if not (args.hash_only or args.scatter_only or args.mesh_only or args.planes_only
+            or args.capture_only):
         report["two_threads"] = check_two_threads("cuda")
         tt = report["two_threads"]
         log(f"[2] two threads, tables of their own, {tt['commits']} table commits and "
@@ -5239,11 +5577,13 @@ def main(argv) -> int:
                 json.dump(result, f, indent=1)
         print(smi, flush=True)
         return 0
-    if args.mesh_only or args.planes_only:
+    if args.mesh_only or args.planes_only or args.capture_only:
         if args.mesh_only:
             mesh_phase(here, report, {}, args.profile)
-        else:
+        elif args.planes_only:
             planes_phase(here, report, {})
+        else:
+            capture_phase(report)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -5350,6 +5690,14 @@ def main(argv) -> int:
             f"a round); device launches {run['commit_launches']['all']}; "
             f"ticks {run['totals'].get('ticks', 0)}; peak memory "
             f"{run['peak_bytes'] / 2**20:.1f} MiB")
+    # phase 11 (here, beside the drives): the captured step against the eager one
+    capture_phase(report)
+    # phases 6 to 10 step only through the served engine and the mesh, which
+    # call kernel.step_kernel: none of their steps is captured or replayed
+    from zeebe_tpu_torch.tpu import capture
+
+    capture.release()
+
     # phase 6: the serving path. The first engine built in this process
     # runs the boot self-check inside its constructor
     import shutil
@@ -5547,6 +5895,11 @@ def main(argv) -> int:
 
     # phase 10: the production planes, each path's launches counted from 0
     planes_phase(here, report, by_path)
+    counts = capture.counts()
+    if counts["captures"] or counts["replays"]:
+        raise AssertionError(f"phases 6-10 stepped through the drive's capture: {counts}")
+    log("[11] phases 6-10 (served engine, cluster, mesh, planes) stepped eagerly through "
+        "kernel.step_kernel: no drive step captured or replayed")
 
     if args.profile:
         report["profile_eval_programs"] = profile_eval_programs(WAVE)

@@ -272,6 +272,7 @@ def test_run_to_quiescence_config2_three_waves(config2):
     creates = _creates(meta, wave, 4, ("orderValue", [10.0, 99.0]))
     absent = int((np.asarray(creates.v_vt)[:, meta.varspace.column("orderValue")] == 0).sum())
     tcreates = port_batch(creates)
+    ops.reset_launches()
     for _wave in range(3):
         jq = jd.enqueue(jq, creates)
         tq = td.enqueue(tq, tcreates)

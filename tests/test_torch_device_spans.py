@@ -238,6 +238,9 @@ def test_the_tool_reads_a_cell_on_the_cpu():
     assert m["ops.host_us_per_launch"] is None
     assert got["checks"]["rounds"][0] == got["checks"]["rounds"][1] > 0
     assert got["checks"]["launch_and_sync_vs_round_pct"] == pytest.approx(0, abs=1e-6)
+    # off the card every drive step runs eagerly, and the tool says so
+    assert got["capture"]["spanned"]["eager.cpu"] == got["checks"]["rounds"][0]
+    assert got["capture"]["replayed_share_plain_pct"] == 0
 
 
 def test_a_span_open_across_an_install_closes_on_its_own_recorder():

@@ -132,6 +132,7 @@ def test_run_to_quiescence_config3_three_waves():
     jq, tq = jd.make_queue(qcap, NUM_VARS), td.make_queue(qcap, NUM_VARS, device="cpu")
     creates = bench.stage_creates(meta, wave, NUM_VARS, meta.interns)
     tcreates = port_batch(creates)
+    ops.reset_launches()
     for _wave in range(3):
         jq = jd.enqueue(jq, creates)
         tq = td.enqueue(tq, tcreates)

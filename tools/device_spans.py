@@ -12,9 +12,15 @@ gaps named by the innermost span open on the host, as a ``--trace 1`` run's
 stay out of the other periods). Prints one JSON line: the recorder's readings a round over both
 spanned periods, how far the card ran behind the host where each span
 ended, the checks that tie them to each other and to the
-harness's own CUDA events around the ticks and rebuilds, and what the
+harness's own CUDA events around the ticks and rebuilds, what the
 recorder costs (the spanned periods' wall time a round against the
-untraced ones'). ``--dump`` writes the spanned periods as Chrome-trace JSON.
+untraced ones'), the profiled period's host time a round in the drive's
+spans, and ``tpu.capture``'s counts over each kind of period.
+The untraced and the profiled periods replay the drive's step from a CUDA
+graph; with the recorder installed it runs eagerly (``eager.recorder``),
+so the spanned periods read the eager step's phases, and their cost
+against the untraced ones is the recorder's and the eager step's
+together. ``--dump`` writes the spanned periods as Chrome-trace JSON.
 """
 
 from __future__ import annotations
@@ -52,6 +58,32 @@ def per_round(summary: dict) -> dict:
     return out
 
 
+def _host_split(prof, rounds: int) -> dict:
+    """The host ms a round of the drive's spans in a finished profile (each
+    span a ``record_function`` there: its host duration; the profile's
+    device-side copy of an annotation is left out)."""
+    from torch.autograd import DeviceType
+
+    totals: dict = {}
+    for e in prof.key_averages():
+        if e.key in ("drive.round", "drive.launch", "drive.sync", "step") and (
+                e.device_type == DeviceType.CPU):
+            totals[e.key] = totals.get(e.key, 0.0) + e.cpu_time_total
+    return {k + "_ms": v / 1e3 / rounds for k, v in totals.items()} if rounds else {}
+
+
+def _add(into: dict, before: dict, after: dict) -> None:
+    """Add ``after`` less ``before`` (two ``tpu.capture.counts()``) to ``into``,
+    the eager steps flattened to ``eager.<reason>``."""
+    for k, v in after.items():
+        if isinstance(v, dict):
+            for reason, n in v.items():
+                key = f"eager.{reason}"
+                into[key] = into.get(key, 0) + n - before[k][reason]
+        else:
+            into[k] = into.get(k, 0) + v - before[k]
+
+
 def _share(a: Optional[float], b: Optional[float]) -> Optional[float]:
     """How far ``a`` lies from ``b``, in percent of ``b``."""
     if a is None or not b:
@@ -66,6 +98,7 @@ def measure(workload: str, seed: int, device: str = "cuda", mix_spec: Optional[d
 
     from gpubench import run as bench
     from gpubench import trace as bench_trace
+    from zeebe_tpu_torch.tpu import capture
     from zeebe_tpu_torch.tracing import device as device_spans
 
     cell, config, _e2e, _layers = bench.load_cell(workload, ROOT)
@@ -74,22 +107,28 @@ def measure(workload: str, seed: int, device: str = "cuda", mix_spec: Optional[d
     runner.sync()
     period, u = runner.mix.rebuild_every, 1
 
-    def units(n):
+    # what tpu.capture counted over each kind of period
+    captured = {"plain": {}, "spanned": {}, "profiled": {}}
+
+    def units(n, kind):
         nonlocal u
+        before = capture.counts()
         start = time.perf_counter()
         recs = [runner.unit(u + i) for i in range(n)]
         runner.sync()
         u += n
-        return sum(t["rounds"] for r in recs for t in r.totals), time.perf_counter() - start
+        seconds = time.perf_counter() - start
+        _add(captured[kind], before, capture.counts())
+        return sum(t["rounds"] for r in recs for t in r.totals), seconds
 
     tracer = device_spans.DeviceTracer(runner.device if runner.cuda else None)
     plain, spanned = [0, 0.0], [0, 0.0]
     ticks, rebuilds = [], []  # the harness's CUDA events around the spanned calls
     for _turn in range(2):
-        for sink, on in ((plain, None), (spanned, tracer)):
+        for sink, on, kind in ((plain, None, "plain"), (spanned, tracer, "spanned")):
             runner.rebuild_ms, runner.tick_ms = [], []
             device_spans.install(on)
-            rounds, seconds = units(period)
+            rounds, seconds = units(period, kind)
             device_spans.install(None)
             sink[0] += rounds
             sink[1] += seconds
@@ -97,12 +136,13 @@ def measure(workload: str, seed: int, device: str = "cuda", mix_spec: Optional[d
                 ticks += runner.tick_ms
                 rebuilds += runner.rebuild_ms
     summary = tracer.summary()
-    busy, gaps = None, []
+    busy, gaps, profiled_split = None, [], {}
     if runner.cuda:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            traced_rounds, _s = units(period)
+            traced_rounds, _s = units(period, "profiled")
         read = bench_trace.read_profile(prof)
         busy, gaps = read["busy_s"] * 1e3 / traced_rounds, read["idle_gaps"]
+        profiled_split = _host_split(prof, traced_rounds)
     if dump:
         tracer.dump(dump)
     metrics = per_round(summary)
@@ -144,12 +184,21 @@ def measure(workload: str, seed: int, device: str = "cuda", mix_spec: Optional[d
         "spanned_round_ms": spanned[1] * 1e3 / spanned[0],
         "on_cost_pct": _share(spanned[1] / spanned[0], plain[1] / plain[0]),
         "profiled_busy_ms_per_round": busy,
+        # the profiled period's host time a round in the drive's spans: a
+        # replayed round's launching, its sync wait and its step
+        "profiled_host_ms_per_round": profiled_split,
         "idle_gaps": gaps,
         # how far the card ran behind the host where each span ended
         "lag_ms": {name: s["lag_ms"] for name, s in spans.items()},
         "tick_ms": [span_ms("tick"), tick_ms],
         "rebuild_ms": [span_ms("rebuild"), rebuild_ms],
         "checks": checks,
+        # the drive's steps replayed from a CUDA graph, and those run eagerly
+        # by reason, over the untraced, the spanned and the profiled periods;
+        # and the process's counts, the warm unit's capture included
+        "capture": {**captured, "replayed_share_plain_pct": (
+            100.0 * captured["plain"].get("replays", 0) / plain[0] if plain[0] else None),
+            "process": summary["capture"]},
         "summary": summary,
     }
 

@@ -15,7 +15,10 @@ Queue layout (same as the JAX package): the FIFO front is kept at index 0.
 
 The JAX package runs the whole loop as one device program. Here the loop
 is Python and reads ``count`` and the overflow flag once per round: one
-host sync a round (CUDA graphs are the tool to remove it, later).
+host sync a round. On the card each round's step is one replay of a CUDA
+graph of ``kernel.step_kernel`` (``tpu.capture``; ``CAPTURE`` counts the
+captures, replays, rebinds and eager steps): the module global
+``step_kernel``, which a caller may wrap, is ``capture.step``.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ import torch
 from zeebe_tpu_torch.device import DeviceLike, resolve
 from zeebe_tpu_torch.tpu import batch as rb
 from zeebe_tpu_torch.tpu.batch import RecordBatch
+from zeebe_tpu_torch.tpu.capture import CAPTURE  # noqa: F401 - drive.CAPTURE
+from zeebe_tpu_torch.tpu.capture import step as step_kernel
 from zeebe_tpu_torch.tpu.graph import DeviceGraph
-from zeebe_tpu_torch.tpu.kernel import step_kernel
 from zeebe_tpu_torch.tpu.state import EngineState
 from zeebe_tpu_torch.tracing import device as device_spans
 

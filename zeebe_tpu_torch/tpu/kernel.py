@@ -402,6 +402,9 @@ def step_kernel(
     ``synthetic_workers`` (bench-only): every ACTIVATED push also emits an
     instant COMPLETE command — the worker round trip without leaving the
     device.
+
+    ``now`` is the clock in ms: an int, or an int64 scalar on the batch's
+    device (what a CUDA graph of the step reads, ``tpu.capture``).
     """
     dev = batch.device
     b = batch.size
@@ -852,8 +855,7 @@ def step_kernel(
 
     # output mapping: merge record payload → scope payload
     scope_vt, scope_sid, scope_num = unpack_payload(sc_pay_rows)
-    scope_vt = torch.where(sc_found[:, None], scope_vt.to(torch.int8),
-                           torch.tensor(VT_ABSENT, dtype=torch.int8, device=dev))
+    scope_vt = torch.where(sc_found[:, None], scope_vt.to(torch.int8), VT_ABSENT)
     behavior = emeta[:, graph_mod.EM_OUT_BEHAVIOR]
     B_OVERWRITE, B_NONE = 1, 2
     src_present = batch.v_vt != VT_ABSENT

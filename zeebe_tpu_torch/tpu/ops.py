@@ -26,7 +26,8 @@ from a CUDA tensor to the plain version. A call's tensors lie on one card
 current stream, whichever card the caller has current. ``LAUNCHES`` counts the wrapper
 calls that reach the GPU, ``DEVICE_LAUNCHES`` the kernels they enqueue
 (a table commit is a pass or two per stage of ``commit_plan``; every
-other call one), and, while the device-path recorder is installed
+other call one; a CUDA graph's replay adds what its capture counted,
+``credit``), and, while the device-path recorder is installed
 (``tracing.device``), ``HOST_NS`` the host nanoseconds of those calls,
 from the wrapper's entry to the C entry's return. The launch plans
 (``gather_plan``, ``commit_plan``, ``lookup_plan``, which the delete
@@ -46,6 +47,7 @@ Semantics kept from the JAX package (the XLA fallbacks its CPU tests pin):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -85,6 +87,29 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, DEVICE_LAUNCHES, HOST_NS):
         for k in counts:
             counts[k] = 0
+
+
+def launch_counts() -> Dict[str, Tuple[int, int]]:
+    """Each wrapper's (calls, device launches) so far."""
+    with _count_lock:
+        return {k: (LAUNCHES[k], DEVICE_LAUNCHES[k]) for k in LAUNCHES}
+
+
+def set_launch_counts(counts: Dict[str, Tuple[int, int]]) -> None:
+    """Put ``launch_counts()`` back: a CUDA graph's capture counts calls
+    that launch nothing until the graph is replayed."""
+    with _count_lock:
+        for k, (calls, launched) in counts.items():
+            LAUNCHES[k], DEVICE_LAUNCHES[k] = calls, launched
+
+
+def credit(counts: Dict[str, Tuple[int, int]]) -> None:
+    """Count the wrapper calls and device launches that one replay of a
+    CUDA graph ran, as its capture recorded them (no host time)."""
+    with _count_lock:
+        for k, (calls, launched) in counts.items():
+            LAUNCHES[k] += calls
+            DEVICE_LAUNCHES[k] += launched
 
 
 def _entered() -> int:
@@ -520,6 +545,9 @@ _COMMIT_LAYOUT = struct.Struct("<7Q4iIi")
 #   thread's current stream (``_stream``) and no path of the package sets
 #   a stream, so all of them share the device's default stream. A caller
 #   that gives engines streams of their own needs a scratch per stream.
+# A launch recorded into a CUDA graph replays the epochs of its capture,
+# which the per-device scratch has long passed; it claims in a
+# ``PrivateScratch`` instead (``private_scratch``).
 _claims: Dict[torch.device, list] = {}
 _scratch_locks: Dict[torch.device, threading.Lock] = {}
 
@@ -531,11 +559,46 @@ def _scratch_lock(device: torch.device) -> threading.Lock:
     return lock
 
 
+class PrivateScratch:
+    """The claim and worklist scratch of the launches recorded into one CUDA
+    graph, installed by ``private_scratch`` while the graph is captured. Its
+    claims are allocated zeroed by the graph's first claiming launch, inside
+    the graph, so every replay zeroes them again and then hands out its
+    capture's epochs in capture order: a replay never meets a tag of an
+    earlier replay, nor of any launch outside the graph, which claims in
+    the per-device scratch. The graph's memory pool keeps both buffers."""
+
+    def __init__(self):
+        self.claims: Dict[torch.device, list] = {}
+        self.worklists: Dict[torch.device, torch.Tensor] = {}
+
+
+_private = threading.local()
+
+
+@contextlib.contextmanager
+def private_scratch(scratch: PrivateScratch):
+    """The calling thread's launches claim in ``scratch`` for the block."""
+    outer = getattr(_private, "scratch", None)
+    _private.scratch = scratch
+    try:
+        yield scratch
+    finally:
+        _private.scratch = outer
+
+
+def _scratch() -> Tuple[Dict[torch.device, list], Dict[torch.device, torch.Tensor]]:
+    """The claim and worklist scratch the calling thread launches with."""
+    own = getattr(_private, "scratch", None)
+    return (_claims, _worklists) if own is None else (own.claims, own.worklists)
+
+
 def _claim_scratch(device: torch.device, words: int, epochs: int):
-    entry = _claims.get(device)
+    claims = _scratch()[0]
+    entry = claims.get(device)
     if entry is None or entry[0].numel() < words:
         entry = [torch.zeros(max(words, 1), dtype=torch.int64, device=device), 0]
-        _claims[device] = entry
+        claims[device] = entry
     if entry[1] + epochs >= 2**32 - 1:
         entry[0].zero_()
         entry[1] = 0
@@ -1079,10 +1142,11 @@ _worklists: Dict[torch.device, torch.Tensor] = {}
 
 
 def _worklist_scratch(device: torch.device, pairs: int) -> torch.Tensor:
-    buf = _worklists.get(device)
+    worklists = _scratch()[1]
+    buf = worklists.get(device)
     if buf is None or buf.numel() < pairs:
         buf = torch.empty((max(pairs, 1),), dtype=torch.int64, device=device)
-        _worklists[device] = buf
+        worklists[device] = buf
     return buf
 
 

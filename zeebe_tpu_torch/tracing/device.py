@@ -12,7 +12,10 @@ record through the broker; these follow the card's work inside one drive
 - ``step``: one ``tpu.kernel.step_kernel`` call, whose children are its
   phases ``step.lookups``, ``step.routing``, ``step.compute``, ``step.keys``,
   ``step.emit``, ``step.commit`` and ``step.compact``, one after another;
-  the step's own time, after the last phase, is the teardown of its frame;
+  the step's own time, after the last phase, is the teardown of its frame.
+  A drive's step replayed from a CUDA graph (``tpu.capture``) is a ``step``
+  with no phases: its copies in and the graph's launch. With a recorder
+  installed the drive steps eagerly, phases and all;
 - ``tick``: one ``tpu.kernel.tick_kernel`` call;
 - ``rebuild``: one ``tpu.state.rebuild_lookup_state`` call.
 
@@ -170,7 +173,10 @@ class DeviceTracer:
         readings None where an event is missing: on the CPU); ``rounds``,
         the ``drive.round`` count; ``ops``, the wrapper calls that reached
         the card while the recorder was installed and their host ns;
-        ``dropped``; and the traced ``device``."""
+        ``dropped``; the traced ``device``; and ``capture``, the process's
+        ``tpu.capture.CAPTURE`` counts when read (the drive's steps replayed
+        from a CUDA graph, and those run eagerly by reason: with the
+        recorder installed, ``eager.recorder``)."""
         at = self._device_ms()
         base = self._anchor[0] * 1e-6 if self._anchor is not None else 0.0
         spans: Dict[str, dict] = {}
@@ -196,6 +202,7 @@ class DeviceTracer:
                     "by_wrapper": {k: [calls[k], host_ns[k]] for k in calls if calls[k]}},
             "dropped": self.dropped,
             "device": str(self.device) if self.device is not None else None,
+            "capture": _capture_counts(),
         }
 
     def dump(self, path: str) -> None:
@@ -220,6 +227,12 @@ class DeviceTracer:
                                "dur": (at[e1] - at[e0]) * 1e3, "args": args})
         with open(path, "w") as f:
             json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+
+
+def _capture_counts() -> dict:
+    from zeebe_tpu_torch.tpu import capture
+
+    return capture.counts()
 
 
 def _ops_counts() -> Dict[str, Dict[str, int]]:
