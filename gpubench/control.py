@@ -23,8 +23,14 @@ each on the CPU at a small size.
   is dropped.
 - ``altered-record``: one emitted record a step gets a wrong intent, where
   it is produced.
+- ``drop-exchange``: the lockstep drive of several partitions
+  (``tpu.shard.build_sharded_drive``) loses every record it routes to
+  another partition: the exchange between partitions, and between cards
+  where they lie on several, left out. A configuration of one partition,
+  or one whose graph has no message step, has no exchange to leave out.
 
-A cell runs on one card, so there is no exchange between cards to leave out.
+Each control of the step breaks both steps a drive may call: the one
+``tpu.drive`` calls and the one ``tpu.shard``'s lockstep drive calls.
 """
 
 from __future__ import annotations
@@ -81,6 +87,16 @@ def _altered_record(step):
     return wrapped
 
 
+def _drop_exchange(route):
+    import torch
+
+    def wrapped(out, nparts, my_pid):
+        to = route(out, nparts, my_pid)
+        return torch.where(to == my_pid, to, torch.full_like(to, -1))
+    return wrapped
+
+
+# controls of the step, and of the exchange between partitions
 CONTROLS = {
     "bf16-payload": _bf16_payload,
     "bf16-payload-at-end": lambda step: _bf16_payload(step, _at_end_events),
@@ -88,17 +104,26 @@ CONTROLS = {
     "half-batch": _half_batch,
     "altered-record": _altered_record,
 }
+EXCHANGE_CONTROLS = {"drop-exchange": _drop_exchange}
 
 
 def install(name: str):
-    """Break the step that ``tpu.drive`` calls; returns the undo."""
+    """Break the steps that ``tpu.drive`` and ``tpu.shard`` call, or the
+    routing of ``tpu.shard``'s lockstep drive; returns the undo."""
     import zeebe_tpu_torch.tpu.drive as drive
+    from zeebe_tpu_torch.tpu import shard
 
-    step = drive.step_kernel
-    drive.step_kernel = CONTROLS[name](step)
+    if name in EXCHANGE_CONTROLS:
+        broken = [(shard, "correlation_route", EXCHANGE_CONTROLS[name])]
+    else:
+        broken = [(m, "step_kernel", CONTROLS[name]) for m in (drive, shard)]
+    saved = [(m, attr, getattr(m, attr)) for m, attr, _ in broken]
+    for m, attr, wrap in broken:
+        setattr(m, attr, wrap(getattr(m, attr)))
 
     def undo():
-        drive.step_kernel = step
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
     return undo
 
 
@@ -112,7 +137,8 @@ def main(argv=None) -> int:
     from gpubench import run as bench
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--control", required=True, choices=sorted(CONTROLS))
+    ap.add_argument("--control", required=True,
+                    choices=sorted(CONTROLS) + sorted(EXCHANGE_CONTROLS))
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)

@@ -19,6 +19,40 @@ record the engine emits at any row of any round (``src`` is the row of the
 record that caused it in that round's batch), and what the partition's
 state holds once the queue has drained.
 
+A configuration of several partitions is a ``Cluster``: each partition
+has a log and key counters of its own (keys drawn from base ``p << 51``),
+and the instances' values are shared, each written by the partition that
+draws or sets it. The cluster reads its logs in lockstep rounds, the
+published semantics of a partitioned log read in batches: in each round
+every partition reads up to ``batch_size`` records of its log (an idle one
+reads nothing), appends its own emissions first, then the records the
+other partitions routed to it, by source partition in order. Routing is
+Zeebe 0.x's: a ``MESSAGE_SUBSCRIPTION`` command (OPEN, CLOSE) goes to the
+partition of its correlation key's hash, a ``WORKFLOW_INSTANCE_SUBSCRIPTION``
+CORRELATE to the instance's partition, everything else stays. A graph with
+no message step keeps the partitions independent, each read to its own
+quiescence.
+
+Where the engine's records differ from Zeebe 0.x's processors, the
+reference follows the engine, since its records are what is compared:
+
+- the partition of a correlation key: Zeebe 0.x hashes the key's string
+  (``SubscriptionUtil.getSubscriptionHashCode``); the engine hashes the
+  composite of (message name, value type, value bits) with a Fibonacci
+  multiplicative hash (``HASH_MUL`` below), and so does the reference;
+- the instance's partition rides the ``wf`` column of every message and
+  workflow-instance subscription record (``workflowInstancePartitionId``
+  in Zeebe 0.x), which the records emitted from them inherit;
+- CORRELATE names the message's partition in ``aux2_key``
+  (``subscriptionPartitionId`` in Zeebe 0.x);
+- Zeebe 0.x acknowledges an opened message subscription with a
+  WORKFLOW_INSTANCE_SUBSCRIPTION OPEN / OPENED round trip and resends
+  unacknowledged commands on a timer; the engine opens with one command
+  and sends each once, and so does the reference;
+- Zeebe 0.x delivers a routed command whenever its transport does; the
+  engine, and the reference, deliver it at the end of the round that
+  emitted it.
+
 Nothing here imports the engine under test or JAX: numbers of the Zeebe
 protocol are copied below, and the engine's own encodings (element
 indices, interned strings, payload columns) come in as plain tables that
@@ -47,7 +81,15 @@ WISUB = dict(CORRELATE=0, CORRELATED=1)
 # payload value types of the columnar payload
 VT_ABSENT, VT_BOOL, VT_NUM = 0, 2, 3
 KEY_STEP, WF_KEY0, JOB_KEY0 = 5, 1, 2
-PARTITION = 0
+# a partition's keys start at its id in the high bits: 13 bits of
+# partition, 51 of counter
+PARTITION_SHIFT = 51
+# the correlation key's hash: ((composite * HASH_MUL) >> 33) & 0x7FFFFFFF,
+# wrapping modulo 2^64, taken modulo the partition count
+HASH_MUL = -7046029254386353131
+# where a processed record's emission goes: its own partition, the
+# message partition of its correlation key, or its instance's partition
+STAY, TO_MSG, TO_INST = 0, 1, 2
 
 # the columns of a record, in the engine's batch order, without the payload
 FIELDS = ("valid", "rtype", "vtype", "intent", "key", "elem", "wf", "instance_key",
@@ -98,6 +140,8 @@ class Semantics:
         self._build()
         self.names = list(self.kinds)
         self.index = {n: i for i, n in enumerate(self.names)}
+        self.has_messages = any(e["type"] == "receiveTask" for e in self.elements.values())
+        self.route = np.array([route_of(self.kinds[n]) for n in self.names], np.int8)
 
     # -- the graph ------------------------------------------------------------
     def out_flow(self, src: str) -> Tuple[str, str]:
@@ -220,7 +264,8 @@ class Semantics:
         bd = bds[0]
         msg = dict(type_id="id:" + e["message"], retries=VT_NUM,
                    worker="bits:" + e["correlationKey"])
-        sub = dict(msg, instance_key="k_inst", aux_key="k:" + eid)
+        # the subscription records carry the instance's partition in wf
+        sub = dict(msg, instance_key="k_inst", aux_key="k:" + eid, wf="part:inst")
         timer = dict(elem=bd, instance_key="k_inst", scope_key="k_inst", aux_key="k:" + eid,
                      deadline="due:" + bd)
         timer_created = self._add(Kind("TIMER_CREATED", RT_EVENT, VT_TIMER, TIMER["CREATED"],
@@ -248,7 +293,7 @@ class Semantics:
         correlated = self._add(Kind("WISUB_CORRELATED", RT_EVENT, VT_WISUB,
                                     WISUB["CORRELATED"], dict(sub), payload="msg"))
         correlate = self._add(Kind("WISUB_CORRELATE", RT_CMD, VT_WISUB, WISUB["CORRELATE"],
-                                   dict(sub, aux2_key=PARTITION), payload="msg",
+                                   dict(sub, aux2_key="part:msg"), payload="msg",
                                    children=(correlated, completing, close_c),
                                    correlates=True))
         message = dict(msg, wf=-1)
@@ -295,6 +340,32 @@ class Semantics:
                        children=(created, ready)))
 
 
+def route_of(kind: Kind) -> int:
+    """Where the records of ``kind`` are processed, relative to the
+    partition that emitted them (Zeebe 0.x's subscription command
+    senders)."""
+    if kind.rtype == RT_CMD and kind.vtype == VT_MSUB:
+        return TO_MSG
+    if kind.rtype == RT_CMD and kind.vtype == VT_WISUB:
+        return TO_INST
+    return STAY
+
+
+def hash_partition(composite: np.ndarray, partitions: int) -> np.ndarray:
+    """The partition of each correlation composite (int64)."""
+    with np.errstate(over="ignore"):
+        h = ((np.asarray(composite, np.int64) * np.int64(HASH_MUL)) >> np.int64(33)) \
+            & np.int64(0x7FFFFFFF)
+    return (h % partitions).astype(np.int64)
+
+
+def composite(name_id: int, bits: np.ndarray) -> np.ndarray:
+    """The correlation composite of a numeric correlation value: the
+    message name's id, the value type and the value's float32 bits."""
+    return (np.int64(name_id) << 35) | (np.int64(VT_NUM) << 32) \
+        | (np.asarray(bits, np.int64) & 0xFFFFFFFF)
+
+
 @dataclasses.dataclass
 class Rows:
     """Captured rows of a round: the instance and kind of each record, the
@@ -332,18 +403,27 @@ def f32_bits(x: np.ndarray) -> np.ndarray:
 
 class Partition:
     """One partition's log and state, driven as the engine is: host records
-    are appended, then ``drive`` reads the log in rounds until it drains."""
+    are appended, then ``drive`` reads the log in rounds until it drains.
+    Partition ``pid`` of a ``Cluster`` shares the instances' values with the
+    cluster's first partition (``shared``)."""
 
     def __init__(self, sem: Semantics, enc: Encoding, n: int,
-                 wf_key: int = WF_KEY0, job_key: int = JOB_KEY0):
-        self.sem, self.enc, self.n = sem, enc, n
+                 wf_key: int = WF_KEY0, job_key: int = JOB_KEY0, pid: int = 0,
+                 shared: Optional["Partition"] = None):
+        self.sem, self.enc, self.n, self.pid = sem, enc, n, pid
         self.counters = {"wf": wf_key, "job": job_key}
-        self.values: Dict[str, np.ndarray] = {}
-        # variables of each instance and of its message: name → (vt, num)
-        self.inst_vars: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-        self.msg_vars: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-        self.merged = np.zeros(n, bool)
-        self.waiting = np.zeros(n, bool)
+        if shared is None:
+            self.values: Dict[str, np.ndarray] = {
+                "part:inst": np.zeros(n, np.int64), "part:msg": np.zeros(n, np.int64)}
+            # variables of each instance and of its message: name → (vt, num)
+            self.inst_vars: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+            self.msg_vars: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+            self.merged = np.zeros(n, bool)
+            self.waiting = np.zeros(n, bool)
+        else:
+            self.values, self.inst_vars, self.msg_vars = (shared.values, shared.inst_vars,
+                                                          shared.msg_vars)
+            self.merged, self.waiting = shared.merged, shared.waiting
         self.q_inst = np.zeros(0, np.int64)
         self.q_kind = np.zeros(0, np.int32)
         k = len(sem.names)
@@ -363,14 +443,14 @@ class Partition:
         return self.values[name]
 
     # -- inputs -------------------------------------------------------------------
-    def create(self, variables: Dict[str, np.ndarray]):
-        """A CREATE command for every instance, in instance order, with its
-        numeric variables (f32)."""
+    def create(self, variables: Dict[str, np.ndarray], inst: Optional[np.ndarray] = None):
+        """A CREATE command for every instance (or those of ``inst``), in
+        instance order, with its numeric variables (f32)."""
         for name, vals in variables.items():
             vals = np.asarray(vals, np.float32)
             self.inst_vars[name] = (np.full(self.n, VT_NUM, np.int64), vals)
             self.values["bits:" + name] = f32_bits(vals)
-        self._append(np.arange(self.n), "CREATE")
+        self._append(np.arange(self.n) if inst is None else inst, "CREATE")
 
     def publish(self, order: np.ndarray, variables: Dict[str, object]):
         """PUBLISH commands for the instances in ``order``, each keyed by its
@@ -383,22 +463,25 @@ class Partition:
         self._append(np.asarray(order, np.int64), "PUBLISH")
 
     def tick(self, now: int) -> np.ndarray:
-        """The instances whose timer is due at ``now``, in the order of the
-        timers' keys: the TRIGGER commands the partition's tick writes."""
+        """The instances of this partition whose timer is due at ``now``, in
+        the order of the timers' keys: the TRIGGER commands its tick writes."""
         due = [v for v in self.values if v.startswith("due:")]
         if not due:
             return np.zeros(0, np.int64)
         when = self.values[due[0]]
-        fire = np.nonzero(self.waiting & (when >= 0) & (when <= now))[0]
+        fire = np.nonzero(self.waiting & (when >= 0) & (when <= now)
+                          & (self.values["part:inst"] == self.pid))[0]
         return fire[np.argsort(self.values["timer"][fire], kind="stable")]
 
     def trigger(self, fire: np.ndarray):
         self._append(fire, "TRIGGER")
 
     def _append(self, inst: np.ndarray, kind: str):
-        self.q_inst = np.concatenate([self.q_inst, inst.astype(np.int64)])
-        self.q_kind = np.concatenate([self.q_kind,
-                                      np.full(len(inst), self.sem.index[kind], np.int32)])
+        self._enqueue(inst.astype(np.int64), np.full(len(inst), self.sem.index[kind], np.int32))
+
+    def _enqueue(self, inst: np.ndarray, kind: np.ndarray):
+        self.q_inst = np.concatenate([self.q_inst, inst])
+        self.q_kind = np.concatenate([self.q_kind, kind])
 
     # -- the drive ------------------------------------------------------------------
     def drive(self, batch_size: int, now: int,
@@ -408,58 +491,64 @@ class Partition:
         each round r in ``capture`` ({r: (row, count)}), the records the
         round emits at rows [row, row + count) (round numbers from 1), as
         ``Rows`` for ``records``."""
-        sem = self.sem
         totals = dict(processed=0, emitted=0, completed_roots=0, rounds=0)
         captured = {}
-        kinds_of = [sem.kinds[nm] for nm in sem.names]
         while len(self.q_inst):
-            take = min(batch_size, len(self.q_inst))
-            bi, bk = self.q_inst[:take], self.q_kind[:take]
-            present = np.unique(bk)
-            for fam in ("wf", "job"):
-                n = self._alloc[fam][bk]
-                total = int(n.sum())
-                if not total:
-                    continue
-                base = self.counters[fam] + KEY_STEP * (np.cumsum(n) - n)
-                for k in present:
-                    fam_slots = [s for s, f in kinds_of[k].alloc if f == fam]
-                    if not fam_slots:
-                        continue
-                    m = bk == k
-                    for j, slot in enumerate(fam_slots):
-                        self.value(slot)[bi[m]] = base[m] + KEY_STEP * j
-                self.counters[fam] += KEY_STEP * total
-            for k in present:
-                kind = kinds_of[k]
-                if not (kind.sets or kind.completes_root or kind.waits or kind.correlates
-                        or kind.fires):
-                    continue
-                m = bk == k
-                for slot, delta in kind.sets:
-                    self.value(slot)[bi[m]] = now + delta
-                totals["completed_roots"] += int(m.sum()) if kind.completes_root else 0
-                if kind.waits:
-                    self.waiting[bi[m]] = True
-                if kind.correlates:
-                    self.merged[bi[m]] = True
-                if kind.correlates or kind.fires:
-                    self.waiting[bi[m]] = False
-            nch = self._nchild[bk]
-            rep = np.repeat(np.arange(take), nch)
-            pos = np.arange(len(rep)) - (np.cumsum(nch) - nch)[rep]
-            ck = self._child[bk[rep], pos]
-            ci = bi[rep]
-            totals["rounds"] += 1
-            totals["processed"] += take
-            self.kind_counts += np.bincount(bk, minlength=len(sem.names))
-            totals["emitted"] += len(rep)
+            ci, ck, src = self.round(batch_size, now, totals)
             if capture and totals["rounds"] in capture:
                 row, count = capture[totals["rounds"]]
-                captured[totals["rounds"]] = self._rows(ci, ck, rep, row, count)
-            self.q_inst = np.concatenate([self.q_inst[take:], ci])
-            self.q_kind = np.concatenate([self.q_kind[take:], ck])
+                captured[totals["rounds"]] = self._rows(ci, ck, src, row, count)
+            self._enqueue(ci, ck)
         return totals, captured
+
+    def round(self, batch_size: int, now: int, totals: Dict[str, int]):
+        """Read up to ``batch_size`` records off the log and process them:
+        keys drawn, values set, flags moved, ``totals`` counted. Returns the
+        emissions in log order: (instance, kind, row of the record that
+        caused it)."""
+        sem = self.sem
+        kinds_of = [sem.kinds[nm] for nm in sem.names]
+        take = min(batch_size, len(self.q_inst))
+        bi, bk = self.q_inst[:take], self.q_kind[:take]
+        self.q_inst, self.q_kind = self.q_inst[take:], self.q_kind[take:]
+        present = np.unique(bk)
+        for fam in ("wf", "job"):
+            n = self._alloc[fam][bk]
+            total = int(n.sum())
+            if not total:
+                continue
+            base = self.counters[fam] + KEY_STEP * (np.cumsum(n) - n)
+            for k in present:
+                fam_slots = [s for s, f in kinds_of[k].alloc if f == fam]
+                if not fam_slots:
+                    continue
+                m = bk == k
+                for j, slot in enumerate(fam_slots):
+                    self.value(slot)[bi[m]] = base[m] + KEY_STEP * j
+            self.counters[fam] += KEY_STEP * total
+        for k in present:
+            kind = kinds_of[k]
+            if not (kind.sets or kind.completes_root or kind.waits or kind.correlates
+                    or kind.fires):
+                continue
+            m = bk == k
+            for slot, delta in kind.sets:
+                self.value(slot)[bi[m]] = now + delta
+            totals["completed_roots"] += int(m.sum()) if kind.completes_root else 0
+            if kind.waits:
+                self.waiting[bi[m]] = True
+            if kind.correlates:
+                self.merged[bi[m]] = True
+            if kind.correlates or kind.fires:
+                self.waiting[bi[m]] = False
+        nch = self._nchild[bk]
+        rep = np.repeat(np.arange(take), nch)
+        pos = np.arange(len(rep)) - (np.cumsum(nch) - nch)[rep]
+        totals["rounds"] += 1
+        totals["processed"] += take
+        self.kind_counts += np.bincount(bk, minlength=len(sem.names))
+        totals["emitted"] += len(rep)
+        return bi[rep], self._child[bk[rep], pos], rep
 
     # -- what the records and the state hold ----------------------------------------------
     def _payload(self, inst: np.ndarray, mode: np.ndarray, merged: np.ndarray):
@@ -583,11 +672,199 @@ class Partition:
                                k_inst, enc.elem[bd] * one, enc.wf_slot * one)
         name_id = enc.interns[msg["message"]]
         bits = self.values["bits:" + msg["correlationKey"]][w] & 0xFFFFFFFF
-        ckey = (np.int64(name_id) << 35) | (np.int64(VT_NUM) << 32) | bits
-        tables["msub"] = rows(ckey, name_id * one, VT_NUM * one,
+        tables["msub"] = rows(composite(name_id, bits), name_id * one, VT_NUM * one,
                               np.asarray(bits, np.uint32).view(np.int32).astype(np.int64),
-                              PARTITION * one, k_inst, k_task)
+                              self.values["part:inst"][w], k_inst, k_task)
+        # each table's rows on this partition: the instance's own, and the
+        # subscriptions whose correlation key hashes here
+        for name, at in (("ei", "part:inst"), ("timer", "part:inst"), ("msub", "part:msg")):
+            mine = self.values[at][w] == self.pid
+            tables[name] = tables[name][np.tile(mine, len(tables[name]) // len(w))]
         return tables
+
+
+class Cluster:
+    """``partitions`` partitions of one configuration: their logs, key
+    counters and state (see the module's docstring). With one partition it
+    is that ``Partition``, call for call. Inputs are routed as Zeebe's
+    gateway routes them: CREATE ``i`` to partition ``i % partitions``, a
+    PUBLISH to the partition of its correlation key's hash; each partition
+    ticks its own timers."""
+
+    def __init__(self, sem: Semantics, enc: Encoding, n: int, partitions: int = 1):
+        self.sem, self.enc, self.n, self.size = sem, enc, n, partitions
+        first = Partition(sem, enc, n)
+        self.parts = [first] + [
+            Partition(sem, enc, n, (p << PARTITION_SHIFT) + WF_KEY0,
+                      (p << PARTITION_SHIFT) + JOB_KEY0, pid=p, shared=first)
+            for p in range(1, partitions)]
+        self.values = first.values
+        self.values["part:inst"][:] = np.arange(n) % partitions
+        self.lockstep = sem.has_messages and partitions > 1
+        # per drive, the rounds each partition read
+        self.read: List[List[int]] = []
+
+    @property
+    def counters(self) -> List[Dict[str, int]]:
+        return [p.counters for p in self.parts]
+
+    @property
+    def kind_counts(self) -> np.ndarray:
+        """[partition, kind]: the records each partition processed."""
+        return np.stack([p.kind_counts for p in self.parts])
+
+    # -- inputs ---------------------------------------------------------------------
+    def create(self, variables: Dict[str, np.ndarray]):
+        own = self.values["part:inst"]
+        for p in self.parts:
+            p.create(variables, np.nonzero(own == p.pid)[0])
+        receive = [e for e in self.sem.elements.values() if e["type"] == "receiveTask"]
+        if receive:
+            e = receive[0]
+            self.values["part:msg"][:] = hash_partition(
+                composite(self.enc.interns[e["message"]],
+                          self.values["bits:" + e["correlationKey"]]), self.size)
+
+    def publish(self, order: np.ndarray, variables: Dict[str, object]):
+        order = np.asarray(order, np.int64)
+        to = self.values["part:msg"][order]
+        for p in self.parts:
+            p.publish(order[to == p.pid], variables)
+
+    def tick(self, now: int) -> List[np.ndarray]:
+        return [p.tick(now) for p in self.parts]
+
+    def trigger(self, fires: List[np.ndarray]):
+        for p, fire in zip(self.parts, fires):
+            p.trigger(fire)
+
+    # -- the drive ----------------------------------------------------------------------
+    def drive(self, batch_size: int, now: int,
+              capture: Optional[Dict[Tuple[int, int], Tuple[int, int]]] = None):
+        """Every partition's log read until all drain. Returns each
+        partition's totals, the rounds being the drive's (the most any
+        partition read), and the ``Rows`` of each (partition, round) in
+        ``capture`` ({(partition, round): (row, count)})."""
+        capture = capture or {}
+        if not self.lockstep:
+            out = [p.drive(batch_size, now, {r: v for (q, r), v in capture.items()
+                                             if q == p.pid}) for p in self.parts]
+            self.read.append([t["rounds"] for t, _ in out])
+            rounds = max(self.read[-1])
+            captured = {(p, r): rows for p, (_, caps) in enumerate(out)
+                        for r, rows in caps.items()}
+            return [dict(t, rounds=rounds) for t, _ in out], captured
+        totals = [dict(processed=0, emitted=0, completed_roots=0, rounds=0) for _ in self.parts]
+        captured = {}
+        while any(len(p.q_inst) for p in self.parts):
+            sends = []
+            for p, t in zip(self.parts, totals):
+                ci, ck, src = p.round(batch_size, now, t)
+                if (p.pid, t["rounds"]) in capture:
+                    row, count = capture[(p.pid, t["rounds"])]
+                    captured[(p.pid, t["rounds"])] = p._rows(ci, ck, src, row, count)
+                rt = self.sem.route[ck]
+                to = np.where(rt == TO_MSG, self.values["part:msg"][ci],
+                              np.where(rt == TO_INST, self.values["part:inst"][ci], p.pid))
+                sends.append([(ci[to == q], ck[to == q]) for q in range(self.size)])
+            for q in self.parts:
+                q._enqueue(*sends[q.pid][q.pid])
+                for p in range(self.size):
+                    if p != q.pid:
+                        q._enqueue(*sends[p][q.pid])
+        self.read.append([t["rounds"] for t in totals])
+        return totals, captured
+
+    # -- what the records and the state hold ------------------------------------------------
+    def records(self, rows: "Rows") -> Dict[str, np.ndarray]:
+        return self.parts[0].records(rows)
+
+    def trigger_rows(self, fire: np.ndarray, row: int, count: int) -> "Rows":
+        return self.parts[0].trigger_rows(fire, row, count)
+
+    def snapshot(self) -> "Rest":
+        return self.parts[0].snapshot()
+
+    def state_rows(self, rest: "Rest") -> List[Dict[str, np.ndarray]]:
+        return [p.state_rows(rest) for p in self.parts]
+
+    def shift_keys(self, deltas: List[Dict[str, int]]):
+        """Move every key partition p drew, and its counters, by
+        ``deltas[p]`` ({"wf": .., "job": ..}): a unit that the engine ran
+        after others draws the same keys as one run first, moved by what
+        those drew on each partition. A key's high bits name the partition
+        that drew it."""
+        drawn = {slot: fam for kd in self.sem.kinds.values() for slot, fam in kd.alloc}
+        for slot, fam in drawn.items():
+            v = self.values.get(slot)
+            if v is not None:
+                by = np.where(v >= 0, v >> PARTITION_SHIFT, 0)
+                shift = np.array([d[fam] for d in deltas], np.int64)[by]
+                v[v >= 0] += shift[v >= 0]
+        for p, d in zip(self.parts, deltas):
+            p.counters = {f: c + d[f] for f, c in p.counters.items()}
+
+    def draws(self, kind_counts: np.ndarray) -> List[Dict[str, int]]:
+        """The keys of each family that partitions drew for ``kind_counts``
+        ([partition, kind] records processed), in key steps."""
+        alloc = self.parts[0]._alloc
+        return [{fam: int(KEY_STEP * (c @ alloc[fam])) for fam in ("wf", "job")}
+                for c in kind_counts]
+
+
+def unit_kind_counts(sem: Semantics, enc: Encoding, n: int, partitions: int,
+                     steps) -> np.ndarray:
+    """[partition, kind]: the records each partition processes over one
+    unit, without reading its logs: every input record leads to the same
+    records whatever the rounds, each processed on its instance's partition
+    or its correlation key's, so the counts follow from the instances'
+    partitions. ``steps`` is the unit's inputs in order: ("create",
+    {variable: values}, at), ("publish", order, at) or ("tick", None, at).
+    The keys a unit draws on each partition are these counts through
+    ``Cluster.draws``."""
+    cl = Cluster(sem, enc, n, partitions)
+    k = len(sem.names)
+    # each input kind's records by where they are processed: on the
+    # instance's partition (0) or the message's (1); and what they leave
+    tree = {}
+    for root, at_msg in (("CREATE", 0), ("PUBLISH", 1), ("TRIGGER", 0)):
+        if root not in sem.index:
+            continue
+        counts = np.zeros((2, k), np.int64)
+        due, waits = [], None
+        stack = [(sem.index[root], at_msg)]
+        while stack:
+            i, where = stack.pop()
+            counts[where, i] += 1
+            kd = sem.kinds[sem.names[i]]
+            due += [(slot, d) for slot, d in kd.sets if slot.startswith("due:")]
+            if kd.waits and waits is None:
+                waits = True
+            if kd.correlates or kd.fires:
+                waits = False
+            for c in kd.children:
+                rt = sem.route[sem.index[c]]
+                stack.append((sem.index[c], where if rt == STAY else int(rt == TO_MSG)))
+        tree[root] = (counts, due[:1], waits)
+    out = np.zeros((partitions, k), np.int64)
+    waiting = np.zeros(n, bool)
+    when = np.full(n, -1, np.int64)
+    for op, arg, at in steps:
+        if op == "create":
+            cl.create(arg)
+            root, inst = "CREATE", np.arange(n)
+        elif op == "publish":
+            root, inst = "PUBLISH", np.asarray(arg, np.int64)
+        else:
+            root, inst = "TRIGGER", np.nonzero(waiting & (when >= 0) & (when <= at))[0]
+        counts, due, waits = tree[root]
+        for where, part in enumerate(("part:inst", "part:msg")):
+            out += np.outer(np.bincount(cl.values[part][inst], minlength=partitions), counts[where])
+        for _slot, d in due:
+            when[inst] = at + d
+        if waits is not None:
+            waiting[inst] = waits
+    return out
 
 
 # each table's digest columns: (names, with the packed payload after them)

@@ -71,16 +71,34 @@ def load_reader(metric: str, root: Path = ROOT):
 
 @dataclasses.dataclass
 class UnitRecord:
+    """One unit's inputs and what the engine produced: per drive its totals
+    and its tables' digests, the tick's (phase, count, row, copied rows),
+    and the counters. Each is one partition's as it stands, or over several
+    partitions a list with an entry a partition (``Runner._each`` reads
+    both alike) and counters of [P, 3]."""
+
     unit: int
     inputs: object
-    totals: List[Dict[str, int]] = dataclasses.field(default_factory=list)
-    states: List[dict] = dataclasses.field(default_factory=list)
-    tick: Optional[tuple] = None   # (phase, count, row, copied rows)
+    totals: list = dataclasses.field(default_factory=list)
+    states: list = dataclasses.field(default_factory=list)
+    tick: object = None
     scalars: object = None
 
 
+def devices_for(config: dict, chips: int, device) -> list:
+    """Partition p's device: card ``p % chips`` where the partitions are
+    several and ``device`` names CUDA, else ``device`` itself."""
+    import torch
+
+    dev = torch.device(device)
+    parts = int(config.get("partitions", 1))
+    if parts == 1 or dev.type != "cuda":
+        return [dev] * parts
+    return [torch.device("cuda", p % chips) for p in range(parts)]
+
+
 class Runner:
-    """One cell's engine, mix and taps on ``device``."""
+    """One cell's engine, mix and taps on the cell's devices."""
 
     def __init__(self, cell, config, seed: int, device, mix_spec: Optional[dict] = None):
         import torch
@@ -88,12 +106,19 @@ class Runner:
         from gpubench import generator, reference, system
 
         self.torch = torch
-        self.device = torch.device(device)
         self.seed = seed
         self.config = config
         self.mix = (generator.Mix(mix_spec, config) if mix_spec is not None
                     else generator.load(cell["traffic"], config))
-        self.engine = system.Engine(config, self.mix.unit_size, self.mix.batch_size, device)
+        self.devices = devices_for(config, int(cell["chips"]), device)
+        self.device = self.devices[0]
+        self.parts = len(self.devices)
+        if self.parts == 1:
+            self.engine = system.Engine(config, self.mix.unit_size, self.mix.batch_size,
+                                        self.device)
+        else:
+            self.engine = system.ShardedEngine(config, self.mix.unit_size, self.mix.batch_size,
+                                               self.devices, self.mix.synthetic_workers)
         self.enc = self.engine.enc
         self.tap = system.RoundTap(min(TAP_ROWS, self.mix.batch_size), self.mix.batch_size, seed)
         self.sem = reference.Semantics(config["graph"], config.get("worker"))
@@ -112,6 +137,10 @@ class Runner:
         sink.append((a, b))
         return out
 
+    def _each(self, x) -> list:
+        """The engine's answer, one entry a partition."""
+        return [x] if self.parts == 1 else x
+
     def unit(self, u: int) -> UnitRecord:
         from gpubench import system
 
@@ -129,11 +158,19 @@ class Runner:
                     batch = eng.publishes(phase["message"], corr, phase["variables"])
                 else:
                     at = now + int(phase["after_ms"])
-                    batch, count = self._timed(self.tick_ms, eng.tick, at)
-                    due = mix.unit_size - sum(len(p) for p in inp.publish.values())
-                    rows = min(TAP_ROWS, batch.size)
-                    row = int(self.tap.rng.integers(0, max(1, due - rows + 1)))
-                    rec.tick = (i, count, row, system.copy_rows(batch, row, rows))
+                    ticked = self._each(self._timed(self.tick_ms, eng.tick, at))
+                    ticks = []
+                    for tb, count in ticked:
+                        # one partition: the instances no publish reached
+                        due = (mix.unit_size - sum(len(p) for p in inp.publish.values())
+                               if self.parts == 1 else int(count))
+                        rows = min(TAP_ROWS, tb.size)
+                        row = int(self.tap.rng.integers(0, max(1, due - rows + 1)))
+                        ticks.append((i, count, row, system.copy_rows(tb, row, rows)))
+                    if self.parts == 1:
+                        rec.tick, batch = ticks[0], ticked[0][0]
+                    else:
+                        rec.tick, batch = ticks, [tb for tb, _ in ticked]
                 self.tap.begin(u, i)
                 with torch.profiler.record_function("tpu.drive.run_to_quiescence"):
                     rec.totals.append(eng.drive(batch, at, mix.synthetic_workers))
@@ -147,27 +184,51 @@ class Runner:
 
     def sync(self):
         if self.cuda:
-            self.torch.cuda.synchronize()
+            for d in sorted({d.index for d in self.devices}):
+                self.torch.cuda.synchronize(d)
+
+    def peak(self) -> int:
+        """The largest of the cards' peak allocations."""
+        if not self.cuda:
+            return 0
+        return max(self.torch.cuda.max_memory_allocated(d) for d in set(self.devices))
 
 
 def event_ms(pairs) -> List[float]:
     return [a.elapsed_time(b) for a, b in pairs]
 
 
+def unit_steps(mix, inputs, unit: int) -> list:
+    """A unit's inputs as ``reference.unit_kind_counts`` takes them (host
+    arrays)."""
+    now, steps = mix.now(unit), []
+    for i, phase in enumerate(mix.phases):
+        if phase["op"] == "create":
+            steps.append(("create", {k: v.cpu().numpy() for k, v in inputs.variables.items()},
+                          now))
+        elif phase["op"] == "publish":
+            steps.append(("publish", inputs.publish[i].cpu().numpy(), now))
+        else:
+            steps.append(("tick", None, now + int(phase["after_ms"])))
+    return steps
+
+
 def check_units(runner: Runner, records: List[UnitRecord], seed: int):
     """Replay a seeded sample of the window's units on the reference and
-    compare; returns {name: (number, limit, detail)} and the failed count."""
+    compare, partition by partition; returns {name: (number, limit,
+    detail)} and the failed count."""
     import numpy as np
 
     from gpubench import reference as ref
+    from gpubench import system
 
-    mix, enc, sem = runner.mix, runner.enc, runner.sem
+    mix, enc, sem, parts = runner.mix, runner.enc, runner.sem, runner.parts
     rng = np.random.default_rng([seed, 11])
     pick = sorted(rng.choice(len(records), size=min(CHECKED_UNITS, len(records)),
                              replace=False).tolist())
     taken = {}
-    for u, d, r, row, buf in runner.tap.taken:
-        taken.setdefault(u, []).append((d, r, row, buf))
+    for u, d, p, r, row, buf in runner.tap.taken:
+        taken.setdefault(u, []).append((d, p, r, row, buf))
     # every check compares something: a tap that no round reached, or a
     # tick phase with no rows to compare, reads as not correct
     out = dict(records=[0, 0, None], tapped_rounds=[0, 0, None], drive_totals=[0, 0, None],
@@ -182,79 +243,120 @@ def check_units(runner: Runner, records: List[UnitRecord], seed: int):
         if bad and out[name][2] is None:
             out[name][2] = detail
 
+    # the records each partition processed in each unit before the
+    # sampled ones: one partition's are the same every unit (every unit
+    # has the same sizes and nothing is routed); several partitions' follow
+    # from each unit's inputs, drawn again from the seed
+    counted: Dict[int, object] = {}
+
+    def earlier(u):
+        if parts == 1:
+            return None
+        for v in range(u):
+            if v not in counted:
+                inputs = mix.inputs(seed, v, runner.device)
+                counted[v] = ref.unit_kind_counts(sem, enc, mix.unit_size, parts,
+                                                  unit_steps(mix, inputs, v))
+        return sum((counted[v] for v in range(u)), np.zeros((parts, len(sem.names)), np.int64))
+
+    each = runner._each
     for idx in pick:
         rec = records[idx]
         u = rec.unit
-        part = ref.Partition(sem, enc, mix.unit_size)
-        host = {k: v.cpu().numpy() for k, v in rec.inputs.variables.items()}
-        now = mix.now(u)
+        rec_totals = [each(t) for t in rec.totals]
+        rec_tick = None if rec.tick is None else each(rec.tick)
+        cl = ref.Cluster(sem, enc, mix.unit_size, parts)
+        steps = unit_steps(mix, rec.inputs, u)
         raw, rests, ticks, totals = {}, [], None, []
-        for i, phase in enumerate(mix.phases):
-            at = now
-            if phase["op"] == "create":
-                part.create(host)
-            elif phase["op"] == "publish":
-                part.publish(rec.inputs.publish[i].cpu().numpy(), phase["variables"])
+        for i, (op, arg, at) in enumerate(steps):
+            if op == "create":
+                cl.create(arg)
+            elif op == "publish":
+                cl.publish(arg, mix.phases[i]["variables"])
             else:
-                at = now + int(phase["after_ms"])
-                fire = part.tick(at)
-                ticks = (fire, part.trigger_rows(fire, rec.tick[2], rec.tick[3].shape[0]))
-                part.trigger(fire)
-            plan = {r: (row, buf.shape[0]) for d, r, row, buf in taken.get(u, []) if d == i}
-            t, caps = part.drive(mix.batch_size, at, plan)
+                fires = cl.tick(at)
+                ticks = [(fire, cl.trigger_rows(fire, t[2], t[3].shape[0]))
+                         for fire, t in zip(fires, rec_tick)]
+                cl.trigger(fires)
+            plan = {(p, r): (row, buf.shape[0]) for d, p, r, row, buf in taken.get(u, [])
+                    if d == i}
+            t, caps = cl.drive(mix.batch_size, at, plan)
             totals.append(t)
             raw[i] = caps
-            rests.append(part.snapshot())
-        wf0, job0 = ref.WF_KEY0, ref.JOB_KEY0
-        per_wf, per_job = part.counters["wf"] - wf0, part.counters["job"] - job0
-        part.shift_keys(u * per_wf, u * per_job)
+            rests.append(cl.snapshot())
+        this_unit = cl.kind_counts
+        before = earlier(u)
+        if before is None:
+            before = u * this_unit
+        else:
+            again = ref.unit_kind_counts(sem, enc, mix.unit_size, parts, steps)
+            note("counters", int(not np.array_equal(again, this_unit)), 1,
+                 f"unit {u}: the reference's replay and its count of records disagree")
+        cl.shift_keys(cl.draws(before))
         unit_totals = totals
-        for i, (got, want) in enumerate(zip(rec.totals, totals)):
-            got = {k: got[k] for k in want}
-            note("drive_totals", int(got != want), 1,
-                 f"unit {u} phase {i}: got {got}, want {want}")
-        from gpubench import system
-
-        for i, got in enumerate(rec.totals):
-            tapped = sum(1 for d, *_rest in taken.get(u, []) if d == i)
-            note("tapped_rounds", int(tapped != got["rounds"]), 1,
-                 f"unit {u} phase {i}: the tap saw {tapped} of the drive's {got['rounds']} rounds")
-        for d, r, row, buf in taken.get(u, []):
-            rows = raw[d].get(r)
+        for i, (got, want) in enumerate(zip(rec_totals, totals)):
+            for p, (g, w) in enumerate(zip(got, want)):
+                g = {k: g[k] for k in w}
+                note("drive_totals", int(g != w), 1,
+                     f"unit {u} phase {i} partition {p}: got {g}, want {w}")
+        for i, got in enumerate(rec_totals):
+            for p, g in enumerate(got):
+                tapped = sum(1 for d, q, *_rest in taken.get(u, []) if d == i and q == p)
+                want = cl.read[i][p]
+                note("tapped_rounds", int(tapped != want), 1,
+                     f"unit {u} phase {i} partition {p}: the tap saw {tapped} of the "
+                     f"reference's {want} rounds")
+        for d, p, r, row, buf in taken.get(u, []):
+            rows = raw[d].get((p, r))
             if rows is None:
                 note("records", buf.shape[0], buf.shape[0],
-                     f"unit {u} phase {d}: the engine ran round {r}, the reference fewer")
+                     f"unit {u} phase {d} partition {p}: the engine ran round {r}, "
+                     f"the reference fewer")
                 continue
-            n, bad, first = ref.compare_records(system.split_rows(buf), part.records(rows))
-            note("records", bad, n, f"unit {u} phase {d} round {r} from row {row}: {first}")
+            n, bad, first = ref.compare_records(system.split_rows(buf), cl.records(rows))
+            note("records", bad, n,
+                 f"unit {u} phase {d} partition {p} round {r} from row {row}: {first}")
         for i, (state, rest) in enumerate(zip(rec.states, rests)):
-            want = part.state_rows(rest)
-            for name in STATE_TABLES:
-                count, dig = (int(x) for x in state[name])
-                w = (len(want[name]), ref.digest(want[name]))
-                note("state_tables", int((count, dig) != w), 1,
-                     f"unit {u} phase {i} table {name}: {count} rows, digest {dig}; "
-                     f"want {w[0]} rows, digest {w[1]}")
-        if rec.tick is not None:
-            i, count, row, buf = rec.tick
-            fire, want = ticks
-            note("tick_rows", int(int(count) != len(fire)), 1,
-                 f"unit {u}: tick count {int(count)}, want {len(fire)}")
-            n, bad, first = ref.compare_records(system.split_rows(buf), part.records(want))
-            note("tick_rows", bad, n, f"unit {u} tick from row {row}: {first}")
-        got = [int(x) for x in rec.scalars.cpu().tolist()]
-        want = [part.counters["wf"], part.counters["job"], got[2]]
-        if "worker" in runner.config:
-            acts = int(part.kind_counts[sem.index["JOB_ACTIVATE"]])
-            want[2] = int(runner.config["worker"]["credits"]) - (u + 1) * acts
-        note("counters", int(got != want), 1, f"unit {u}: counters {got}, want {want}")
+            for p, (got, want) in enumerate(zip(each(state), cl.state_rows(rest))):
+                for name in STATE_TABLES:
+                    count, dig = (int(x) for x in got[name])
+                    w = (len(want[name]), ref.digest(want[name]))
+                    note("state_tables", int((count, dig) != w), 1,
+                         f"unit {u} phase {i} partition {p} table {name}: {count} rows, "
+                         f"digest {dig}; want {w[0]} rows, digest {w[1]}")
+        if rec_tick is not None:
+            for p, ((i, count, row, buf), (fire, want)) in enumerate(zip(rec_tick, ticks)):
+                note("tick_rows", int(int(count) != len(fire)), 1,
+                     f"unit {u} partition {p}: tick count {int(count)}, want {len(fire)}")
+                n, bad, first = ref.compare_records(system.split_rows(buf), cl.records(want))
+                note("tick_rows", bad, n, f"unit {u} partition {p} tick from row {row}: {first}")
+        acts = (before + this_unit)[:, sem.index["JOB_ACTIVATE"]] if "worker" in runner.config \
+            else None
+        for p, got in enumerate(rec.scalars.reshape(parts, -1).cpu().tolist()):
+            got = [int(x) for x in got]
+            c = cl.counters[p]
+            want = [c["wf"], c["job"], got[2]]
+            if acts is not None:
+                want[2] = int(runner.config["worker"]["credits"]) - int(acts[p])
+            note("counters", int(got != want), 1,
+                 f"unit {u} partition {p}: counters {got}, want {want}")
+    # every unit has the same sizes, so every unit's totals are the same:
+    # one partition's as they stand; over several, where each unit's inputs
+    # route records to other partitions and rounds, their sums over the
+    # partitions, without the rounds
     failed = 0
+    keys = ("processed", "emitted", "completed_roots") + (("rounds",) if parts == 1 else ())
+
+    def summed(ts):
+        return [{k: sum(t[k] for t in phase) for k in keys} for phase in ts]
+
+    want = summed(unit_totals)
     for rec in records:
-        done = sum(t["completed_roots"] for t in rec.totals)
+        rec_totals = [each(t) for t in rec.totals]
+        done = sum(t["completed_roots"] for ts in rec_totals for t in ts)
         failed += mix.unit_size - done
-        got = [{k: t[k] for k in w} for t, w in zip(rec.totals, unit_totals)]
-        note("drive_totals", int(got != unit_totals), 1,
-             f"unit {rec.unit}: totals {got}, want {unit_totals}")
+        got = summed(rec_totals)
+        note("drive_totals", int(got != want), 1, f"unit {rec.unit}: totals {got}, want {want}")
     return out, failed
 
 
@@ -304,12 +406,15 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
             window_s = time.perf_counter() - start
             if window_s >= seconds:
                 break
-        processed = sum(t["processed"] for r in records for t in r.totals)
+        processed = sum(t["processed"] for r in records for ts in r.totals
+                        for t in runner._each(ts))
         metrics = {"transitions_per_s": processed / window_s, "setup_s": setup_s}
         units = {m["name"]: m["unit"] for m in end_to_end}
         result["metrics"] = {k: {"value": v, "unit": units[k]} for k, v in metrics.items()
                              if k in units}
-        log(f"window {window_s:.3f} s: {len(records)} units, {processed} records")
+        rounds = [max(t["rounds"] for t in runner._each(ts)) for r in records for ts in r.totals]
+        log(f"window {window_s:.3f} s: {len(records)} units, {processed} records, "
+            f"{sum(rounds)} drive rounds in {len(rounds)} drives")
     else:
         from torch.profiler import ProfilerActivity, profile
 
@@ -337,7 +442,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
         read = tr.read_profile(prof)
 
         def rounds(recs):
-            return sum(x["rounds"] for r in recs for x in r.totals)
+            return sum(max(x["rounds"] for x in runner._each(ts)) for r in recs for ts in r.totals)
 
         t = tr.Trace(
             rounds=rounds(traced), window_s=window_s, plain_rounds=rounds(plain),
@@ -345,7 +450,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
             kernel_s=read["kernel_s"],
             bytes_moved=counter.totals(), rebuild_ms=event_ms(runner.rebuild_ms),
             tick_ms=event_ms(runner.tick_ms), device_ops=read["device_ops"],
-            idle_gaps=read["idle_gaps"])
+            idle_gaps=read["idle_gaps"], card_busy_s=read["card_busy_s"],
+            card_launches=read["card_launches"])
         result["metrics"] = {}
         for m in per_layer:
             value = load_reader(m["name"], root)(t)
@@ -353,10 +459,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
                 result["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
         result["breakdown"] = {"device_ops": [list(x) for x in t.device_ops],
                                "idle_gaps": [list(x) for x in t.idle_gaps]}
-        result["_trace"] = (t.busy_s, window_s)
+        # the device's busy seconds, averaged over the cell's cards
+        chips = int(cell["chips"])
+        busy = t.busy_s if chips == 1 else sum(t.card_busy_s.values()) / chips
+        result["_trace"] = (busy, window_s)
         log(f"traced window {window_s:.3f} s: {period} units, {t.rounds} rounds, device busy "
             f"{t.busy_s:.6f} s, {t.launches} kernels; timed untraced units {plain_s:.3f} s")
-    peak = torch.cuda.max_memory_allocated(runner.device) if runner.cuda else 0
+    peak = runner.peak()
     runner.tap.close()
     engine = runner.engine
     runner.engine = None

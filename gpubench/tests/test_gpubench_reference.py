@@ -53,7 +53,7 @@ def _drive_units(config_name, n, batch, units, seed):
                     part.trigger(fire)
                 tap.begin(u, i)
                 got_t = eng.drive(batch_in, at, mix.synthetic_workers)
-                plan = {r: (row, tap.rows) for uu, d, r, row, _ in tap.taken
+                plan = {r: (row, tap.rows) for uu, d, _p, r, row, _ in tap.taken
                         if uu == u and d == i}
                 want_t, all_caps[i] = part.drive(batch, at, plan)
                 assert {k: got_t[k] for k in want_t} == want_t
@@ -63,7 +63,7 @@ def _drive_units(config_name, n, batch, units, seed):
                     tick_pair = (got, want_tick)
             part.shift_keys(u * (part.counters["wf"] - ref.WF_KEY0),
                             u * (part.counters["job"] - ref.JOB_KEY0))
-            for uu, d, r, row, buf in tap.taken:
+            for uu, d, _p, r, row, buf in tap.taken:
                 if uu == u:
                     _n, n_bad, first = ref.compare_records(system.split_rows(buf),
                                                            part.records(all_caps[d][r]))

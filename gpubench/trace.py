@@ -56,6 +56,9 @@ class Trace:
     tick_ms: List[float]
     device_ops: List[Tuple[str, float]]
     idle_gaps: List[Tuple[str, float]]
+    # the same busy time and kernels by card (the profiler's device index)
+    card_busy_s: Dict[int, float] = dataclasses.field(default_factory=dict)
+    card_launches: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     def csrc_seconds(self, short: str) -> float:
         name = KERNELS[short]
@@ -168,7 +171,9 @@ class ByteCounter:
     def totals(self) -> Dict[str, float]:
         out = dict(self.fixed)
         if self.counted:
-            counts = torch.stack([c.to(torch.int64) for _, c, _ in self.counted]).cpu().tolist()
+            first = self.counted[0][1].device
+            counts = torch.stack([c.to(first, torch.int64) for _, c, _ in self.counted])
+            counts = counts.cpu().tolist()
             for (kernel, _, per), n in zip(self.counted, counts):
                 out[kernel] = out.get(kernel, 0.0) + n * per
         return out
@@ -184,8 +189,15 @@ def _merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     return out
 
 
+def _card(event: dict) -> int:
+    """The card a device event ran on: its ``device`` argument, else the
+    trace's process id, which the profiler sets to the device's index."""
+    card = event.get("args", {}).get("device", event.get("pid", 0))
+    return int(card) if str(card).isdigit() else 0
+
+
 def read_profile(prof) -> dict:
-    """Device busy time, kernels by name and the idle gaps of a finished
+    """Device busy time (also by card), kernels by name and the idle gaps of a finished
     ``torch.profiler.profile``, from its Chrome trace (written to the
     temporary directory and removed). The longest idle gaps are named by
     what the host was doing at their middle: the innermost harness span
@@ -202,6 +214,8 @@ def read_profile(prof) -> dict:
     dev, host = [], []
     kernel_s: Dict[str, float] = defaultdict(float)
     launches = 0
+    by_card: Dict[int, List[Tuple[float, float]]] = defaultdict(list)
+    card_launches: Dict[int, int] = defaultdict(int)
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -211,6 +225,9 @@ def read_profile(prof) -> dict:
             dev.append((s, s + d))
             kernel_s[e["name"]] += d * 1e-6
             launches += cat == "kernel"
+            card = _card(e)
+            by_card[card].append((s, s + d))
+            card_launches[card] += cat == "kernel"
         elif cat in HOST_CATS:
             host.append((s, s + d, e["name"], cat))
     busy = _merge(dev)
@@ -234,4 +251,6 @@ def read_profile(prof) -> dict:
         "kernel_s": dict(kernel_s),
         "device_ops": sorted(kernel_s.items(), key=lambda kv: -kv[1])[:10],
         "idle_gaps": sorted(named.items(), key=lambda kv: -kv[1])[:10],
+        "card_busy_s": {c: sum(e - s for s, e in _merge(iv)) * 1e-6 for c, iv in by_card.items()},
+        "card_launches": dict(card_launches),
     }
